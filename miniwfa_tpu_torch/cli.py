@@ -1,4 +1,5 @@
-"""mwf-torch — test-mwf-compatible command-line driver (exact modes).
+"""mwf-torch — test-mwf-compatible command-line driver (exact modes,
+high-mem and low-mem CIGAR).
 
 Same flags and the same PAF-like 10/11-column TSV output as the reference
 binary (main.c:29-83) and ``miniwfa_tpu/cli.py``:
@@ -23,6 +24,7 @@ from .utils.io import read_fastx
 USAGE = """Usage: python -m miniwfa_tpu_torch.cli [options] <in1.fa> <in2.fa>
 Options:
   -c       generate CIGAR
+  -p INT   low-memory mode: checkpoint every INT scores (implies -c)
   -a       mimic affine gap
   -e       mimic edit distance
   -B INT   batch size for device dispatch [64]
@@ -32,8 +34,7 @@ Options:
   -K       (accepted for compatibility; no allocator to disable)
   -d       debug logging
   --device DEV  torch device to run on [cuda]
-Not yet ported (use miniwfa_tpu.cli): -p (low-memory mode), -u (chaining)
-  and -t (auto mode).
+Not yet ported (use miniwfa_tpu.cli): -u (chaining) and -t (auto mode).
 """
 
 
@@ -53,6 +54,8 @@ def main(argv=None) -> int:
     for o, a in opts:
         if o == "-c":
             opt = opt.replace(cigar=True)
+        elif o == "-p":
+            opt = opt.replace(cigar=True, step=int(a))
         elif o == "-a":
             opt = opt.as_single_affine()
         elif o == "-e":
@@ -69,10 +72,10 @@ def main(argv=None) -> int:
             debug = True
         elif o == "--device":
             device = a
-        elif o in ("-p", "-u", "-t"):
+        elif o in ("-u", "-t"):
             print(f"ERROR: option {o} is not yet ported to miniwfa_tpu_torch "
-                  f"(low-memory, chaining and auto modes); use "
-                  f"python -m miniwfa_tpu.cli", file=sys.stderr)
+                  f"(chaining and auto modes); use python -m miniwfa_tpu.cli",
+                  file=sys.stderr)
             return 1
     if per_pair:
         batch_size = 1

@@ -7,7 +7,9 @@ both directions, so the two engines can be fed the same inputs and their
 outputs compared value for value:
 
 * the kernel's scalar rows ``scal [B, 7 + 2*seg_cap] int32`` (columns
-  SC_*) ↔ the port's per-lane inputs ``lanes [B, L_N] int64``;
+  SC_*) ↔ the port's per-lane inputs ``lanes [B, L_N] int64`` and, for
+  the pass-2 checkpoints (SC_NSEG, SC_SEG...), ``segs [B, seg_cap, 2]
+  int64`` padded with score -1;
 * the segmented word tables ``pack_table`` ``[B, nseg, 128, 128]`` (128
   words per column, segments overlapping by one 128-word block) ↔ the
   port's flat word streams ``[B, NW] int32``;
@@ -15,7 +17,11 @@ outputs compared value for value:
   row ``r`` in byte ``r % 4`` of packed row ``r // 4``: ``unpack_tb``) ↔
   the port's ``tb [B, S_CAP, W] uint8``;
 * the 10-column output row (O_*; n_iter split into 30-bit halves) ↔ the
-  port's ``out [B, O_N] int64``.
+  port's ``out [B, O_N] int64``.  Every column means the same in both
+  (a PASS1 lane out of snapshot rows is a band overflow in both) except
+  PASS1's ``last_ptr``, a flat index into each package's own snapshot
+  layout: the two packages' pass 1 meet at decoded ``(score, diagonal)``
+  checkpoints, the JAX package's through its own decoder.
 
 The JAX package's column numbers are restated here, so this module needs
 neither JAX nor that package.
@@ -48,8 +54,23 @@ def lanes_from_scal(scal: np.ndarray) -> np.ndarray:
     return lanes
 
 
-def scal_from_lanes(lanes: np.ndarray, seg_cap: int = 1) -> np.ndarray:
+def segs_from_scal(scal: np.ndarray) -> np.ndarray:
+    """The checkpoint columns of ``scal`` -> segs [B, seg_cap, 2] int64,
+    rows past each lane's n_seg padded with score -1."""
+    scal = np.asarray(scal, np.int64)
+    cap = (scal.shape[1] - SC_SEG) // 2
+    segs = np.zeros((scal.shape[0], cap, 2), np.int64)
+    segs[:, :, 0] = scal[:, SC_SEG:SC_SEG + cap]
+    segs[:, :, 1] = scal[:, SC_SEG + cap:SC_SEG + 2 * cap]
+    segs[np.arange(cap)[None, :] >= scal[:, SC_NSEG:SC_NSEG + 1], 0] = -1
+    return segs
+
+
+def scal_from_lanes(lanes: np.ndarray, seg_cap: int = 1,
+                    segs: np.ndarray = None) -> np.ndarray:
     lanes = np.asarray(lanes, np.int64)
+    if segs is not None:
+        seg_cap = max(seg_cap, segs.shape[1])
     scal = np.zeros((lanes.shape[0], SC_SEG + 2 * seg_cap), np.int32)
     scal[:, SC_TL] = lanes[:, wk.L_TL]
     scal[:, SC_QL] = lanes[:, wk.L_QL]
@@ -57,6 +78,13 @@ def scal_from_lanes(lanes: np.ndarray, seg_cap: int = 1) -> np.ndarray:
     scal[:, SC_MS] = lanes[:, wk.L_MS]
     scal[:, SC_MILO] = lanes[:, wk.L_MI] & _LO30
     scal[:, SC_MIHI] = lanes[:, wk.L_MI] >> 30
+    if segs is not None:
+        segs = np.asarray(segs, np.int64)
+        n = (segs[:, :, 0] >= 0).sum(1)
+        scal[:, SC_NSEG] = n
+        for i, k in enumerate(n):
+            scal[i, SC_SEG:SC_SEG + k] = segs[i, :k, 0]
+            scal[i, SC_SEG + seg_cap:SC_SEG + seg_cap + k] = segs[i, :k, 1]
     return scal
 
 
@@ -108,19 +136,22 @@ def packed_from_tb(tb: np.ndarray) -> np.ndarray:
     return out.view(np.int32)
 
 
+# (JAX column, port column) pairs copied as they are; last_ptr is a flat
+# index into each package's own snapshot layout, so it compares equal
+# only outside PASS1 (WF_NEG_INF) — PASS1 results meet at checkpoints
+_SAME = ((JO_S, wk.O_S), (JO_DONE, wk.O_DONE), (JO_STOP, wk.O_STOP),
+         (JO_OVFB, wk.O_OVFB), (JO_OVFS, wk.O_OVFS), (JO_LS, wk.O_LS),
+         (JO_LP, wk.O_LP), (JO_SNC, wk.O_SNC))
+
+
 def row_from_out(out: np.ndarray) -> np.ndarray:
-    """Port outputs [B, O_N] -> the JAX kernel's [B, 10] row (SCORE/TB
-    modes: no last pointer, no snapshots)."""
+    """Port outputs [B, O_N] -> the JAX kernel's [B, 10] row."""
     out = np.asarray(out, np.int64)
     row = np.zeros((out.shape[0], JO_N), np.int32)
-    for jo, o in ((JO_S, wk.O_S), (JO_DONE, wk.O_DONE), (JO_STOP, wk.O_STOP),
-                  (JO_OVFB, wk.O_OVFB), (JO_OVFS, wk.O_OVFS),
-                  (JO_LS, wk.O_LS)):
+    for jo, o in _SAME:
         row[:, jo] = out[:, o]
     row[:, JO_NLO] = out[:, wk.O_NITER] & _LO30
     row[:, JO_NHI] = out[:, wk.O_NITER] >> 30
-    row[:, JO_LP] = wk.WF_NEG_INF
-    row[:, JO_SNC] = 0
     return row
 
 
@@ -128,9 +159,8 @@ def out_from_row(row: np.ndarray) -> np.ndarray:
     """The JAX kernel's [B, 10] row -> port outputs [B, O_N]."""
     row = np.asarray(row, np.int64)
     out = np.zeros((row.shape[0], wk.O_N), np.int64)
-    for jo, o in ((JO_S, wk.O_S), (JO_DONE, wk.O_DONE), (JO_STOP, wk.O_STOP),
-                  (JO_OVFB, wk.O_OVFB), (JO_OVFS, wk.O_OVFS),
-                  (JO_LS, wk.O_LS)):
+    for jo, o in _SAME:
         out[:, o] = row[:, jo]
     out[:, wk.O_NITER] = (row[:, JO_NHI] << 30) | row[:, JO_NLO]
     return out
+

@@ -1,5 +1,5 @@
-// K1: the fused-cycle WFA wavefront kernel for Hopper (sm_90a), SCORE and
-// TB modes.
+// K1: the fused-cycle WFA wavefront kernel for Hopper (sm_90a), SCORE, TB
+// and PASS1 modes, with the pass-2 checkpoint collapse.
 //
 // Replaces miniwfa_tpu/ops/wavefront_kernel.py::build_kernel (the Pallas
 // TPU kernel).  Same semantics, which mirror lh3/miniwfa mwf_wfa_core
@@ -27,6 +27,21 @@
 //   5. every 256 cycles, the shrink hull (block-wide atomicMin/atomicMax).
 //   6. accounting (n_iter adds the grown width on transition cycles only)
 //      and the max_s / max_iter stops.
+//
+// Low-mem stripe mode (reference mwf_wfa_seg, miniwfa.c:551-601).  PASS1
+// keeps a pointer plane beside every value plane, laid out as the value
+// rings one block further on (`poff`), so a source's pointer sits at the
+// same slot offset as its value.  The transition copies the pointer of the
+// source its tb bits chose.  A snapshot (when (t+1) % step == 0, after
+// growth and before the transition) is one block-wide pass over every
+// ring slot's recorded band: copy the pointer into snapshot row c, then
+// reset it to its own flat index plane*W + w; each element is read and
+// rewritten by the same thread, and one barrier fences the pass from the
+// transition's neighbour reads.  Outside a slot's band nothing is written:
+// band-masked reads never look there.  Termination takes last_ptr from the
+// H pointer plane at d_end after the extension barrier.  Pass 2's
+// checkpoint collapse (miniwfa.c:413-416) is a uniform scalar update that
+// every thread applies, after termination and before growth.
 //
 // State lives in global memory: at W=65536 with the default penalties the
 // rings take 27 planes of 256 KB per lane, far past the 227 KB of shared
@@ -62,19 +77,24 @@ constexpr int THREADS = 512;
 constexpr int MAX_RING = 32;      // NS <= 31 (vb packs NS bits)
 
 enum { L_TL, L_QL, L_ANC, L_MS, L_MI, L_N };
-enum { O_S, O_DONE, O_STOP, O_OVFB, O_OVFS, O_LS, O_NITER, O_N };
+enum { O_S, O_DONE, O_STOP, O_OVFB, O_OVFS, O_LS, O_NITER, O_LP, O_SNC, O_N };
+enum { MODE_SCORE, MODE_TB, MODE_PASS1 };
 
 struct Params {
   const long long* lanes;     // [B, L_N]
   const unsigned* tw;         // [B, nw] flat packed words
   const unsigned* qw;
   long long nw;
-  int* planes;                // [B, RH + 2*RE1 + 2*RE2 + 2, W]
+  int* planes;                // [B, NP (x2 in PASS1) + 2, W]
   long long* out;             // [B, O_N]
   unsigned char* tb;          // [B, S_CAP, W] (TB mode) or null
   int* bands;                 // [B, S_CAP, 2] (TB mode) or null
+  const long long* segs;      // [B, seg_cap, 2] checkpoints or null
+  int seg_cap;
+  int* snap;                  // [B, n_snap, NP, W] (PASS1) or null
   int W, S_CAP, mode, cpw;
   int x, o1, e1, o2, e2;
+  int step, n_snap;
 };
 
 // A source plane of the transition: the ring slot of score t+1-age and
@@ -113,9 +133,12 @@ __device__ __forceinline__ bool good_diag(int v, int d, int tl, int ql) {
   return v >= -1 && v < tl && d + v >= -1 && d + v < ql;
 }
 
-__device__ __forceinline__ int rd(const Src& s, int slot, int anc) {
+// value (off = 0) or pointer (off = poff) of a source slot, NEG outside
+// its score's band
+__device__ __forceinline__ int rd(const Src& s, int slot, int anc,
+                                  size_t off = 0) {
   const int d = anc + slot;
-  return (d >= s.lo && d <= s.hi) ? s.p[slot] : NEG;
+  return (d >= s.lo && d <= s.hi) ? s.p[off + slot] : NEG;
 }
 
 __global__ void __launch_bounds__(THREADS) wavefront_kernel(Params p) {
@@ -131,17 +154,21 @@ __global__ void __launch_bounds__(THREADS) wavefront_kernel(Params p) {
   const int RE1 = max(p.e1, 1) + 1, RE2 = max(p.e2, 1) + 1;
   const unsigned vmask = (1u << NS) - 1u;
   const int vmask2 = (1 << (NS - 1)) - 1;
-  const bool is_tb = p.mode == 1;
+  const bool is_tb = p.mode == MODE_TB, is_p1 = p.mode == MODE_PASS1;
+  const int NP = RH + 2 * RE1 + 2 * RE2;
   const int cpw = p.cpw, bits = 32 / cpw;
   const int logc = cpw == 16 ? 4 : 2, logb = cpw == 16 ? 1 : 3;
 
-  int* H = p.planes + (size_t)b * (RH + 2 * RE1 + 2 * RE2 + 2) * Wz;
+  const size_t poff = is_p1 ? NP * Wz : 0;  // pointer plane of a value plane
+  int* H = p.planes + (size_t)b * (NP * (is_p1 ? 2 : 1) + 2) * Wz;
   int* E1 = H + RH * Wz;
   int* F1 = E1 + RE1 * Wz;
   int* E2 = F1 + RE1 * Wz;
   int* F2 = E2 + RE2 * Wz;
-  int* vb = F2 + RE2 * Wz;
+  int* vb = H + NP * Wz + poff;
   int* lastt = vb + Wz;
+  const long long* segs =
+      p.seg_cap ? p.segs + (size_t)b * p.seg_cap * 2 : nullptr;
   const unsigned* tw = p.tw + (size_t)b * p.nw;
   const unsigned* qw = p.qw + (size_t)b * p.nw;
   unsigned char* tb = is_tb ? p.tb + (size_t)b * p.S_CAP * Wz : nullptr;
@@ -165,11 +192,16 @@ __global__ void __launch_bounds__(THREADS) wavefront_kernel(Params p) {
   if (tid == 0 && -anc >= 0 && -anc < W) {  // score-0 top: H[d=0] = -1
     H[-anc] = -1;
     E1[-anc] = F1[-anc] = E2[-anc] = F2[-anc] = NEG;
+    if (is_p1) {  // the pointer chain's origin
+      const size_t o = poff + (size_t)(-anc);
+      H[o] = -1;
+      E1[o] = F1[o] = E2[o] = F2[o] = NEG;
+    }
   }
   __syncthreads();
 
   int t = 0, wf_lo = 0, wf_hi = 0, t_lo = 0, t_hi = 0;
-  int final_s = -1, last_state = 0;
+  int final_s = -1, last_state = 0, last_ptr = NEG, snap_cnt = 0, sid = 0;
   bool done = false, stopped = false, ovf = false;
   long long n_iter = 0;
   while (!(done || stopped || ovf) && t < p.S_CAP - 1) {
@@ -208,13 +240,59 @@ __global__ void __launch_bounds__(THREADS) wavefront_kernel(Params p) {
     if (term) {
       done = true;
       final_s = t;
+      if (is_p1) last_ptr = Ht[poff + (d_end - anc)];
+    }
+
+    // --- 2b. pass-2 checkpoint collapse
+    if (!term && sid < p.seg_cap && segs[2 * sid] == t) {
+      wf_lo = wf_hi = (int)segs[2 * sid + 1];
+      ++sid;
     }
 
     // --- 3. growth + window-overflow check
     const int lo = max(wf_lo - 1, -tl), hi = min(wf_hi + 1, ql);
     const bool ovf_now = !term && (lo < anc || hi > anc + W - 1);
     ovf = ovf || ovf_now;
-    if (!term && !ovf_now) {
+    bool act = !term && !ovf_now;
+
+    // --- 3b. PASS1 snapshot into row c = (t+1)/step - 1; out of rows is a
+    // band overflow, as in the JAX kernel
+    if (is_p1 && act && (t + 1) % p.step == 0) {
+      const int row = (t + 1) / p.step - 1;
+      if (row >= p.n_snap) {
+        ovf = true;
+        act = false;
+      } else {
+        int* srow = p.snap + ((size_t)b * p.n_snap + row) * NP * Wz;
+        for (int pl = 0; pl < NP; ++pl) {
+          // ring depth and slot of plane pl (H | E1 | F1 | E2 | F2)
+          int depth, j;
+          if (pl < RH) {
+            depth = RH;
+            j = pl;
+          } else if (pl < RH + 2 * RE1) {
+            depth = RE1;
+            j = (pl - RH) % RE1;
+          } else {
+            depth = RE2;
+            j = (pl - RH - 2 * RE1) % RE2;
+          }
+          const int sj = t - ((t - j) % depth + depth) % depth;
+          if (sj < 0) continue;
+          const int a = max(bnd_lo[sj % RH] - anc, 0);
+          const int e = min(bnd_hi[sj % RH] - anc, W - 1);
+          int* P = H + poff + (size_t)pl * Wz;
+          int* S = srow + (size_t)pl * Wz;
+          for (int s = a + tid; s <= e; s += THREADS) {
+            S[s] = P[s];
+            P[s] = pl * W + s;
+          }
+        }
+        ++snap_cnt;
+        __syncthreads();
+      }
+    }
+    if (act) {
       // --- 4. viability of the retired slice + transition into t+1
       const int re1 = t % RE1, re2 = t % RE2;
       const int* E1t = E1 + re1 * Wz;
@@ -279,6 +357,25 @@ __global__ void __launch_bounds__(THREADS) wavefront_kernel(Params p) {
           tb[(size_t)t * Wz + s] = (unsigned char)(
               ((ho1m < e1m) << 3) | ((ho1p < f1p) << 4) |
               ((ho2m < e2m) << 5) | ((ho2p < f2p) << 6) | z);
+        if (is_p1) {  // copy the chosen source's pointer
+          const int pe1 = ho1m < e1m ? rd(se1, s - 1, anc, poff)
+                                     : rd(sh1, s - 1, anc, poff);
+          const int pf1 = ho1p < f1p ? rd(sf1, s + 1, anc, poff)
+                                     : rd(sh1, s + 1, anc, poff);
+          const int pe2 = ho2m < e2m ? rd(se2, s - 1, anc, poff)
+                                     : rd(sh2, s - 1, anc, poff);
+          const int pf2 = ho2p < f2p ? rd(sf2, s + 1, anc, poff)
+                                     : rd(sh2, s + 1, anc, poff);
+          Hn[poff + s] = z == 0   ? rd(sx, s, anc, poff)
+                         : z == 1 ? pe1
+                         : z == 2 ? pf1
+                         : z == 3 ? pe2
+                                  : pf2;
+          E1n[poff + s] = pe1;
+          F1n[poff + s] = pf1;
+          E2n[poff + s] = pe2;
+          F2n[poff + s] = pf2;
+        }
         if (nh >= -1 || ne1 >= -1 || nf1 >= -1 || ne2 >= -1 || nf2 >= -1) {
           if (d == lo) f_loq[par] = 1;
           if (d == hi) f_hiq[par] = 1;
@@ -330,6 +427,8 @@ __global__ void __launch_bounds__(THREADS) wavefront_kernel(Params p) {
     o[O_OVFS] = !(done || stopped || ovf);
     o[O_LS] = last_state;
     o[O_NITER] = n_iter;
+    o[O_LP] = last_ptr;
+    o[O_SNC] = snap_cnt;
   }
 }
 
@@ -338,11 +437,12 @@ __global__ void __launch_bounds__(THREADS) wavefront_kernel(Params p) {
 extern "C" int mwf_wavefront(const long long* lanes, const unsigned* tw,
                              const unsigned* qw, long long nw, int* planes,
                              long long* out, unsigned char* tb, int* bands,
+                             const long long* segs, int seg_cap, int* snap,
                              int B, int W, int S_CAP, int mode, int cpw,
-                             int x, int o1, int e1, int o2, int e2,
-                             void* stream) {
-  Params p{lanes, tw, qw, nw, planes, out, tb, bands,
-           W, S_CAP, mode, cpw, x, o1, e1, o2, e2};
+                             int x, int o1, int e1, int o2, int e2, int step,
+                             int n_snap, void* stream) {
+  Params p{lanes, tw, qw, nw, planes, out, tb, bands, segs, seg_cap, snap,
+           W, S_CAP, mode, cpw, x, o1, e1, o2, e2, step, n_snap};
   wavefront_kernel<<<B, THREADS, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }

@@ -1,14 +1,23 @@
 """Exact WFA alignment driver (host orchestration around the device kernels).
 
 Implements the reference's ``mwf_wfa_exact`` behaviour (miniwfa.c:603-615)
-in score-only and high-memory CIGAR modes, with identical scores, CIGARs
-and cell counts, batched.  The low-memory stripe mode (``step > 0``) is
-not ported yet.
+in score-only, high-memory CIGAR and low-memory stripe (``step > 0``)
+modes, with identical scores, CIGARs and cell counts, batched.
+
+The low-memory mode is the reference's two passes (mwf_wfa_seg,
+miniwfa.c:551-601): pass 1 runs the wavefront in PASS1 mode, snapshotting
+pointer planes every ``step`` scores, and the checkpoint chain
+(ops/traceback_device.chain_ptrs, models/traceback) turns the snapshots
+into one ``(score, diagonal)`` checkpoint per snapshot; pass 2 is the
+high-mem CIGAR run with the band collapsed to the checkpoint diagonal at
+each checkpoint score, so its traceback table needs a band of about
+2·step.  Its ``n_iter`` is pass 2's alone, as the reference counts.
 
 Host work (cheap, O(n+s) per pair): sequence packing, capacity bucket
-selection with escalate-and-retry on overflow.  Device work: the whole
-wavefront loop of a batch (ops/wavefront_kernel.py) and, in CIGAR mode,
-the traceback walk (ops/traceback_device.py), both on the ``device`` the
+selection with escalate-and-retry on overflow, checkpoint decoding.
+Device work: the whole wavefront loop of a batch
+(ops/wavefront_kernel.py), the checkpoint chain and, in CIGAR mode, the
+traceback walk (ops/traceback_device.py), all on the ``device`` the
 caller names: a CUDA device launches the hand-written kernels, the CPU
 runs their plain PyTorch versions.
 
@@ -30,8 +39,10 @@ from ..options import Options
 from ..ops import pack
 from ..ops import traceback_device as tbd
 from ..ops import wavefront_kernel as wk
+from . import traceback as tbk
 
-MODE_SCORE, MODE_TB = wk.MODE_SCORE, wk.MODE_TB
+MODE_SCORE, MODE_TB, MODE_PASS1 = wk.MODE_SCORE, wk.MODE_TB, wk.MODE_PASS1
+Seg = List[Tuple[int, int]]   # (score, diagonal) checkpoints of one pair
 
 # band windows the CUDA kernel serves: its ring planes live in device
 # memory (29 planes of 4 B/diagonal per lane at the default penalties), so
@@ -39,6 +50,9 @@ MODE_SCORE, MODE_TB = wk.MODE_SCORE, wk.MODE_TB
 # storage; CIGAR mode also holds S_CAP * W traceback bytes per lane
 SCORE_W_CAP = 1 << 20
 TB_W_CAP = 65536
+# pass-1 planes + snapshot bytes one dispatch may hold on the CPU (plain
+# version): keeps a process well under 1 GiB even at step=1
+CPU_PASS1_BUDGET = 256 << 20
 
 
 @dataclass
@@ -165,6 +179,43 @@ def _tb_budget(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).total_memory // 4
 
 
+def _n_snap(opt: Options, S_CAP: int) -> int:
+    """Snapshot rows of a PASS1 dispatch: one per ``step`` cycles, + 2."""
+    return S_CAP // opt.step + 2
+
+
+def _n_planes(opt: Options) -> int:
+    return wk.snapshot_layout(wk.KSpec(W=1, S_CAP=2, x=opt.x, o1=opt.o1,
+                                       e1=opt.e1, o2=opt.o2, e2=opt.e2))[5]
+
+
+def _pass1_budget(device: torch.device) -> int:
+    """Pass-1 bytes one dispatch may hold: a quarter of the card's memory,
+    or CPU_PASS1_BUDGET on the CPU."""
+    return _tb_budget(device) if device.type == "cuda" else CPU_PASS1_BUDGET
+
+
+def _pass1_lane_bytes(opt: Options, bk: _Buckets) -> int:
+    """One PASS1 lane's device bytes: value and pointer planes, vb and
+    lastt, and the snapshot rows."""
+    NP = _n_planes(opt)
+    return ((_n_snap(opt, bk.S_CAP) + 2) * NP + 2) * bk.W * 4
+
+
+def _pass1_lane_cap(opt: Options, bk: _Buckets, device) -> int:
+    """Lanes of one pass-1 dispatch under the device's budget (>= 1)."""
+    return max(1, _pass1_budget(device) // _pass1_lane_bytes(opt, bk))
+
+
+def _pass1_w_cap(opt: Options, device: torch.device) -> int:
+    """Largest pass-1 window: no cap on the CPU; on the card, the score
+    cap, cut so that one lane with 8 snapshot rows fits the budget."""
+    if device.type != "cuda":
+        return 1 << 30
+    per_w = (10 * _n_planes(opt) + 2) * 4
+    return min(SCORE_W_CAP, _prev_pow2(_pass1_budget(device) // per_w))
+
+
 def _band_limit_error(opt: Options, mode: int, W: int,
                       w_cap: int) -> RuntimeError:
     """The band outgrew the largest device-servable window.  For
@@ -177,8 +228,8 @@ def _band_limit_error(opt: Options, mode: int, W: int,
             f"scale (band W={W} > device cap {w_cap}; the tb table is "
             f"1 byte/cell — the reference needs 50.6 GB host RAM for "
             f"its 5 Mb pair).  Use the low-mem stripe mode (-p / "
-            f"Options(step=5000), not yet ported to this package: use "
-            f"miniwfa_tpu) or the chain/auto mode.")
+            f"Options(step=5000): bit-identical score and CIGAR), or the "
+            f"chain/auto mode of miniwfa_tpu (not yet ported here).")
     return RuntimeError(
         f"band window exceeded the device limit (W={W}, cap {w_cap}) "
         f"— use the chain or auto mode for this pair, or the CPU device")
@@ -187,21 +238,40 @@ def _band_limit_error(opt: Options, mode: int, W: int,
 def kernel_inputs(opt: Options, mode: int, W: int, S_CAP: int,
                   ts_list: Sequence[bytes], qs_list: Sequence[bytes]):
     """The wavefront kernel's spec and inputs for a batch: (spec, lanes
-    int64 [B, L_N], tw, qw int32 [B, NW]) as numpy arrays."""
+    int64 [B, L_N], tw, qw int32 [B, NW]) as numpy arrays.  PASS1 takes
+    ``opt.step`` and runs without early stops (max_s = max_iter = 0)."""
     cpw = _cpw_for(ts_list, qs_list)
+    is_p1 = mode == MODE_PASS1
     spec = wk.KSpec(W=W, S_CAP=S_CAP, x=opt.x, o1=opt.o1, e1=opt.e1,
-                    o2=opt.o2, e2=opt.e2, mode=mode, cpw=cpw)
+                    o2=opt.o2, e2=opt.e2, mode=mode, cpw=cpw,
+                    step=opt.step if is_p1 else 0,
+                    n_snap=_n_snap(opt, S_CAP) if is_p1 else 0)
     lanes = np.zeros((len(ts_list), wk.L_N), np.int64)
     for i, (t, q) in enumerate(zip(ts_list, qs_list)):
         lanes[i, wk.L_TL] = len(t)
         lanes[i, wk.L_QL] = len(q)
         # window anchored at the midpoint of start (d=0) and end diagonal
         lanes[i, wk.L_ANC] = (len(q) - len(t)) // 2 - W // 2
-    lanes[:, wk.L_MS] = opt.max_s
-    lanes[:, wk.L_MI] = opt.max_iter
+    lanes[:, wk.L_MS] = 0 if is_p1 else opt.max_s
+    lanes[:, wk.L_MI] = 0 if is_p1 else opt.max_iter
     mx = max(len(s) for s in list(ts_list) + list(qs_list))
     return (spec, lanes, pack.pack_words(ts_list, cpw, mx),
             pack.pack_words(qs_list, cpw, mx))
+
+
+def seg_input(segs: Optional[Sequence[Optional[Seg]]]
+              ) -> Optional[np.ndarray]:
+    """Per-lane checkpoint lists -> the kernel's ``segs [B, seg_cap, 2]``
+    int64 (score -1 pads the rows), or None when no lane has one."""
+    if segs is None or not any(segs):
+        return None
+    out = np.zeros((len(segs), max(len(sg) for sg in segs if sg), 2),
+                   np.int64)
+    out[:, :, 0] = -1
+    for i, sg in enumerate(segs):
+        if sg:
+            out[i, :len(sg)] = sg
+    return out
 
 
 def walk_meta(lanes: np.ndarray, o: np.ndarray) -> np.ndarray:
@@ -219,53 +289,129 @@ def walk_meta(lanes: np.ndarray, o: np.ndarray) -> np.ndarray:
 
 def _run_kernel(opt: Options, mode: int, bk: _Buckets,
                 ts_list: List[bytes], qs_list: List[bytes],
-                device: torch.device):
-    """One wavefront dispatch over a batch; returns the kernel outputs
-    plus the inputs the walker reuses."""
+                device: torch.device, segs=None):
+    """One wavefront dispatch over a batch; returns the outputs (out as
+    numpy, tb and snap on the device) and the inputs the walker and the
+    checkpoint decoder reuse."""
     spec, lanes, tw, qw = kernel_inputs(opt, mode, bk.W, bk.S_CAP,
                                         ts_list, qs_list)
     tw = torch.from_numpy(tw).to(device)
     qw = torch.from_numpy(qw).to(device)
-    out, tb, _ = wk.wavefront(spec, torch.from_numpy(lanes).to(device),
-                              tw, qw)
-    return out.cpu().numpy(), tb, lanes, tw, qw, spec.cpw
+    sg = seg_input(segs)
+    out, tb, _, snap = wk.wavefront(
+        spec, torch.from_numpy(lanes).to(device), tw, qw,
+        None if sg is None else torch.from_numpy(sg).to(device))
+    return out.cpu().numpy(), tb, snap, lanes, tw, qw, spec
 
 
-def first_bucket(opt: Options, ts_list, qs_list, w0: int, s0: int,
-                 device: torch.device) -> Tuple[_Buckets, int]:
-    """The first dispatch's bucket for a batch, and the device's window
-    cap.  On the card most ladder rungs are replaced by upfront sizing."""
-    n = len(ts_list)
+def first_bucket(opt: Options, mode: int, ts_list, qs_list, w0: int,
+                 s0: int, device: torch.device) -> Tuple[_Buckets, int]:
+    """The first dispatch's bucket for a batch in ``mode``, and the
+    device's window cap.  On the card most ladder rungs are replaced by
+    upfront sizing."""
     bk = _buckets_for(opt, ts_list, qs_list, w0, s0)
-    ns = opt.max_pen + 1
-    mode = MODE_TB if opt.cigar else MODE_SCORE
     if mode == MODE_SCORE:
         # score mode holds no buffer that scales with S_CAP: use the full
         # score bound, so the ladder only ever re-runs for the window
         bk = _Buckets(bk.LT, bk.LQ, bk.W, bk.S_full, bk.W_full, bk.S_full)
-    w_cap = _device_w_cap(mode, device)
+    w_cap = (_pass1_w_cap(opt, device) if mode == MODE_PASS1
+             else _device_w_cap(mode, device))
     if bk.W > w_cap:
         bk = _Buckets(bk.LT, bk.LQ, w_cap, bk.S_CAP, bk.W_full, bk.S_full)
-    if device.type != "cuda" or n > 64:
+    if device.type != "cuda" or len(ts_list) > 64:
         return bk, w_cap
     if mode == MODE_SCORE:
         # cycles sweep only the live band, so an oversized window costs
         # memory and nothing per cycle: jump to 65536 diagonals
         return _Buckets(bk.LT, bk.LQ, max(bk.W, min(bk.W_full, w_cap, 65536)),
                         bk.S_CAP, bk.W_full, bk.S_full), w_cap
-    # the tb buffer is S_CAP*W bytes/lane, so W must stay near the real
-    # band: size both from the k-mer divergence estimate, replacing the
-    # caller's w0/s0 hints
+    # TB's tb table (S_CAP*W bytes/lane) and PASS1's planes and snapshot
+    # rows scale with W and S_CAP, so both must stay near the real band:
+    # size them from the k-mer divergence estimate, replacing the caller's
+    # w0/s0 hints.  Pass 1 takes more window slack, since an abandoned
+    # rung re-runs it whole and reallocates its snapshots.
     s_cap_e, s_band_e = _estimate_s(opt, ts_list, qs_list)
-    if s_cap_e:
-        d_span = max((abs(len(q) - len(t))
-                      for t, q in zip(ts_list, qs_list)), default=0)
-        w_est = min(_next_pow2(2 * s_band_e + d_span + 2 * ns + 24),
-                    bk.W_full, w_cap)
-        s_est = min(_next_pow2(s_cap_e), bk.S_full)
-        if s_est * w_est <= _tb_budget(device):
-            bk = _Buckets(bk.LT, bk.LQ, w_est, s_est, bk.W_full, bk.S_full)
-    return bk, w_cap
+    if not s_cap_e:
+        return bk, w_cap
+    ns = opt.max_pen + 1
+    slack = 4 * ns + 64 if mode == MODE_PASS1 else 2 * ns + 24
+    d_span = max(abs(len(q) - len(t)) for t, q in zip(ts_list, qs_list))
+    est = _Buckets(bk.LT, bk.LQ,
+                   min(_next_pow2(2 * s_band_e + d_span + slack), bk.W_full,
+                       w_cap),
+                   min(_next_pow2(s_cap_e), bk.S_full), bk.W_full, bk.S_full)
+    if mode == MODE_PASS1:
+        fits = _pass1_lane_bytes(opt, est) <= _pass1_budget(device)
+    else:
+        fits = est.S_CAP * est.W <= _tb_budget(device)
+    return (est if fits else bk), w_cap
+
+
+def pass2_bucket(opt: Options, s_p1: Sequence[int], ts_list, qs_list,
+                 w0: int, s0: int, device: torch.device
+                 ) -> Tuple[_Buckets, int]:
+    """Pass 2's bucket and the device's TB window cap.  It reaches pass
+    1's score exactly, so its cycle budget is sized from it; its band
+    collapses to one diagonal every step scores, so the window takes the
+    tighter of that bound and the uncollapsed 2s bound."""
+    bk = _buckets_for(opt, ts_list, qs_list, w0, s0)
+    w_cap = _device_w_cap(MODE_TB, device)
+    ns = opt.max_pen + 1
+    d_span = max(abs(len(q) - len(t)) for t, q in zip(ts_list, qs_list))
+    w2 = min(_next_pow2(2 * opt.step + 2 * ns + 24),
+             _next_pow2(2 * max(s_p1) + d_span + 2 * ns + 24))
+    return _Buckets(bk.LT, bk.LQ, min(w2, bk.W_full, w_cap),
+                    min(-(-(max(s_p1) + 4) // 4096) * 4096, bk.S_full),
+                    bk.W_full, bk.S_full), w_cap
+
+
+def _run_pass1(opt: Options, ts_list: List[bytes], qs_list: List[bytes],
+               w0: int, s0: int, device: torch.device
+               ) -> Tuple[List[Seg], List[int]]:
+    """Low-mem pass 1 for a batch (reference mwf_wfa_seg,
+    miniwfa.c:551-601): per-pair checkpoint lists and optimal scores.
+    Lanes are chunked under the pass-1 budget; overflowed lanes re-run in
+    an escalated bucket."""
+    bk, w_cap = first_bucket(opt, MODE_PASS1, ts_list, qs_list, w0, s0,
+                             device)
+    n = len(ts_list)
+    segs: List[Optional[Seg]] = [None] * n
+    s_fin = [0] * n
+    idx = list(range(n))
+    while idx:
+        cap = _pass1_lane_cap(opt, bk, device)
+        idx, idx_rest = idx[:cap], idx[cap:]
+        o, _, snap, lanes, _, _, spec = _run_kernel(
+            opt, MODE_PASS1, bk, [ts_list[i] for i in idx],
+            [qs_list[i] for i in idx], device)
+        ovf = (o[:, wk.O_OVFB] | o[:, wk.O_OVFS]) != 0
+        # chase the chains on the device; only one pointer per snapshot
+        # row and lane comes back
+        fin, recs = tbd.chain_ptrs(
+            snap, torch.from_numpy(np.where(ovf, -1, o[:, wk.O_LP])),
+            torch.from_numpy(np.where(ovf, 0, o[:, wk.O_SNC])))
+        snap = None   # free the snapshots before the next dispatch
+        retry = []
+        for j, i in enumerate(idx):
+            if ovf[j]:
+                retry.append(i)
+                continue
+            s_fin[i] = int(o[j, wk.O_S])
+            segs[i] = tbk.decode_checkpoints_ptrs(
+                recs[:, j], int(fin[j]), int(lanes[j, wk.L_ANC]),
+                int(o[j, wk.O_SNC]), spec)
+        if retry:
+            need_band = bool(o[:, wk.O_OVFB].any())
+            if need_band and bk.W >= min(bk.W_full, w_cap):
+                raise RuntimeError(
+                    f"low-mem pass-1 band exceeded the device limit "
+                    f"(W={bk.W}, cap {w_cap}) — use a larger card or the "
+                    f"CPU device")
+            bk = _escalate(bk, need_band, bool(o[:, wk.O_OVFS].any()))
+            bk = _Buckets(bk.LT, bk.LQ, min(bk.W, w_cap), bk.S_CAP,
+                          bk.W_full, bk.S_full)
+        idx = retry + idx_rest
+    return segs, s_fin  # type: ignore[return-value]
 
 
 def align_batch(pairs: Sequence[Tuple[object, object]], opt: Options,
@@ -282,11 +428,6 @@ def align_batch(pairs: Sequence[Tuple[object, object]], opt: Options,
             "the plain PyTorch versions of the kernels")
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {device}")
-    if opt.step > 0:
-        raise NotImplementedError(
-            "the low-memory stripe mode (step > 0) is not ported yet: "
-            "miniwfa_tpu_torch serves the exact score and high-memory "
-            "CIGAR modes; the low-mem slice comes next")
     if opt.max_pen + 1 > 31:
         raise NotImplementedError(
             f"max penalty {opt.max_pen} > 30 is past the wavefront "
@@ -298,8 +439,25 @@ def align_batch(pairs: Sequence[Tuple[object, object]], opt: Options,
     if n == 0:
         return []
     mode = MODE_TB if opt.cigar else MODE_SCORE
-    bk, w_cap = first_bucket(opt, ts_list, qs_list, w0, s0, device)
     tb_budget = _tb_budget(device) if device.type == "cuda" else 0
+
+    segs: Optional[List[Optional[Seg]]] = None
+    run_pass1 = opt.step > 0 and opt.cigar
+    if run_pass1:
+        # huge-step shortcut: when every pair's score upper bound (the
+        # trivial alignment: min(tl, ql) mismatches + one |tl-ql| gap) is
+        # below step, pass 1 cannot take a snapshot, and pass 2 is the
+        # plain high-mem run — identical output, n_iter included
+        s_ub = max(opt.x * min(len(t), len(q))
+                   + (opt.gap_cost(abs(len(t) - len(q)))
+                      if len(t) != len(q) else 0)
+                   for t, q in zip(ts_list, qs_list))
+        run_pass1 = s_ub >= opt.step
+    if run_pass1:
+        segs, s_p1 = _run_pass1(opt, ts_list, qs_list, w0, s0, device)
+        bk, w_cap = pass2_bucket(opt, s_p1, ts_list, qs_list, w0, s0, device)
+    else:
+        bk, w_cap = first_bucket(opt, mode, ts_list, qs_list, w0, s0, device)
 
     pens = (opt.x, opt.o1, opt.e1, opt.o2, opt.e2)
     idx = list(range(n))
@@ -315,8 +473,9 @@ def align_batch(pairs: Sequence[Tuple[object, object]], opt: Options,
         idx, idx_rest = idx[:cap], idx[cap:]
         sub_t = [ts_list[i] for i in idx]
         sub_q = [qs_list[i] for i in idx]
-        o, tb, lanes, tw, qw, cpw = _run_kernel(opt, mode, cur_bk, sub_t,
-                                                sub_q, device)
+        o, tb, _, lanes, tw, qw, spec = _run_kernel(
+            opt, mode, cur_bk, sub_t, sub_q, device,
+            None if segs is None else [segs[i] for i in idx])
         ovf_b = o[:, wk.O_OVFB] != 0
         ovf_s = o[:, wk.O_OVFS] != 0
         ovf = ovf_b | ovf_s
@@ -324,7 +483,7 @@ def align_batch(pairs: Sequence[Tuple[object, object]], opt: Options,
         cigs = None
         if opt.cigar:
             meta = torch.from_numpy(walk_meta(lanes, o)).to(device)
-            runs, counts = tbd.walk(tb, meta, tw, qw, cpw, pens)
+            runs, counts = tbd.walk(tb, meta, tw, qw, spec.cpw, pens)
             cigs = tbd.to_cigars(runs, counts)
         tb = tw = qw = None   # free the traceback buffer before a re-run
         retry = []

@@ -1,8 +1,14 @@
-"""Host traceback walker: the semantic specification of the CIGAR walk.
+"""Host-side sequential decoders: the CIGAR walk's specification and the
+low-mem mode's checkpoint recovery.
 
-A sequential O(n + s) pointer chase over a traceback table fetched to the
-host.  The driver walks on the device (ops/traceback_device.py); this
-walker is the reference its kernel and plain version are held against.
+``traceback_walk`` is a sequential O(n + s) pointer chase over a
+traceback table fetched to the host.  The driver walks on the device
+(ops/traceback_device.py); this walker is the reference its kernel and
+plain version are held against.
+
+``decode_checkpoints_ptrs`` turns the chain pointers of a PASS1 run
+(ops/traceback_device.chain_ptrs) into ``(score, diagonal)`` checkpoints,
+for the port's snapshot layout (ops/wavefront_kernel.snapshot_layout).
 
 Traceback semantics replicate the reference walker exactly
 (wf_traceback, miniwfa.c:329-377): the 7-bit byte per cell is
@@ -12,7 +18,7 @@ whether a gap step costs e or o+e; leading overhang is emitted as I/D.
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Tuple
 
 import numpy as np
 
@@ -83,3 +89,40 @@ def traceback_walk(
         C.push(cig, C.OP_D, k + 1)
     cig.reverse()
     return cig
+
+
+def ptr_to_seg(last: int, c: int, anc: int, spec) -> Tuple[int, int]:
+    """(score, diagonal) of flat pointer ``last`` recorded at snapshot row
+    ``c``: plane ``last // W`` is slot j of a ring of some depth, which at
+    the snapshot's score ``snap_s = step*(c+1) - 1`` held score
+    ``snap_s - ((snap_s - j) mod depth)``; the diagonal is ``anc + w``."""
+    from ..ops import wavefront_kernel as wk
+
+    p_h, p_e1, p_f1, p_e2, p_f2, _ = wk.snapshot_layout(spec)
+    RH, RE1, RE2 = spec.rings
+    p, w = divmod(last, spec.W)
+    for p0, depth in ((p_f2, RE2), (p_e2, RE2), (p_f1, RE1), (p_e1, RE1),
+                      (p_h, RH)):
+        if p >= p0:
+            break
+    snap_s = spec.step * (c + 1) - 1
+    return snap_s - (snap_s - (p - p0)) % depth, anc + w
+
+
+def decode_checkpoints_ptrs(
+    recs: np.ndarray,      # [cap] chain pointers, recs[i] at row cap-1-i
+    last_fin: int,         # chain carry after the oldest row
+    anc: int,
+    snap_cnt: int,
+    spec,                  # ops.wavefront_kernel.KSpec of the PASS1 run
+) -> List[Tuple[int, int]]:
+    """Checkpoints, oldest first, from one lane's chain pointers."""
+    cap = recs.shape[0]
+    _check(last_fin == -1, f"pointer chain did not reach origin: {last_fin}")
+    segs: List[Tuple[int, int]] = []
+    for c in range(snap_cnt - 1, -1, -1):
+        last = int(recs[cap - 1 - c])
+        _check(last >= 0, f"pointer chain broke at snapshot {c}: {last}")
+        segs.append(ptr_to_seg(last, c, anc, spec))
+    segs.reverse()
+    return segs

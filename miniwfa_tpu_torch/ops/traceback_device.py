@@ -16,6 +16,11 @@ Runs come out packed ``len<<4|op``, merged, newest first; ops 1=I 2=D
 7='=' 8='X' (htslib packing, miniwfa.c:51-62).  Two implementations:
 ``walk_plain`` (plain PyTorch, lanes in lockstep) and ``csrc/walk.cu``
 (one thread per lane); ``walk`` dispatches on the tensors' device.
+
+``chain_ptrs`` is the low-mem mode's checkpoint chain (counterpart of
+``_get_chain`` / ``chain_ptrs_on_device``, reference wf_traceback_seg,
+miniwfa.c:528-549): the snapshot buffer stays on the device and only one
+pointer per snapshot row and lane comes back.
 """
 
 from __future__ import annotations
@@ -171,6 +176,28 @@ def walk(tb: torch.Tensor, meta: torch.Tensor, tw: torch.Tensor,
 
 
 walk.launches = 0
+
+
+def chain_ptrs(snap: torch.Tensor, last_ptr: torch.Tensor,
+               snap_cnt: torch.Tensor) -> tuple:
+    """Pointer-jump PASS1 snapshot rows newest to oldest on the tensors'
+    device: ``snap [B, n_snap, NP, W]``, ``last_ptr``/``snap_cnt`` [B].
+    Returns (final carry [B], recs [n_snap, B]) as int64 numpy arrays,
+    ``recs[i]`` the chain pointer AT row ``n_snap-1-i`` and -3 for rows
+    past a lane's count.  One ``gather`` of B ints per row: a chain of at
+    most ``S_CAP//step + 2`` dependent reads, no kernel of its own."""
+    B, cap = snap.shape[:2]
+    rows = snap.reshape(B, cap, -1)
+    last = last_ptr.to(snap.device, torch.int64)
+    cnt = snap_cnt.to(snap.device, torch.int64)
+    recs = torch.empty((cap, B), dtype=torch.int64, device=snap.device)
+    for i, c in enumerate(range(cap - 1, -1, -1)):
+        live = c < cnt
+        idx = last.clamp(0, rows.shape[2] - 1)[:, None]
+        nxt = torch.gather(rows[:, c], 1, idx)[:, 0].long()
+        recs[i] = torch.where(live, last, -3)
+        last = torch.where(live, nxt, last)
+    return last.cpu().numpy(), recs.cpu().numpy()
 
 
 def to_cigars(runs: torch.Tensor, counts: torch.Tensor) -> List[List[int]]:

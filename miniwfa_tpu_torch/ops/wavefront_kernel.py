@@ -4,7 +4,8 @@ alignments, one lane per pair.
 Counterpart of ``miniwfa_tpu/ops/wavefront_kernel.py`` (same semantics,
 which mirror the reference lh3/miniwfa mwf_wfa_core, miniwfa.c:380-435,
 including every '>=' tie-break of wf_next_tb, miniwfa.c:287-307), in
-SCORE and TB modes.  Two implementations of one algorithm:
+SCORE, TB and PASS1 modes, with the pass-2 checkpoint collapse.  Two
+implementations of one algorithm:
 
 * ``wavefront_plain`` — plain PyTorch, vectorised over lanes and over
   the union of the lanes' live bands; any device.
@@ -32,10 +33,33 @@ TB mode writes the 7-bit traceback byte of every in-band cell of the
 transition into score t+1 at ``tb[lane, t, d - anc]`` (1 byte/cell, the
 reference's density) and records that row's band ``[lo, hi]`` in
 ``bands[lane, t]``.
+
+PASS1 mode (low-mem pass 1, reference mwf_wfa_seg, miniwfa.c:551-601)
+keeps a pointer plane beside every value plane.  Score 0's H pointer at
+d=0 is -1 (the chain's origin); every transition copies the pointer of
+the source its tb bits chose.  When ``(t+1) % step == 0`` (after score t
+is extended, before the transition into t+1) snapshot row
+``c = (t+1)//step - 1`` receives every ring slot's in-band pointers, and
+each slot is then reset, inside its score's band, to its own flat index
+``plane*W + w``.  Snapshot rows are ``snap [B, n_snap, NP, W] int32``
+with ``NP = RH + 2*RE1 + 2*RE2`` planes in the order H | E1 | F1 | E2 |
+F2 (``snapshot_layout``); entries outside a slot's band stay
+``WF_NEG_INF``.  A row ``>= n_snap`` stops the lane as a band overflow
+(O_OVFB), as in the JAX kernel; the driver sizes the rows from S_CAP
+(``S_CAP//step + 2``), so it never runs out of them.
+Termination records the H pointer at the end diagonal as
+``last_ptr``; ``snap_cnt`` counts the rows taken.
+
+Checkpoint collapse (low-mem pass 2, miniwfa.c:413-416): ``segs int64
+[B, seg_cap, 2]`` holds each lane's ``(score, diagonal)`` checkpoints in
+score order, padded with score -1.  On the cycle whose score equals the
+next checkpoint's, after termination and before band growth, the
+committed band collapses to that one diagonal.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -47,13 +71,16 @@ from . import build
 WF_NEG_INF = -0x40000000  # reference sentinel (miniwfa.c:67)
 MODE_SCORE = 0
 MODE_TB = 1
+MODE_PASS1 = 2
 _BIG = 0x3FFFFFFF
 
 # per-lane inputs, int64 [B, L_N]: lengths, window anchor and the runtime
 # early-stop bounds (miniwfa.c:422-425; 0 = unbounded)
 (L_TL, L_QL, L_ANC, L_MS, L_MI, L_N) = range(6)
-# per-lane outputs, int64 [B, O_N]
-(O_S, O_DONE, O_STOP, O_OVFB, O_OVFS, O_LS, O_NITER, O_N) = range(8)
+# per-lane outputs, int64 [B, O_N]; O_LP / O_SNC are PASS1's last pointer
+# and snapshot count (WF_NEG_INF and 0 in the other modes)
+(O_S, O_DONE, O_STOP, O_OVFB, O_OVFS, O_LS, O_NITER, O_LP, O_SNC,
+ O_N) = range(10)
 
 
 @dataclass(frozen=True)
@@ -69,6 +96,8 @@ class KSpec:
     e2: int
     mode: int = MODE_SCORE
     cpw: int = 16    # chars per packed word (16 = 2-bit ACGT, 4 = bytes)
+    step: int = 0    # low-mem snapshot period (PASS1)
+    n_snap: int = 0  # snapshot row capacity (PASS1)
 
     @property
     def NS(self) -> int:  # shrink scan depth = max_pen + 1 (miniwfa.c:390)
@@ -78,6 +107,18 @@ class KSpec:
     def rings(self) -> Tuple[int, int, int]:
         """Ring depths (H, E1/F1, E2/F2): largest age + 1."""
         return (self.NS, max(self.e1, 1) + 1, max(self.e2, 1) + 1)
+
+
+def snapshot_layout(spec: KSpec) -> Tuple[int, int, int, int, int, int]:
+    """First plane of the H, E1, F1, E2 and F2 rings in a snapshot row
+    (and in the kernel's planes buffer), and the plane count NP.  A flat
+    pointer is ``plane*W + w``; models/traceback.ptr_to_seg inverts it."""
+    RH, RE1, RE2 = spec.rings
+    p_e1 = RH
+    p_f1 = p_e1 + RE1
+    p_e2 = p_f1 + RE1
+    p_f2 = p_e2 + RE2
+    return 0, p_e1, p_f1, p_e2, p_f2, p_f2 + RE2
 
 
 def transition_values(src):
@@ -107,8 +148,11 @@ def transition_values(src):
 
 
 def _check_spec(spec: KSpec) -> None:
-    if spec.mode not in (MODE_SCORE, MODE_TB):
+    if spec.mode not in (MODE_SCORE, MODE_TB, MODE_PASS1):
         raise ValueError(f"unsupported wavefront mode {spec.mode}")
+    if spec.mode == MODE_PASS1 and (spec.step < 1 or spec.n_snap < 1):
+        raise ValueError(f"PASS1 needs step >= 1 and n_snap >= 1, got "
+                         f"step={spec.step} n_snap={spec.n_snap}")
     if spec.cpw not in (4, 16):
         raise ValueError(f"cpw must be 4 or 16, got {spec.cpw}")
     if spec.NS > 31:   # vb packs NS bits into an int32
@@ -174,17 +218,46 @@ def _block(plane, a: int, b: int, W: int) -> torch.Tensor:
     return out
 
 
+def _snapshot(ptrs, snap, row: int, t: int, act, bnd, anc, W: int) -> None:
+    """PASS1 snapshot of the ``act`` lanes into ``snap[:, row]``: every
+    pointer ring slot's in-band entries, then each slot reset to its own
+    flat index inside its score's band (miniwfa.c:585-587)."""
+    RH = bnd.shape[1]
+    plane = 0
+    for ring in ptrs:
+        depth = ring.shape[1]
+        for j in range(depth):
+            s_j = t - (t - j) % depth     # the score slot j holds
+            if s_j >= 0:
+                lo, hi = bnd[:, s_j % RH, 0], bnd[:, s_j % RH, 1]
+                span = _span(lo - anc, hi - anc, act, W)
+                if span:
+                    a, b = span
+                    sl = torch.arange(a, b, device=anc.device)
+                    d = anc[:, None] + sl
+                    m = act[:, None] & (d >= lo[:, None]) & (d <= hi[:, None])
+                    cur = ring[:, j, a:b]
+                    snap[:, row, plane, a:b] = torch.where(
+                        m, cur, snap[:, row, plane, a:b])
+                    ring[:, j, a:b] = torch.where(
+                        m, (plane * W + sl).int(), cur)
+            plane += 1
+
+
 def wavefront_plain(spec: KSpec, lanes: torch.Tensor, tw: torch.Tensor,
-                    qw: torch.Tensor):
+                    qw: torch.Tensor, segs: Optional[torch.Tensor] = None):
     """Plain PyTorch version of the wavefront kernel (same algorithm, same
     outputs).  ``lanes`` int64 [B, L_N]; ``tw``/``qw`` int32 [B, NW] flat
-    packed word streams (ops/pack.py).  Returns (out int64 [B, O_N],
-    tb uint8 [B, S_CAP, W] or None, bands int32 [B, S_CAP, 2] or None)."""
+    packed word streams (ops/pack.py); ``segs`` the optional checkpoints
+    (module docstring).  Returns (out int64 [B, O_N], tb uint8 [B, S_CAP,
+    W] or None, bands int32 [B, S_CAP, 2] or None, snap int32 [B, n_snap,
+    NP, W] or None)."""
     _check_spec(spec)
     dev = lanes.device
     B, W, NEG, NS = lanes.shape[0], spec.W, WF_NEG_INF, spec.NS
     RH, RE1, RE2 = spec.rings
     is_tb = spec.mode == MODE_TB
+    is_p1 = spec.mode == MODE_PASS1
     ag_x, ag_o1, ag_o2 = spec.x, spec.o1 + spec.e1, spec.o2 + spec.e2
     tl, ql, anc = lanes[:, L_TL], lanes[:, L_QL], lanes[:, L_ANC]
     max_s, max_iter = lanes[:, L_MS], lanes[:, L_MI]
@@ -203,11 +276,18 @@ def wavefront_plain(spec: KSpec, lanes: torch.Tensor, tw: torch.Tensor,
     s0 = -anc           # score-0 top: H[d=0] = -1 (miniwfa.c:119)
     has0 = (s0 >= 0) & (s0 < W)
     H[rows[has0], 0, s0[has0]] = -1
-    tb = bands = None
+    tb = bands = snap = ptrs = None
     if is_tb:
         tb = torch.zeros((B, spec.S_CAP, W), dtype=torch.uint8, device=dev)
         bands = torch.zeros((B, spec.S_CAP, 2), dtype=torch.int32,
                             device=dev)
+    if is_p1:
+        # pointer rings beside the value rings; score 0's H pointer at
+        # d=0 is the chain's origin -1
+        ptrs = (plane(RH), plane(RE1), plane(RE1), plane(RE2), plane(RE2))
+        ptrs[0][rows[has0], 0, s0[has0]] = -1
+        snap = torch.full((B, spec.n_snap, snapshot_layout(spec)[5], W), NEG,
+                          dtype=torch.int32, device=dev)
 
     def zeros(dtype=torch.int64):
         return torch.zeros(B, dtype=dtype, device=dev)
@@ -215,7 +295,9 @@ def wavefront_plain(spec: KSpec, lanes: torch.Tensor, tw: torch.Tensor,
     wf_lo, wf_hi, t_lo, t_hi = zeros(), zeros(), zeros(), zeros()
     done, stopped, ovf = zeros(bool), zeros(bool), zeros(bool)
     final_s = torch.full((B,), -1, dtype=torch.int64, device=dev)
-    last_state, n_iter = zeros(), zeros()
+    last_ptr = torch.full((B,), NEG, dtype=torch.int64, device=dev)
+    last_state, n_iter, snap_cnt, sid = zeros(), zeros(), zeros(), zeros()
+    seg_cap = 0 if segs is None else segs.shape[1]
     t = 0
     while t < spec.S_CAP - 1:
         run = ~(done | stopped | ovf)
@@ -248,14 +330,25 @@ def wavefront_plain(spec: KSpec, lanes: torch.Tensor, tw: torch.Tensor,
             zero = (at_end & (k_new == k_old)).any(1)
 
         # --- 2. termination (miniwfa.c:405-408, 577): last_state only on
-        # a zero-extension termination
+        # a zero-extension termination; PASS1 records the end pointer
         zero_ext = term & zero & (t > 0)
+        col = (d_end - anc).clamp(0, W - 1)
         if is_tb and t > 0:
-            col = (d_end - anc).clamp(0, W - 1)
             last_state = torch.where(zero_ext, tb[rows, t - 1, col].long() & 7,
                                      last_state)
+        if is_p1:
+            last_ptr = torch.where(term, ptrs[0][rows, rh, col].long(),
+                                   last_ptr)
         done = done | term
         final_s = torch.where(term, t, final_s)
+
+        # --- 2b. pass-2 checkpoint collapse (miniwfa.c:413-416)
+        if seg_cap:
+            cid = sid.clamp(max=seg_cap - 1)
+            hit = run & ~term & (sid < seg_cap) & (segs[rows, cid, 0] == t)
+            wf_lo = torch.where(hit, segs[rows, cid, 1], wf_lo)
+            wf_hi = torch.where(hit, segs[rows, cid, 1], wf_hi)
+            sid = sid + hit.long()
 
         # --- 3. band growth + window-overflow check (miniwfa.c:417-418)
         lo = torch.maximum(wf_lo - 1, -tl)
@@ -263,6 +356,18 @@ def wavefront_plain(spec: KSpec, lanes: torch.Tensor, tw: torch.Tensor,
         ovf_now = run & ~term & ((lo < anc) | (hi > anc + W - 1))
         ovf = ovf | ovf_now
         act = run & ~term & ~ovf_now
+
+        # --- 3b. PASS1 snapshot, after score t is extended and before the
+        # transition into t+1 (miniwfa.c:585-587); a row past the
+        # capacity stops the lane as a band overflow, as in the JAX kernel
+        if is_p1 and (t + 1) % spec.step == 0:
+            row = (t + 1) // spec.step - 1
+            if row < spec.n_snap:
+                _snapshot(ptrs, snap, row, t, act, bnd, anc, W)
+                snap_cnt = snap_cnt + act.long()
+            else:
+                ovf = ovf | act
+                act = zeros(bool)
         span = _span(torch.minimum(t_lo, lo) - anc,
                      torch.maximum(t_hi, hi) - anc, act, W)
         if span:
@@ -312,11 +417,32 @@ def wavefront_plain(spec: KSpec, lanes: torch.Tensor, tw: torch.Tensor,
                     torch.where(in_new, v, NEG).int()
                 viable |= v >= -1
             viable &= in_new
+            bits = new[5]
             if is_tb:
-                tb[:, t, a:b] = torch.where(in_new, new[5],
+                tb[:, t, a:b] = torch.where(in_new, bits,
                                             tb[:, t, a:b].long()).to(torch.uint8)
                 bands[act, t, 0] = lo[act].int()
                 bands[act, t, 1] = hi[act].int()
+            if is_p1:
+                # each state copies the pointer of the source its tb bits
+                # chose (reference wf_next_seg, miniwfa.c:495-523)
+                pH, pE1, pF1, pE2, pF2 = ptrs
+                ph1, ph2 = src(pH, ag_o1), src(pH, ag_o2)
+                e1p = torch.where(bits & 0x08 != 0, src(pE1, spec.e1)[:, :-2],
+                                  ph1[:, :-2])
+                f1p = torch.where(bits & 0x10 != 0, src(pF1, spec.e1)[:, 2:],
+                                  ph1[:, 2:])
+                e2p = torch.where(bits & 0x20 != 0, src(pE2, spec.e2)[:, :-2],
+                                  ph2[:, :-2])
+                f2p = torch.where(bits & 0x40 != 0, src(pF2, spec.e2)[:, 2:],
+                                  ph2[:, 2:])
+                z = bits & 7
+                hp = src(pH, ag_x)[:, 1:-1]
+                for zi, v in ((1, e1p), (2, f1p), (3, e2p), (4, f2p)):
+                    hp = torch.where(z == zi, v, hp)
+                for ring, v in zip(ptrs, (hp, e1p, f1p, e2p, f2p)):
+                    ring[:, (t + 1) % ring.shape[1], a:b] = \
+                        torch.where(in_new, v, NEG).int()
             # boundary commit (miniwfa.c:325-326)
             lo_ok = (viable & (d == lo[:, None])).any(1)
             hi_ok = (viable & (d == hi[:, None])).any(1)
@@ -355,11 +481,12 @@ def wavefront_plain(spec: KSpec, lanes: torch.Tensor, tw: torch.Tensor,
         t += 1
     alive = ~(done | stopped | ovf)
     out = torch.stack([final_s, done.long(), stopped.long(), ovf.long(),
-                       alive.long(), last_state, n_iter], 1)
-    return out, tb, bands
+                       alive.long(), last_state, n_iter, last_ptr, snap_cnt],
+                      1)
+    return out, tb, bands, snap
 
 
-def _check_inputs(spec: KSpec, lanes, tw, qw) -> None:
+def _check_inputs(spec: KSpec, lanes, tw, qw, segs) -> None:
     dev = lanes.device
     if lanes.dtype != torch.int64 or lanes.dim() != 2 \
             or lanes.shape[1] != L_N:
@@ -376,49 +503,73 @@ def _check_inputs(spec: KSpec, lanes, tw, qw) -> None:
     longest = int(lanes[:, :L_ANC].max()) if lanes.shape[0] else 0
     if tw.shape[1] < longest // spec.cpw + 2:
         raise ValueError("word streams shorter than the sequences")
+    if segs is not None and (
+            segs.dtype != torch.int64 or segs.dim() != 3
+            or segs.shape[0] != lanes.shape[0] or segs.shape[2] != 2
+            or segs.device != dev or not segs.is_contiguous()):
+        raise ValueError(f"segs must be contiguous int64 [B, seg_cap, 2] "
+                         f"on {dev}")
+
+
+def launch_mode(spec: KSpec, segs) -> str:
+    """The name a launch is counted under in ``wavefront.launches_by_mode``."""
+    name = {MODE_SCORE: "SCORE", MODE_TB: "TB", MODE_PASS1: "PASS1"}[spec.mode]
+    return name + "+seg" if segs is not None and segs.shape[1] else name
 
 
 def wavefront(spec: KSpec, lanes: torch.Tensor, tw: torch.Tensor,
-              qw: torch.Tensor):
+              qw: torch.Tensor, segs: Optional[torch.Tensor] = None):
     """Run the wavefront loop for every lane; outputs as
     ``wavefront_plain``.  CPU tensors take the plain version; CUDA tensors
     launch ``csrc/wavefront.cu`` and count the launch in
-    ``wavefront.launches``."""
+    ``wavefront.launches`` and, by mode, ``wavefront.launches_by_mode``."""
     _check_spec(spec)
-    _check_inputs(spec, lanes, tw, qw)
+    _check_inputs(spec, lanes, tw, qw, segs)
     if lanes.device.type == "cpu":
-        return wavefront_plain(spec, lanes, tw, qw)
+        return wavefront_plain(spec, lanes, tw, qw, segs)
     if lanes.device.type != "cuda":
         raise ValueError(f"unsupported device {lanes.device}")
     fn = build.load("wavefront", "mwf_wavefront",
                     [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
-                    + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
-                    + [ctypes.c_void_p])
+                    + [ctypes.c_void_p] * 4
+                    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+                    + [ctypes.c_int] * 12 + [ctypes.c_void_p])
     dev = lanes.device
     B, W = lanes.shape[0], spec.W
-    RH, RE1, RE2 = spec.rings
+    is_p1 = spec.mode == MODE_PASS1
+    NP = snapshot_layout(spec)[5]
     out = torch.empty((B, O_N), dtype=torch.int64, device=dev)
-    # ring planes + vb + lastt; vb/lastt must start at 0, ring contents
-    # are never read outside a recorded band
-    planes = torch.zeros((B, RH + 2 * RE1 + 2 * RE2 + 2, W),
+    # value rings (+ PASS1's pointer rings, laid out the same) + vb +
+    # lastt; vb/lastt must start at 0, ring contents are never read
+    # outside a recorded band
+    planes = torch.zeros((B, NP * (2 if is_p1 else 1) + 2, W),
                          dtype=torch.int32, device=dev)
-    tb = bands = None
+    tb = bands = snap = None
     if spec.mode == MODE_TB:
         tb = torch.zeros((B, spec.S_CAP, W), dtype=torch.uint8, device=dev)
         bands = torch.zeros((B, spec.S_CAP, 2), dtype=torch.int32,
                             device=dev)
+    if is_p1:
+        snap = torch.full((B, spec.n_snap, NP, W), WF_NEG_INF,
+                          dtype=torch.int32, device=dev)
+    seg_cap = 0 if segs is None else segs.shape[1]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(lanes.data_ptr(), tw.data_ptr(), qw.data_ptr(), tw.shape[1],
                 planes.data_ptr(), out.data_ptr(),
                 tb.data_ptr() if tb is not None else None,
                 bands.data_ptr() if bands is not None else None,
+                segs.data_ptr() if seg_cap else None, seg_cap,
+                snap.data_ptr() if snap is not None else None,
                 B, W, spec.S_CAP, spec.mode, spec.cpw,
-                spec.x, spec.o1, spec.e1, spec.o2, spec.e2, stream)
+                spec.x, spec.o1, spec.e1, spec.o2, spec.e2,
+                spec.step, spec.n_snap, stream)
     if rc:
         raise RuntimeError(f"wavefront kernel launch failed: CUDA error {rc}")
     wavefront.launches += 1
-    return out, tb, bands
+    wavefront.launches_by_mode[launch_mode(spec, segs)] += 1
+    return out, tb, bands, snap
 
 
 wavefront.launches = 0
+wavefront.launches_by_mode = collections.Counter()

@@ -12,6 +12,7 @@ import torch
 
 from miniwfa_tpu_torch import Options
 from miniwfa_tpu_torch.models import exact
+from miniwfa_tpu_torch.models import traceback as tbk
 from miniwfa_tpu_torch.ops import traceback_device as tbd
 from miniwfa_tpu_torch.ops import wavefront_kernel as wk
 
@@ -41,6 +42,7 @@ def test_kernels_match_plain(goldens, dev, opt):
     got = wk.wavefront(spec, *args)
     assert wk.wavefront.launches == before + 1
     want = wk.wavefront_plain(spec, *args)
+    assert got[3] is None and want[3] is None
     for g, w in zip(got, want):
         assert (g is None and w is None) or torch.equal(g, w)
     if not opt.cigar:
@@ -57,3 +59,50 @@ def test_align_batch_goldens_on_cuda(goldens, dev):
     res = exact.align_batch(list(zip(ts, qs)), Options(cigar=True), device=dev)
     for r, e in zip(res, goldens["runs"]["cigar"]):
         assert (r.s, r.cigar_str) == (e["s"], e["cigar"])
+
+
+@pytest.mark.parametrize("step", [16, 100])
+def test_lowmem_kernels_match_plain(goldens, dev, step):
+    """K1 PASS1 (outputs and the whole snapshot buffer), the checkpoint
+    chain, and K1 TB with the decoded checkpoints, each against its plain
+    version; the pass-2 scores equal the low-mem goldens."""
+    ts, qs = _golden_pairs(goldens)
+    opt = Options(cigar=True, step=step)
+    spec, lanes, tw, qw = exact.kernel_inputs(opt, wk.MODE_PASS1, 8192, 2048,
+                                              ts, qs)
+    args = [torch.from_numpy(a).to(dev) for a in (lanes, tw, qw)]
+    before = wk.wavefront.launches_by_mode["PASS1"]
+    got = wk.wavefront(spec, *args)
+    assert wk.wavefront.launches_by_mode["PASS1"] == before + 1
+    want = wk.wavefront_plain(spec, *args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[3], want[3])
+    assert got[1] is None and got[2] is None
+    fin, recs = tbd.chain_ptrs(got[3], got[0][:, wk.O_LP],
+                               got[0][:, wk.O_SNC])
+    pfin, precs = tbd.chain_ptrs(want[3], want[0][:, wk.O_LP],
+                                 want[0][:, wk.O_SNC])
+    assert (fin == pfin).all() and (recs == precs).all()
+    o = got[0].cpu().numpy()
+    segs = [tbk.decode_checkpoints_ptrs(recs[:, j], int(fin[j]),
+                                        int(lanes[j, wk.L_ANC]),
+                                        int(o[j, wk.O_SNC]), spec)
+            for j in range(len(ts))]
+    tspec, _, _, _ = exact.kernel_inputs(opt, wk.MODE_TB, 8192, 2048, ts, qs)
+    sg = torch.from_numpy(exact.seg_input(segs)).to(dev)
+    got = wk.wavefront(tspec, *args, sg)
+    want = wk.wavefront_plain(tspec, *args, sg)
+    for g, w in zip(got, want):
+        assert (g is None and w is None) or torch.equal(g, w)
+    assert [int(v) for v in got[0][:, wk.O_S]] == \
+        [e["s"] for e in goldens["runs"][f"lowmem_p{step}"]]
+
+
+def test_align_batch_lowmem_on_cuda(goldens, dev):
+    ts, qs = _golden_pairs(goldens)
+    before = dict(wk.wavefront.launches_by_mode)
+    res = exact.align_batch(list(zip(ts, qs)), Options(cigar=True, step=16),
+                            device=dev)
+    for r, e in zip(res, goldens["runs"]["lowmem_p16"]):
+        assert (r.s, r.cigar_str) == (e["s"], e["cigar"])
+    for mode in ("PASS1", "TB+seg"):
+        assert wk.wavefront.launches_by_mode[mode] > before.get(mode, 0)

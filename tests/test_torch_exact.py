@@ -134,7 +134,12 @@ def test_band_escalation_small_window(goldens):
     assert (r.s, r.cigar_str) == (want["s"], want["cigar"])
 
 
-def test_lowmem_mode_not_ported():
-    with pytest.raises(NotImplementedError, match="low-memory"):
-        align_batch([("ACGT", "ACGA")], Options(cigar=True, step=16),
-                    device="cpu")
+def test_lowmem_mode_not_ported(goldens):
+    """The low-memory mode (once refused here) runs: t3 at step 16 gives
+    the reference's low-mem golden."""
+    i, c = next((i, c) for i, c in enumerate(goldens["cases"])
+                if c["name"] == "t3")
+    r = align_batch([(c["t"], c["q"])], Options(cigar=True, step=16),
+                    device="cpu")[0]
+    e = goldens["runs"]["lowmem_p16"][i]
+    assert (r.s, r.cigar_str) == (e["s"], e["cigar"])

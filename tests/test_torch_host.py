@@ -125,7 +125,7 @@ def test_convert_round_trips():
                       [0, 0, -100, 9, 0]], np.int64)
     assert np.array_equal(convert.lanes_from_scal(
         convert.scal_from_lanes(lanes)), lanes)
-    out = np.array([[155, 1, 0, 0, 0, 3, (5 << 30) + 11]], np.int64)
+    out = np.array([[155, 1, 0, 0, 0, 3, (5 << 30) + 11, 1234, 2]], np.int64)
     assert np.array_equal(convert.out_from_row(convert.row_from_out(out)),
                           out)
 
@@ -210,5 +210,10 @@ def test_cli_prints_reference_tsv(goldens, tmp_path, capsys):
     assert row == ["t3", str(len(c["t"])), "0", str(len(c["t"])), "+", "q3",
                    str(len(c["q"])), "0", str(len(c["q"])), "155",
                    "1X16=1X14=128I4=1X24="]
-    assert cli.main(["-p", "16", str(tmp_path / "t.fa"),
+    rc = cli.main(["-c", "-p", "16", "--device", "cpu",
+                   str(tmp_path / "t.fa"), str(tmp_path / "q.fa")])
+    assert rc == 0
+    row = capsys.readouterr().out.strip().split("\t")
+    assert row[9:] == ["155", "1X16=1X14=128I4=1X24="]
+    assert cli.main(["-u", str(tmp_path / "t.fa"),
                      str(tmp_path / "q.fa")]) == 1

@@ -59,7 +59,7 @@ def run_both(t, q, mode, *, S_CAP=512, anc=None, max_s=0, max_iter=0,
     jtb = convert.tb_from_packed(np.asarray(raw[1])) if mode == jwk.MODE_TB \
         else None
     pspec = wk.KSpec(W=W, S_CAP=S_CAP, mode=mode, cpw=cpw, **pens)
-    out, tb, bands = wk.wavefront(
+    out, tb, bands, _ = wk.wavefront(
         pspec, torch.from_numpy(convert.lanes_from_scal(scal)),
         torch.from_numpy(convert.words_from_table(twt)),
         torch.from_numpy(convert.words_from_table(twq)))
