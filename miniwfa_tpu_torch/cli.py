@@ -1,5 +1,5 @@
-"""mwf-torch — test-mwf-compatible command-line driver (exact modes,
-high-mem and low-mem CIGAR).
+"""mwf-torch — test-mwf-compatible command-line driver: exact modes
+(score, high-mem and low-mem CIGAR), chaining (-u) and auto (-t).
 
 Same flags and the same PAF-like 10/11-column TSV output as the reference
 binary (main.c:29-83) and ``miniwfa_tpu/cli.py``:
@@ -18,12 +18,16 @@ import time
 
 from . import Options
 from . import cigar as C
+from .models.auto import align_auto_batch
+from .models.chain import align_chain_batch
 from .models.exact import align_batch
 from .utils.io import read_fastx
 
 USAGE = """Usage: python -m miniwfa_tpu_torch.cli [options] <in1.fa> <in2.fa>
 Options:
   -c       generate CIGAR
+  -u       heuristic chaining mode
+  -t       auto mode: exact under a 100M-cell budget, else chaining
   -p INT   low-memory mode: checkpoint every INT scores (implies -c)
   -a       mimic affine gap
   -e       mimic edit distance
@@ -34,7 +38,6 @@ Options:
   -K       (accepted for compatibility; no allocator to disable)
   -d       debug logging
   --device DEV  torch device to run on [cuda]
-Not yet ported (use miniwfa_tpu.cli): -u (chaining) and -t (auto mode).
 """
 
 
@@ -51,6 +54,7 @@ def main(argv=None) -> int:
     per_pair = False
     debug = False
     device = "cuda"
+    align = align_batch
     for o, a in opts:
         if o == "-c":
             opt = opt.replace(cigar=True)
@@ -72,11 +76,10 @@ def main(argv=None) -> int:
             debug = True
         elif o == "--device":
             device = a
-        elif o in ("-u", "-t"):
-            print(f"ERROR: option {o} is not yet ported to miniwfa_tpu_torch "
-                  f"(chaining and auto modes); use python -m miniwfa_tpu.cli",
-                  file=sys.stderr)
-            return 1
+        elif o == "-u":
+            align = align_chain_batch
+        elif o == "-t":
+            align = align_auto_batch
     if per_pair:
         batch_size = 1
     if len(args) < 2:
@@ -89,8 +92,8 @@ def main(argv=None) -> int:
         # batched pairs share one device dispatch, so each pair's T line
         # reports the batch wall time amortized per pair
         t0 = time.perf_counter()
-        results = align_batch([(r1.seq, r2.seq) for r1, r2 in pending], opt,
-                              device=device)
+        results = align([(r1.seq, r2.seq) for r1, r2 in pending], opt,
+                        device=device)
         dt = (time.perf_counter() - t0) / len(pending)
         for (r1, r2), r in zip(pending, results):
             if opt.cigar and r.cigar is not None:

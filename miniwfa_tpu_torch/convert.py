@@ -23,6 +23,17 @@ outputs compared value for value:
   layout: the two packages' pass 1 meet at decoded ``(score, diagonal)``
   checkpoints, the JAX package's through its own decoder.
 
+And for the gaps kernel (``miniwfa_tpu/ops/wavefront_gaps.py``, K3):
+
+* its per-row planes ``meta`` (``tl | ql << 16``) and ``seqT``/``seqQ``
+  (word j of gap g at ``[g, j]``), all ``[G, 128] int32``, ↔ the port's
+  ``lens [G, 2] int32`` and flat word streams ``[G, NW] int32``;
+* its result plane ``[G, 128] int32`` ↔ the port's ``out [G, GO_N]``
+  (the same GO_* columns);
+* its traceback ``[G, S_CAP/4, 128] int32`` (4 cycles per word: row t in
+  byte ``t & 3`` of word ``[g, t >> 2, w]``) ↔ the port's
+  ``tb [G, S_CAP, 128] uint8``.
+
 The JAX package's column numbers are restated here, so this module needs
 neither JAX nor that package.
 """
@@ -31,6 +42,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .ops import wavefront_gaps as wg
 from .ops import wavefront_kernel as wk
 
 # scalar-input columns of the JAX kernel
@@ -164,3 +176,36 @@ def out_from_row(row: np.ndarray) -> np.ndarray:
     out[:, wk.O_NITER] = (row[:, JO_NHI] << 30) | row[:, JO_NLO]
     return out
 
+
+def gaps_planes(lens: np.ndarray, tw: np.ndarray, qw: np.ndarray):
+    """The port's gaps inputs -> the JAX gaps kernel's (meta, seqT, seqQ)
+    planes, [G, 128] int32 each."""
+    lens = np.asarray(lens, np.int64)
+    meta = np.broadcast_to(
+        (lens[:, 0] | (lens[:, 1] << 16)).astype(np.int32)[:, None],
+        (lens.shape[0], 128)).copy()
+
+    def plane(words):
+        words = np.asarray(words, np.int32)
+        out = np.zeros((words.shape[0], 128), np.int32)
+        n = min(words.shape[1], 128)
+        out[:, :n] = words[:, :n]
+        return out
+
+    return meta, plane(tw), plane(qw)
+
+
+def gaps_out_from_plane(plane: np.ndarray) -> np.ndarray:
+    """The JAX gaps kernel's result plane [G, 128] -> out [G, GO_N]."""
+    return np.asarray(plane, np.int32)[:, :wg.GO_N].copy()
+
+
+def tb_from_gaps_packed(tb_packed: np.ndarray) -> np.ndarray:
+    """[G, S_CAP/4, 128] int32 (byte t & 3 of word [g, t >> 2, w] holds
+    row t) -> [G, S_CAP, 128] uint8."""
+    p = np.asarray(tb_packed).view(np.uint32)
+    G, S4, W = p.shape
+    out = np.empty((G, S4, 4, W), np.uint8)
+    for j in range(4):
+        out[:, :, j, :] = (p >> np.uint32(8 * j)) & 0xFF
+    return out.reshape(G, S4 * 4, W)

@@ -229,10 +229,11 @@ def _band_limit_error(opt: Options, mode: int, W: int,
             f"1 byte/cell — the reference needs 50.6 GB host RAM for "
             f"its 5 Mb pair).  Use the low-mem stripe mode (-p / "
             f"Options(step=5000): bit-identical score and CIGAR), or the "
-            f"chain/auto mode of miniwfa_tpu (not yet ported here).")
+            f"auto or chain mode (align_auto / align_chain, CLI -t / -u).")
     return RuntimeError(
         f"band window exceeded the device limit (W={W}, cap {w_cap}) "
-        f"— use the chain or auto mode for this pair, or the CPU device")
+        f"— use the auto or chain mode for this pair (align_auto / "
+        f"align_chain, CLI -t / -u), or the CPU device")
 
 
 def kernel_inputs(opt: Options, mode: int, W: int, S_CAP: int,
@@ -414,20 +415,33 @@ def _run_pass1(opt: Options, ts_list: List[bytes], qs_list: List[bytes],
     return segs, s_fin  # type: ignore[return-value]
 
 
-def align_batch(pairs: Sequence[Tuple[object, object]], opt: Options,
-                *, w0: int = 512, s0: int = 512,
-                device="cuda") -> List[Result]:
-    """Exact alignment of a batch of (target, query) pairs on ``device``.
-    A pair whose band outgrows the largest window the device serves
-    raises a RuntimeError."""
+def check_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device with no card raises."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "align_batch(device='cuda') needs a CUDA device, and "
+            "device='cuda' needs a CUDA device, and "
             "torch.cuda.is_available() is false; pass device='cpu' to run "
             "the plain PyTorch versions of the kernels")
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {device}")
+    return device
+
+
+def align_batch(pairs: Sequence[Tuple[object, object]], opt: Options,
+                *, w0: int = 512, s0: int = 512, band_limit: str = "raise",
+                device="cuda") -> List[Result]:
+    """Exact alignment of a batch of (target, query) pairs on ``device``.
+
+    ``band_limit`` says what happens to a pair whose band outgrows the
+    largest window the device serves: "raise" (default) raises a
+    RuntimeError; "stop" returns s=-1 for it, like a max_iter stop (the
+    auto driver's policy: it falls back to chaining, as mwf_wfa_auto
+    treats a failed attempt, miniwfa.c:903-907)."""
+    if band_limit not in ("raise", "stop"):
+        raise ValueError(f"band_limit must be 'raise' or 'stop', got "
+                         f"{band_limit!r}")
+    device = check_device(device)
     if opt.max_pen + 1 > 31:
         raise NotImplementedError(
             f"max penalty {opt.max_pen} > 30 is past the wavefront "
@@ -498,12 +512,20 @@ def align_batch(pairs: Sequence[Tuple[object, object]], opt: Options,
             results[i] = Result(s=int(o[j, wk.O_S]),
                                 cigar=cigs[j] if cigs is not None else None,
                                 n_iter=n_iter)
-        if retry:
-            need_band = bool(ovf_b.any())
-            need_scap = bool(ovf_s.any())
-            if need_band and cur_bk.W >= min(cur_bk.W_full, w_cap):
+        need_band = bool(ovf_b.any())
+        if need_band and cur_bk.W >= min(cur_bk.W_full, w_cap):
+            # the band outgrew the largest window the device serves
+            if band_limit != "stop":
                 raise _band_limit_error(opt, mode, cur_bk.W, w_cap)
-            cur_bk = _escalate(cur_bk, need_band, need_scap)
+            for j, i in enumerate(idx):
+                if ovf_b[j]:
+                    results[i] = Result(s=-1, cigar=None,
+                                        n_iter=int(o[j, wk.O_NITER]))
+            retry = [i for j, i in enumerate(idx)
+                     if ovf_s[j] and not ovf_b[j]]
+            need_band = False
+        if retry:
+            cur_bk = _escalate(cur_bk, need_band, bool(ovf_s.any()))
             cur_bk = _Buckets(cur_bk.LT, cur_bk.LQ, min(cur_bk.W, w_cap),
                               cur_bk.S_CAP, cur_bk.W_full, cur_bk.S_full)
         idx = retry + idx_rest

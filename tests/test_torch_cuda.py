@@ -14,6 +14,7 @@ from miniwfa_tpu_torch import Options
 from miniwfa_tpu_torch.models import exact
 from miniwfa_tpu_torch.models import traceback as tbk
 from miniwfa_tpu_torch.ops import traceback_device as tbd
+from miniwfa_tpu_torch.ops import wavefront_gaps as wg
 from miniwfa_tpu_torch.ops import wavefront_kernel as wk
 
 pytestmark = pytest.mark.cuda
@@ -106,3 +107,63 @@ def test_align_batch_lowmem_on_cuda(goldens, dev):
         assert (r.s, r.cigar_str) == (e["s"], e["cigar"])
     for mode in ("PASS1", "TB+seg"):
         assert wk.wavefront.launches_by_mode[mode] > before.get(mode, 0)
+
+
+def _golden_gaps(goldens):
+    """Every gap fill of at most 127 bp in the chain plans of the
+    goldens."""
+    from miniwfa_tpu_torch.models import chain
+    out = []
+    for t, q in zip(*_golden_pairs(goldens)):
+        kinds, x0, x1, y0, y1 = chain._plan_segments(t, q, Options())
+        for i in (kinds == chain.K_ALIGN).nonzero()[0]:
+            if x1[i] - x0[i] + y1[i] - y0[i] <= wg.MAX_TOT:
+                out.append((t[x0[i]:x1[i]], q[y0[i]:y1[i]]))
+    return out
+
+
+@pytest.mark.parametrize("cpw", [16, 4])
+@pytest.mark.parametrize("opt", [Options(), Options(cigar=True),
+                                 Options(cigar=True, max_s=12)])
+def test_gaps_kernel_matches_plain(goldens, dev, cpw, opt):
+    """K3 against gaps_plain (every output and tb byte), and W1 over K3's
+    traceback against walk_plain."""
+    from miniwfa_tpu_torch.models import tiny
+    pairs = _golden_gaps(goldens) + [
+        (b"ACGT", b"ACGT"), (b"A", b"G"), (b"AAAA", b"AAAAAAAA"),
+        (b"AAAA", b""), (b"", b"ACG"), (b"", b""), (b"A" * 63, b"C" * 64)]
+    if cpw == 4:
+        pairs.append((b"ACGTNacgt", b"ACGTnACGT"))
+    ts, qs = [p[0] for p in pairs], [p[1] for p in pairs]
+    spec, lens, tw, qw = tiny.dispatch_inputs(opt, ts, qs, cpw, 512)
+    args = [torch.from_numpy(a).to(dev) for a in (lens, tw, qw)]
+    before = wg.gaps.launches
+    got = wg.gaps(spec, *args)
+    assert wg.gaps.launches == before + 1
+    want = wg.gaps_plain(spec, *args)
+    for g, w in zip(got, want):
+        assert (g is None and w is None) or torch.equal(g, w)
+    out = got[0].cpu().numpy()
+    assert out[:, wg.GO_DONE].sum() + out[:, wg.GO_STOP].sum() == len(pairs)
+    if not opt.cigar:
+        return
+    cigs = tiny.walk_gaps(got[1], lens, out, args[1], args[2], cpw,
+                          (opt.x, opt.o1, opt.e1, opt.o2, opt.e2))
+    meta = torch.from_numpy(tiny.walk_meta(lens, out))
+    pens = (opt.x, opt.o1, opt.e1, opt.o2, opt.e2)
+    k = tbd.walk(got[1], meta.to(dev), args[1], args[2], cpw, pens)
+    p = tbd.walk_plain(got[1], meta.to(dev), args[1], args[2], cpw, pens)
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+    assert cigs == tbd.to_cigars(*k)
+
+
+def test_chain_auto_goldens_on_cuda(goldens, dev):
+    from miniwfa_tpu_torch.models.auto import align_auto_batch
+    from miniwfa_tpu_torch.models.chain import align_chain_batch
+    pairs = list(zip(*_golden_pairs(goldens)))
+    before = (wg.gaps.launches, tbd.walk.launches)
+    for run, fn in (("chain", align_chain_batch), ("auto", align_auto_batch)):
+        res = fn(pairs, Options(cigar=True), device=dev)
+        for r, e in zip(res, goldens["runs"][run]):
+            assert (r.s, r.cigar_str) == (e["s"], e["cigar"]), run
+    assert wg.gaps.launches > before[0] and tbd.walk.launches > before[1]

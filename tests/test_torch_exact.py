@@ -12,9 +12,12 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from miniwfa_tpu_torch import Options, align_exact, cigar as C
 from miniwfa_tpu_torch.models.exact import align_batch
+
+torch.set_num_threads(1)   # as in test_torch_chain.py
 
 _DATA = os.path.join(os.path.dirname(__file__), "data")
 

@@ -178,12 +178,18 @@ def test_port_imports_no_jax():
             "for m in ('miniwfa_tpu_torch', 'miniwfa_tpu_torch.cli', "
             "'miniwfa_tpu_torch.convert', 'miniwfa_tpu_torch.models.exact', "
             "'miniwfa_tpu_torch.models.traceback', "
+            "'miniwfa_tpu_torch.models.tiny', "
+            "'miniwfa_tpu_torch.models.chain', "
+            "'miniwfa_tpu_torch.models.auto', "
             "'miniwfa_tpu_torch.ops.build', 'miniwfa_tpu_torch.ops.kmer', "
             "'miniwfa_tpu_torch.ops.traceback_device', "
-            "'miniwfa_tpu_torch.ops.wavefront_kernel'):\n"
+            "'miniwfa_tpu_torch.ops.wavefront_gaps', "
+            "'miniwfa_tpu_torch.ops.wavefront_kernel', "
+            "'miniwfa_tpu_torch.utils.native', "
+            "'miniwfa_tpu_torch.utils.spans', 'chip_smoke'):\n"
             "    importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'miniwfa_tpu')]\n"
+            "('jax', 'jaxlib', 'miniwfa_tpu', 'bench', 'tools')]\n"
             "print(','.join(bad))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True,
@@ -215,5 +221,10 @@ def test_cli_prints_reference_tsv(goldens, tmp_path, capsys):
     assert rc == 0
     row = capsys.readouterr().out.strip().split("\t")
     assert row[9:] == ["155", "1X16=1X14=128I4=1X24="]
-    assert cli.main(["-u", str(tmp_path / "t.fa"),
-                     str(tmp_path / "q.fa")]) == 1
+    for flag, cig in (("-u", "1X16=1X18=128I1X24="),
+                      ("-t", "1X16=1X14=128I4=1X24=")):
+        rc = cli.main([flag, "-c", "--device", "cpu",
+                       str(tmp_path / "t.fa"), str(tmp_path / "q.fa")])
+        assert rc == 0
+        row = capsys.readouterr().out.strip().split("\t")
+        assert row[9:] == ["155", cig], flag

@@ -30,6 +30,8 @@ from miniwfa_tpu_torch.models.exact import align_batch
 from miniwfa_tpu_torch.ops import traceback_device as tbd
 from miniwfa_tpu_torch.ops import wavefront_kernel as wk
 
+torch.set_num_threads(1)   # as in test_torch_chain.py
+
 WR, W = 8, 1024
 PENS = dict(x=4, o1=4, e1=2, o2=15, e2=1)
 NAMES_LOWMEM = ["t3", "small44"]
@@ -290,7 +292,7 @@ def test_chip_smoke_dissim150k_matches_generator():
     import chip_smoke
     from tools import make_scale_goldens
     want = make_scale_goldens.gen_case("dissim150k")
-    got = chip_smoke.dissim150k()
+    got = chip_smoke.gen_case("dissim150k")
     md5 = [hashlib.md5(s.encode()).hexdigest() for s in got]
     assert md5 == [hashlib.md5(s.encode()).hexdigest() for s in want]
     assert [len(s) for s in got] == [150_000, 150_105]

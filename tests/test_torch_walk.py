@@ -24,6 +24,8 @@ from miniwfa_tpu_torch.models.traceback import traceback_walk
 from miniwfa_tpu_torch.ops import pack
 from miniwfa_tpu_torch.ops import traceback_device as tbd
 
+torch.set_num_threads(1)   # as in test_torch_chain.py
+
 WR, W, S_CAP = 8, 1024, 512
 
 with open(os.path.join(os.path.dirname(__file__), "data",

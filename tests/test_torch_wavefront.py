@@ -22,6 +22,8 @@ from miniwfa_tpu.ops import wavefront_kernel as jwk
 from miniwfa_tpu_torch import convert
 from miniwfa_tpu_torch.ops import wavefront_kernel as wk
 
+torch.set_num_threads(1)   # as in test_torch_chain.py
+
 WR, W = 8, 1024
 PENS = dict(x=4, o1=4, e1=2, o2=15, e2=1)
 NAMES_SCORE = ["t3", "identity4", "ins4", "mixed", "del4", "empty_t",
