@@ -16,7 +16,11 @@
    kernel (K3) in SCORE and TB modes at cpw 16 and 4 on every gap fill of
    at most 127 bp in the goldens' chain plans, on seeded random gaps with
    the edge pairs, and with a max_s early stop: every output and every
-   traceback byte must be equal;
+   traceback byte must be equal; then the wide kernel (one lane over the
+   whole card) against its plain version, SCORE and PASS1 at W=16384 on
+   the goldens (step 16) and the 8 kb pairs (step 200), in one call
+   (every output, the state row, the planes and the snapshot rows) and
+   in calls of 77 cycles a lane (every output and the snapshot rows);
 3. holds the CIGAR walker (W1) against its plain version on phase 2's
    traceback outputs, K1's and K3's: identical run lists;
 4. drives the main path, ``align_batch`` on 16 pairs of 100 kb at 2%
@@ -24,24 +28,38 @@
    score and CIGAR digest against tests/data/bench_goldens.json, that each
    CIGAR re-scores and consumes both sequences, and that each mode's
    kernels were launched (counts set to 0 just before each run and read
-   just after); then the scale fixture dissim150k (150 kb, a 12 kb
-   unrelated insert) in low-mem mode, and the chain (-u -c) and auto
-   (-t -c) modes on the scale fixtures, up to div5m (5 Mb), against
+   just after); then the chain (-u -c) and auto (-t -c) modes on the
+   scale fixtures, up to div5m (5 Mb), against
    tests/data/scale_goldens.json, with the split of div5m auto's wall;
-5. times each kernel mode against its plain version (CUDA events) at the
-   main path's first dispatch shape of that mode, where the two must again
-   agree exactly: SCORE, TB and the walker on its traceback, PASS1, TB
-   with the checkpoints PASS1 decoded, and K3 SCORE and TB and the walker
-   on K3's traceback at div5m auto's first K3 dispatch.
+   then the wide path: ``align_batch`` in score mode on dissim150k,
+   nbear1m and sv300k and in low-mem mode (step 5000) on those and div5m,
+   against scale_goldens.json, each run with its wall, peak memory, wide
+   calls and kernel time, and pass 1's wall apart from pass 2's;
+5. times each K1 mode, W1 and the checkpoint chain (W2) at the main
+   path's first dispatch shape of that mode (CUDA events); holds each K1
+   mode against its plain version at that shape with every lane stopped
+   past score MAIN_CUT (a whole run of the plain K1 there takes minutes),
+   and W1 against walk_plain on the whole traceback; times the plain
+   versions, with the kernels beside them and held equal, at the 8 kb
+   benchmark shape; K3 SCORE and TB and the walker on K3's traceback
+   against their plain versions at div5m auto's first K3 dispatch;
+   nbear1m's score run in K1 (one block) and in the wide kernel (the whole
+   card) at the same window, held equal; and the wide kernel against
+   wide_plain at the specs of phase 4d's nbear1m score and div5m pass 1
+   for their first few thousand cycles.
 
 The tolerance of every comparison is exact equality: both versions run
 the same integer algorithm.  Prints a ``kernels`` JSON line (each entry's
-``ms``/``plain_ms``/``bound_ms`` are phase 5's: the wavefront entry's
-SCORE's, the gaps entry's TB's; ``modes`` holds every mode's launches in
-the main path's runs and its phase-5 times; ``launches`` sums the main
-path's runs, phase 4) and, last, a JSON line with ``"ok": true`` and the
-device.  Exits non-zero without a CUDA device, outside a checkout of the
-repository, or if any check fails.
+``ms``, ``bound_ms`` and ``bound_by`` are phase 5's at the main path's
+shape: the wavefront entry's SCORE's, the gaps entry's TB's, the wide
+entry's nbear1m score's; ``plain_ms`` is the plain version's at the 8 kb
+shape, beside the kernel's own time there, ``plain_shape_kernel_ms``;
+``modes`` holds every mode's launches in the main path's runs and its
+times, the wide entry's PASS1 those of div5m's pass 1, summed over its
+calls; ``launches`` sums the main path's runs, phase 4) and, last, a
+JSON line with ``"ok": true`` and the device.  Exits non-zero without a
+CUDA device, outside a checkout of the repository, or if any check
+fails.
 
 ``bound_ms`` is the least time the card could take for the same work: the
 larger of the bytes the call must move (inputs read once, outputs written
@@ -49,10 +67,11 @@ once, the traceback's in-band cells only) over 3.35 TB/s, and its int32
 operations over the card's int32 instruction rate (132 SMs x 64 INT32
 lanes x 1.98 GHz, NVIDIA's Hopper white paper and H100 SXM data sheet).
 Operations are counted per wavefront cell (Σ n_iter of this run) from the
-kernels' transition code, csrc/gaps.cu and csrc/wavefront.cu: OPS_SCORE
-for the 5-state recurrence and its extension probe, plus OPS_TB for the
-tb byte, or OPS_PASS1 for the pointer choice; the walker's per DP step
-and per match word.
+kernels' transition code, csrc/gaps.cu and csrc/wavefront_common.cuh:
+OPS_SCORE for the 5-state recurrence and its extension probe, plus OPS_TB
+for the tb byte, or OPS_PASS1 for the pointer choice (the wide kernel
+runs the same cell code as K1); the walker's per DP step and per match
+word.  The checkpoint chain's bound is its bytes alone.
 """
 
 from __future__ import annotations
@@ -67,6 +86,11 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_MAIN, B_MAIN = 100_000, 16
 STEP_MAIN = 5000
+# phase 5 holds each K1 mode against its plain version at the main path's
+# shapes with every lane stopped past score MAIN_CUT (max_s); the low-mem
+# modes there run at step CUT_STEP, so a snapshot (score 999) and its
+# checkpoint collapse fall before the stop
+MAIN_CUT, CUT_STEP = 1100, 1000
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # int32 operations per cell: max/+1/compare-select of the recurrence (19)
@@ -171,8 +195,11 @@ def _reset_counts():
     from miniwfa_tpu_torch.ops import traceback_device as tbd
     from miniwfa_tpu_torch.ops import wavefront_gaps as wg
     from miniwfa_tpu_torch.ops import wavefront_kernel as wk
+    from miniwfa_tpu_torch.ops import wavefront_wide as ww
     wk.wavefront.launches = 0
     wk.wavefront.launches_by_mode.clear()
+    ww.wide.launches = 0
+    ww.wide.launches_by_mode.clear()
     tbd.walk.launches = 0
     wg.gaps.launches = 0
 
@@ -181,9 +208,12 @@ def _read_counts() -> dict:
     from miniwfa_tpu_torch.ops import traceback_device as tbd
     from miniwfa_tpu_torch.ops import wavefront_gaps as wg
     from miniwfa_tpu_torch.ops import wavefront_kernel as wk
+    from miniwfa_tpu_torch.ops import wavefront_wide as ww
     return {"wavefront": wk.wavefront.launches, "walk": tbd.walk.launches,
             "gaps": wg.gaps.launches,
-            "modes": dict(wk.wavefront.launches_by_mode)}
+            "modes": dict(wk.wavefront.launches_by_mode),
+            "wide": ww.wide.launches,
+            "wide_modes": dict(ww.wide.launches_by_mode)}
 
 
 def _bound(nbytes: int, ops: int):
@@ -270,7 +300,8 @@ class Smoke:
     def __init__(self, dev):
         self.dev = dev
         self.failures = []
-        self.err = {"wavefront": 0, "walk": 0, "gaps": 0}
+        self.err = {"wavefront": 0, "walk": 0, "gaps": 0,
+                    "wavefront_wide": 0}
 
     def check(self, cond: bool, what: str) -> None:
         print(f"  {'ok  ' if cond else 'FAIL'} {what}", flush=True)
@@ -303,6 +334,45 @@ class Smoke:
         if keep_plain:
             return spec, lanes, got, tw_t, qw_t, want
         return spec, lanes, got, tw_t, qw_t
+
+    def wide_pair(self, label, spec, args):
+        """The wide kernel against wide_plain in one call (every output,
+        the state row, the planes and the snapshot rows), then in
+        run_chunked's calls of 77 cycles per live lane (every output and
+        the snapshot rows).  Returns the plain outputs and the one-call
+        times of both versions (CUDA events)."""
+        import torch
+        from miniwfa_tpu_torch.ops import wavefront_kernel as wk
+        from miniwfa_tpu_torch.ops import wavefront_wide as ww
+        B = args[0].shape[0]
+        big = torch.full((B,), 1 << 40, dtype=torch.int64, device=self.dev)
+        pst = ww.new_state(spec, args[0])
+        want, plain_ms = _ms(lambda: ww.wide_plain(spec, *args, pst, big))
+        kst = ww.new_state(spec, args[0])
+        before = ww.wide.launches
+        got, ms = _ms(lambda: ww.wide(spec, *args, kst, big))
+        one = [(got, want), (kst.row, pst.row), (kst.planes, pst.planes),
+               (kst.snap, pst.snap)]
+        del kst
+        single = ww.wide.launches - before
+        cycles, ww.CYCLES_PER_CALL = ww.CYCLES_PER_CALL, 77 * B
+        try:
+            got, snap, _ = ww.run_chunked(spec, *args)
+        finally:
+            ww.CYCLES_PER_CALL = cycles
+        torch.cuda.synchronize()
+        calls = ww.wide.launches - before - single
+        mode = wk.launch_mode(spec, None)
+        for how, pairs in (("one call", one),
+                           (f"{calls} calls of 77 cycles a lane",
+                            [(got, want[:, :wk.O_N]), (snap, pst.snap)])):
+            err = max(_max_err(x, y) for x, y in pairs)
+            self.err["wavefront_wide"] = max(self.err["wavefront_wide"], err)
+            self.check(err == 0, f"wide {label} mode={mode} cpw={spec.cpw} "
+                       f"B={B} W={spec.W} S_CAP={spec.S_CAP}, {how}: "
+                       f"{int(want[:, wk.O_DONE].sum())} done, "
+                       f"max_abs_err={err}")
+        return want, dict(ms=ms, plain_ms=plain_ms)
 
     def checkpoints(self, label, spec, lanes, got, want):
         """The checkpoint chain (W2) over the kernel's and the plain
@@ -528,6 +598,199 @@ GAP_EDGE = [(b"ACGT", b"ACGT"), (b"A", b"G"), (b"AAAA", b"AAAAAAAA"),
             (b"", b""), (b"ACGTNNNA", b"ACGTANNA"), (b"A" * 63, b"C" * 64)]
 
 
+def wide_phases(smoke: Smoke, card: str) -> dict:
+    """Phase 2+3, wide: the wide kernel against wide_plain on the goldens
+    and on 8 of the 8 kb benchmark pairs, SCORE and PASS1, at W=16384 (the
+    JAX wide kernel's smallest window; the kernel takes any window, and on
+    the main path only bands past K1's reach it).  Returns the one-call
+    times at the 8 kb shape, by mode."""
+    import torch
+    from miniwfa_tpu_torch import Options
+    from miniwfa_tpu_torch.models import exact
+    from miniwfa_tpu_torch.ops import wavefront_kernel as wk
+
+    print("phase 2+3, wide: the wide kernel against wide_plain", flush=True)
+    with open(os.path.join(ROOT, "tests", "data", "goldens.json")) as f:
+        gold = json.load(f)
+    with open(os.path.join(ROOT, "tests", "data", "bench_goldens.json")) as f:
+        bgold = json.load(f)["8000"]
+    pairs = make_pairs(8000, 64)[:8]
+    # the goldens score at most 1001, the 8 kb pairs at most 960
+    runs = (("goldens", [c["t"].encode("latin1") for c in gold["cases"]],
+             [c["q"].encode("latin1") for c in gold["cases"]], 1100, 16,
+             [r["s"] for r in gold["runs"]["score"]]),
+            ("bench8k", [t.encode() for t, _ in pairs],
+             [q.encode() for _, q in pairs], 2048, 200,
+             [g["s"] for g in bgold[:8]]))
+    times = {}
+    for label, ts, qs, s_cap, step, want_s in runs:
+        for mode in (wk.MODE_SCORE, wk.MODE_PASS1):
+            p1 = mode == wk.MODE_PASS1
+            opt = Options(**gold["penalties"], cigar=p1,
+                          step=step if p1 else 0)
+            spec, lanes, tw, qw = exact.kernel_inputs(opt, mode, 16384, s_cap,
+                                                      ts, qs)
+            args = [torch.from_numpy(a).to(smoke.dev)
+                    for a in (lanes, tw, qw)]
+            want, t = smoke.wide_pair(label, spec, args)
+            smoke.check([int(v) for v in want[:, wk.O_S]] == want_s,
+                        f"wide {label} mode={wk.launch_mode(spec, None)}: "
+                        f"scores equal the goldens")
+            if label == "bench8k":
+                name = wk.launch_mode(spec, None)
+                times[name] = t
+                print(f"  wavefront_wide[{name}] bench8k B={len(ts)} "
+                      f"W={spec.W}: kernel_ms={t['ms']:.3f} "
+                      f"plain_ms={t['plain_ms']:.3f} card={card}",
+                      flush=True)
+            del want, args
+    from miniwfa_tpu_torch.ops import wavefront_wide as ww
+    print(f"  wide kernel grid (blocks of 512 threads, by device and mode): "
+          f"{ww.wide.blocks}", flush=True)
+    return times
+
+
+class WideTimer:
+    """While active, a pair of CUDA events around every call of the wide
+    kernel, kept with the call's spec, inputs and outputs and read after
+    the run: kernel time, cells and bound of whole wide runs, summed over
+    their calls, and the first call's inputs (the shape the path ran).  An
+    event pair also spans the host's enqueue gap before its launch:
+    microseconds against calls of tens of milliseconds and more."""
+
+    def __enter__(self):
+        import torch
+        from miniwfa_tpu_torch.ops import wavefront_wide as ww
+        self.ww, self.real = ww, ww.wide
+        self.calls, self.first = [], None
+
+        def timed(spec, lanes, tw, qw, state, t_lim):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self.real(spec, lanes, tw, qw, state, t_lim)
+            end.record()
+            self.first = self.first or (spec, lanes, tw, qw)
+            self.calls.append((spec, start, end, out, _nbytes(lanes, tw, qw)))
+            return out
+
+        # the stand-in shares the real function's launch counters and grid
+        # sizes, which the real body updates through the module's name
+        timed.__dict__ = self.real.__dict__
+        ww.wide = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.ww.wide = self.real
+
+    def totals(self) -> dict:
+        """Per mode: calls, kernel ms, cells, and the bound of the whole
+        runs (their cells' operations; their inputs, outputs and snapshot
+        rows taken).  A run's last call is the one that leaves no lane
+        paused, and its outputs hold the run's totals."""
+        import torch
+        from miniwfa_tpu_torch.ops import wavefront_kernel as wk
+        ww = self.ww
+        torch.cuda.synchronize()
+        res = {}
+        for spec, start, end, out, in_bytes in self.calls:
+            r = res.setdefault(wk.launch_mode(spec, None),
+                               {"calls": 0, "ms": 0.0, "cells": 0, "bytes": 0})
+            r["calls"] += 1
+            r["ms"] += start.elapsed_time(end)
+            if not bool(out[:, ww.OW_PAUSE].any()):
+                r["cells"] += int(out[:, wk.O_NITER].sum())
+                row_b = wk.snapshot_layout(spec)[5] * spec.W * 4
+                r["bytes"] += (in_bytes + _nbytes(out)
+                               + int(out[:, wk.O_SNC].sum()) * row_b)
+        for name, r in res.items():
+            ops = r["cells"] * (OPS_SCORE
+                                + (OPS_PASS1 if name == "PASS1" else 0))
+            r["bound_ms"], r["bound_by"] = _bound(r.pop("bytes"), ops)
+        return res
+
+
+# score and low-mem runs of the scale fixtures whose bands pass K1's
+# windows, so they run in the wide kernel
+WIDE_RUNS = (("score", ("dissim150k", "nbear1m", "sv300k")),
+             ("lowmem_p5000", ("dissim150k", "nbear1m", "sv300k", "div5m")))
+
+
+def wide_path(smoke: Smoke, card: str, fixture, sgold) -> dict:
+    """Phase 4d: the wide path through align_batch on the scale fixtures
+    (score: the K1 dispatch at W=65536 overflows, the wide jump follows;
+    low-mem: pass 1 in the wide kernel, pass 2 in K1 TB+seg), against
+    scale_goldens.json, with each run's wall, peak memory, wide calls and
+    kernel time, and pass 1's wall apart from pass 2's.  Returns the wide
+    kernel's launches by mode, div5m pass 1's totals, and the first wide
+    call's spec and inputs of nbear1m score and div5m pass 1."""
+    import torch
+    from miniwfa_tpu_torch import Options
+    from miniwfa_tpu_torch.models import exact
+
+    print("phase 4d: the wide path, score and low-mem (step 5000) on the "
+          "scale fixtures", flush=True)
+    launches = {"wavefront_wide": 0, "modes": {}}
+    div5m = None
+    first = {}
+    real_p1 = exact._run_pass1
+    for run, names in WIDE_RUNS:
+        lowmem = run != "score"
+        opt = Options(cigar=True, step=STEP_MAIN) if lowmem else Options()
+        for name in names:
+            t, q = fixture(name)
+            g = sgold[name][run]
+            p1 = []
+
+            def timed_pass1(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = real_p1(*a, **kw)
+                torch.cuda.synchronize()
+                p1.append(time.perf_counter() - t0)
+                return r
+
+            exact._run_pass1 = timed_pass1
+            try:
+                with WideTimer() as wt:
+                    res, counts, wall, peak = _drive(f"{name} {run}",
+                                                     [(t, q)], opt, card)
+            finally:
+                exact._run_pass1 = real_p1
+            tot = wt.totals()
+            smoke.check(res[0].s == g["s"], f"{name} {run}: s={res[0].s} "
+                        f"equals scale_goldens.json ({g['s']})")
+            if lowmem:
+                _check_cigars(smoke, f"{name} {run}", [t], [q], res,
+                              [g["cigar_md5"]])
+            wmode = "PASS1" if lowmem else "SCORE"
+            n = counts["wide_modes"].get(wmode, 0)
+            smoke.check(n > 0, f"{name} {run} launched "
+                        f"wavefront_wide[{wmode}] {n} times")
+            if lowmem:
+                n = counts["modes"].get("TB+seg", 0)
+                smoke.check(n > 0, f"{name} {run} pass 2 launched "
+                            f"wavefront[TB+seg] {n} times")
+            w = tot.get(wmode, {"calls": 0, "ms": 0.0, "cells": 0,
+                                "bound_ms": 0.0, "bound_by": "-"})
+            split = (f"pass1_s={sum(p1):.6f} pass2_s={wall - sum(p1):.6f} "
+                     if lowmem else "")
+            print(f"  {name} {run}: {split}wide_calls={w['calls']} "
+                  f"wide_kernel_ms={w['ms']:.3f} wide_cells={w['cells']} "
+                  f"bound_ms={w['bound_ms']:.6f} ({w['bound_by']}) "
+                  f"peak_bytes={peak} wall_s={wall:.6f} card={card}",
+                  flush=True)
+            launches["wavefront_wide"] += counts["wide"]
+            for k, v in counts["wide_modes"].items():
+                launches["modes"][k] = launches["modes"].get(k, 0) + v
+            if name == "div5m":
+                div5m = w
+            if (name, run) in (("nbear1m", "score"),
+                               ("div5m", "lowmem_p5000")):
+                first[name] = wt.first
+    return {"launches": launches, "div5m_pass1": div5m, "first": first}
+
+
 def _drive(label, pairs, opt, card, fn=None, **kw):
     """One run of ``fn`` (default ``align_batch``) on the card with the
     launch counts set to 0 just before it and read just after; returns
@@ -547,9 +810,10 @@ def _drive(label, pairs, opt, card, fn=None, **kw):
     print(f"  {label}: wall_s={wall:.6f} cells={cells} "
           f"cells_per_s={cells / wall:.6e} peak_bytes={peak} "
           f"launches wavefront={counts['wavefront']} {counts['modes']} "
+          f"wavefront_wide={counts['wide']} {counts['wide_modes']} "
           f"walk={counts['walk']} gaps={counts['gaps']} card={card}",
           flush=True)
-    return res, counts, wall
+    return res, counts, wall, peak
 
 
 def _check_cigars(smoke, label, ts, qs, res, md5s, chained=False) -> None:
@@ -598,7 +862,7 @@ def main_path(smoke: Smoke, card: str) -> dict:
           flush=True)
     launches = {"wavefront": 0, "walk": 0, "modes": {}}
     for mode, opt, kmodes in modes:
-        res, counts, _ = _drive(mode, list(zip(ts, qs)), opt, card)
+        res, counts, _, _ = _drive(mode, list(zip(ts, qs)), opt, card)
         smoke.check([r.s for r in res] == [g["s"] for g in gold],
                     f"main {mode}: {B_MAIN} scores equal bench_goldens.json")
         if opt.cigar:
@@ -611,12 +875,14 @@ def main_path(smoke: Smoke, card: str) -> dict:
         if opt.cigar:
             smoke.check(counts["walk"] > 0, f"main {mode} launched walk "
                         f"{counts['walk']} times")
+        smoke.check(counts["wide"] == 0, f"main {mode} launched "
+                    f"wavefront_wide {counts['wide']} times (K1's windows "
+                    f"serve it)")
         for k in ("wavefront", "walk"):
             launches[k] += counts[k]
         for k, n in counts["modes"].items():
             launches["modes"][k] = launches["modes"].get(k, 0) + n
 
-    print("phase 4b: scale fixture dissim150k, low-mem step 5000", flush=True)
     with open(os.path.join(ROOT, "tests", "data", "scale_goldens.json")) as f:
         sgold = json.load(f)
     fixtures = {}
@@ -628,17 +894,6 @@ def main_path(smoke: Smoke, card: str) -> dict:
             print(f"  generated {name} in {time.perf_counter() - t0:.1f} s",
                   flush=True)
         return fixtures[name]
-
-    t, q = fixture("dissim150k")
-    g = sgold["dissim150k"]["lowmem_p5000"]
-    res, counts, _ = _drive("dissim150k", [(t, q)],
-                            Options(cigar=True, step=STEP_MAIN), card)
-    smoke.check(res[0].s == g["s"], f"dissim150k: s={res[0].s} equals "
-                f"scale_goldens.json ({g['s']})")
-    _check_cigars(smoke, "dissim150k", [t], [q], res, [g["cigar_md5"]])
-    for k in ("PASS1", "TB+seg"):
-        n = counts["modes"].get(k, 0)
-        smoke.check(n > 0, f"dissim150k launched wavefront[{k}] {n} times")
 
     print("phase 4c: chain (-u -c) and auto (-t -c) on the scale fixtures",
           flush=True)
@@ -653,7 +908,7 @@ def main_path(smoke: Smoke, card: str) -> dict:
             t, q = fixture(name)
             g = sgold[name][mode]
             spans = Spans()
-            res, counts, wall = _drive(f"{name} {mode}", [(t, q)],
+            res, counts, wall, _ = _drive(f"{name} {mode}", [(t, q)],
                                        Options(cigar=True), card,
                                        fns[mode], spans=spans)
             smoke.check(res[0].s == g["s"], f"{name} {mode}: s={res[0].s} "
@@ -694,50 +949,88 @@ def main_path(smoke: Smoke, card: str) -> dict:
                 print(f"  div5m auto wall split (s): {split} "
                       f"rest={rest:.6f} wall={wall:.6f} card={card}",
                       flush=True)
-    return {"launches": launches, "ts": ts, "qs": qs,
-            "div5m": fixture("div5m")}
+    return {"launches": launches, "ts": ts, "qs": qs, "fixture": fixture,
+            "sgold": sgold}
 
 
-def _time_pair(smoke, label, spec, args, segs, card):
-    """Kernel and plain version once each at one dispatch shape (CUDA
-    events); returns (kernel outputs, timing dict)."""
+def _time_pair(smoke, label, spec, args, segs, card, plain):
+    """K1 once at one dispatch shape (CUDA events) and, with ``plain``,
+    its plain version too, which must agree; returns (kernel outputs,
+    timing dict)."""
     from miniwfa_tpu_torch.ops import wavefront_kernel as wk
     got, ms = _ms(lambda: wk.wavefront(spec, *args, segs))
-    want, plain_ms = _ms(lambda: wk.wavefront_plain(spec, *args, segs))
-    err = max(_max_err(g, w) for g, w in zip(got, want))
-    smoke.err["wavefront"] = max(smoke.err["wavefront"], err)
-    del want
     mode = wk.launch_mode(spec, segs)
     bound_ms, bound_by = _k1_bound(spec, args, segs, got)
-    print(f"  wavefront[{mode}] {label} B={len(args[0])} W={spec.W} "
-          f"S_CAP={spec.S_CAP}: kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} "
-          f"bound_ms={bound_ms:.6f} ({bound_by}) card={card}", flush=True)
-    smoke.check(err == 0, f"K1 {label} {mode}: max_abs_err={err}")
-    return got, dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                     bound_by=bound_by)
+    res = dict(ms=ms, bound_ms=bound_ms, bound_by=bound_by)
+    line = (f"  wavefront[{mode}] {label} B={len(args[0])} W={spec.W} "
+            f"S_CAP={spec.S_CAP}: kernel_ms={ms:.3f}")
+    if plain:
+        want, res["plain_ms"] = _ms(
+            lambda: wk.wavefront_plain(spec, *args, segs))
+        err = max(_max_err(g, w) for g, w in zip(got, want))
+        smoke.err["wavefront"] = max(smoke.err["wavefront"], err)
+        del want
+        line += f" plain_ms={res['plain_ms']:.3f}"
+        smoke.check(err == 0, f"K1 {label} {mode}: max_abs_err={err}")
+    print(f"{line} bound_ms={bound_ms:.6f} ({bound_by}) card={card}",
+          flush=True)
+    return got, res
 
 
-def _time_walk(smoke, label, tb, meta, tw, qw, cpw, pens, card):
-    """W1 and walk_plain once each on one traceback (CUDA events)."""
+def _hold_cut(smoke, label, spec, args, segs, card) -> dict:
+    """K1 and its plain version at one dispatch shape, every lane stopped
+    past score MAIN_CUT (max_s): every output, traceback byte and snapshot
+    row must agree.  Returns both times (CUDA events)."""
+    from miniwfa_tpu_torch.ops import wavefront_kernel as wk
+    lanes = args[0].clone()
+    lanes[:, wk.L_MS] = MAIN_CUT
+    cargs = (lanes, *args[1:])
+    got, ms = _ms(lambda: wk.wavefront(spec, *cargs, segs))
+    want, plain_ms = _ms(lambda: wk.wavefront_plain(spec, *cargs, segs))
+    err = max(_max_err(g, w) for g, w in zip(got, want))
+    smoke.err["wavefront"] = max(smoke.err["wavefront"], err)
+    stopped = int(got[0][:, wk.O_STOP].sum())
+    snaps = int(got[0][:, wk.O_SNC].sum())
+    smoke.check(err == 0 and stopped == len(lanes),
+                f"K1 {label} {wk.launch_mode(spec, segs)} step={spec.step} "
+                f"max_s={MAIN_CUT}: {stopped} stopped, {snaps} snapshot "
+                f"rows, every output, traceback byte and snapshot row "
+                f"equal, max_abs_err={err} (kernel_ms={ms:.3f} "
+                f"plain_ms={plain_ms:.3f} card={card})")
+    return dict(max_s=MAIN_CUT, ms=ms, plain_ms=plain_ms)
+
+
+def _time_walk(smoke, label, tb, meta, tw, qw, cpw, pens, card, plain=True):
+    """W1 once on one traceback (CUDA events) and, with ``plain``,
+    walk_plain too, which must agree."""
     from miniwfa_tpu_torch.ops import traceback_device as tbd
     k_runs, ms = _ms(lambda: tbd.walk(tb, meta, tw, qw, cpw, pens))
-    p_runs, plain_ms = _ms(lambda: tbd.walk_plain(tb, meta, tw, qw, cpw,
-                                                  pens))
-    err = max(_max_err(a, b) for a, b in zip(k_runs, p_runs))
-    smoke.err["walk"] = max(smoke.err["walk"], err)
     bound_ms, bound_by = _walk_bound(tbd.to_cigars(*k_runs), tw, qw, meta,
                                      cpw)
-    print(f"  walk {label} B={tb.shape[0]} S_CAP={tb.shape[1]} "
-          f"W={tb.shape[2]}: kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} "
-          f"bound_ms={bound_ms:.6f} ({bound_by}) card={card}", flush=True)
-    smoke.check(err == 0, f"W1 {label}: max_abs_err={err}")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+    res = dict(ms=ms, bound_ms=bound_ms, bound_by=bound_by)
+    line = (f"  walk {label} B={tb.shape[0]} S_CAP={tb.shape[1]} "
+            f"W={tb.shape[2]}: kernel_ms={ms:.3f}")
+    if plain:
+        p_runs, res["plain_ms"] = _ms(
+            lambda: tbd.walk_plain(tb, meta, tw, qw, cpw, pens))
+        err = max(_max_err(a, b) for a, b in zip(k_runs, p_runs))
+        smoke.err["walk"] = max(smoke.err["walk"], err)
+        line += f" plain_ms={res['plain_ms']:.3f}"
+        smoke.check(err == 0, f"W1 {label}: max_abs_err={err}")
+    print(f"{line} bound_ms={bound_ms:.6f} ({bound_by}) card={card}",
+          flush=True)
+    return res
 
 
-def kernel_times(smoke: Smoke, card: str, ts, qs) -> dict:
-    """Phase 5: every K1 mode and W1 against their plain versions at the
-    main path's first dispatch shape of that mode."""
+def kernel_times(smoke: Smoke, card: str, label: str, ts, qs, step: int,
+                 plain: bool, cut: bool = False) -> dict:
+    """Phase 5: every K1 mode, W1 and W2 at the first dispatch shape of
+    that mode for the pairs ``ts``/``qs`` (low-mem at ``step``); with
+    ``plain``, the plain versions beside them, which must agree.  With
+    ``cut``, each K1 mode is held against its plain version at that shape
+    with its lanes stopped past score MAIN_CUT (the low-mem modes at step
+    CUT_STEP, their snapshot rows and checkpoint lists of the same
+    shapes), and W1 against walk_plain on the whole traceback."""
     import numpy as np
     import torch
     from miniwfa_tpu_torch import Options
@@ -746,8 +1039,6 @@ def kernel_times(smoke: Smoke, card: str, ts, qs) -> dict:
     from miniwfa_tpu_torch.ops import traceback_device as tbd
     from miniwfa_tpu_torch.ops import wavefront_kernel as wk
 
-    print("phase 5: kernel vs plain timings at the main path's dispatch "
-          "shapes", flush=True)
     times = {}
     dev = smoke.dev
 
@@ -761,34 +1052,48 @@ def kernel_times(smoke: Smoke, card: str, ts, qs) -> dict:
         opt = Options(cigar=mode == wk.MODE_TB)
         bk, _ = exact.first_bucket(opt, mode, ts, qs, 512, 512, dev)
         spec, lanes, args = inputs(opt, mode, bk)
-        label = "cigar main" if opt.cigar else "score main"
-        got, times[wk.launch_mode(spec, None)] = _time_pair(
-            smoke, label, spec, args, None, card)
+        name = wk.launch_mode(spec, None)
+        got, times[name] = _time_pair(
+            smoke, f"{'cigar' if opt.cigar else 'score'} {label}", spec, args,
+            None, card, plain)
+        if cut:
+            times[name]["cut"] = _hold_cut(smoke, label, spec, args, None,
+                                           card)
         if not opt.cigar:
             continue
         meta = torch.from_numpy(
             exact.walk_meta(lanes, got[0].cpu().numpy())).to(dev)
-        times["walk"] = _time_walk(smoke, "main", got[1], meta, args[1],
+        times["walk"] = _time_walk(smoke, label, got[1], meta, args[1],
                                    args[2], spec.cpw,
                                    (opt.x, opt.o1, opt.e1, opt.o2, opt.e2),
-                                   card)
+                                   card, plain or cut)
         del got
 
-    # low-mem: pass 1 at its first dispatch's shape, then pass 2 with the
-    # checkpoints that pass 1 decoded
-    opt = Options(cigar=True, step=STEP_MAIN)
+    # low-mem: pass 1 at its first dispatch's shape, the checkpoint chain
+    # (W2), then pass 2 with the checkpoints that pass 1 decoded
+    opt = Options(cigar=True, step=step)
     bk, _ = exact.first_bucket(opt, wk.MODE_PASS1, ts, qs, 512, 512, dev)
     spec, lanes, args = inputs(opt, wk.MODE_PASS1, bk)
-    got, times["PASS1"] = _time_pair(smoke, "lowmem pass 1 main", spec,
-                                     args, None, card)
+    got, times["PASS1"] = _time_pair(smoke, f"lowmem pass 1 {label}", spec,
+                                     args, None, card, plain)
+    p1 = (spec, lanes, args)
     o = got[0].cpu().numpy()
     ovf = (o[:, wk.O_OVFB] | o[:, wk.O_OVFS]) != 0
-    smoke.check(not ovf.any(), f"K1 lowmem pass 1 main: every lane finished "
-                f"in its first dispatch ({int(ovf.sum())} overflowed)")
+    smoke.check(not ovf.any(), f"K1 lowmem pass 1 {label}: every lane "
+                f"finished in its first dispatch ({int(ovf.sum())} "
+                f"overflowed)")
     cnt = np.where(ovf, 0, o[:, wk.O_SNC])
-    fin, recs = tbd.chain_ptrs(
-        got[3], torch.from_numpy(np.where(ovf, -1, o[:, wk.O_LP])),
-        torch.from_numpy(cnt))
+    lp = torch.from_numpy(np.where(ovf, -1, o[:, wk.O_LP]))
+    (fin, recs), w2_ms = _ms(lambda: tbd.chain_ptrs(
+        got[3], lp, torch.from_numpy(cnt)))
+    # W2 reads one int32 per snapshot row and lane and writes one int64
+    # chain pointer, from two int64 inputs per lane
+    rows = got[3].shape[1]
+    w2_bound = _bound(rows * len(ts) * (4 + 8) + 2 * 8 * len(ts), 0)
+    times["W2"] = dict(ms=w2_ms, bound_ms=w2_bound[0], bound_by=w2_bound[1])
+    print(f"  W2 chain_ptrs {label} B={len(ts)} rows={rows}: "
+          f"ms={w2_ms:.3f} bound_ms={w2_bound[0]:.3e} ({w2_bound[1]}) "
+          f"card={card}", flush=True)
     del got
     segs = [tbk.decode_checkpoints_ptrs(recs[:, j], int(fin[j]),
                                         int(lanes[j, wk.L_ANC]),
@@ -798,9 +1103,139 @@ def kernel_times(smoke: Smoke, card: str, ts, qs) -> dict:
                                512, 512, dev)
     spec, lanes, args = inputs(opt, wk.MODE_TB, bk)
     sg = torch.from_numpy(exact.seg_input(segs)).to(dev)
-    got, times["TB+seg"] = _time_pair(smoke, "lowmem pass 2 main", spec,
-                                      args, sg, card)
+    got, times["TB+seg"] = _time_pair(smoke, f"lowmem pass 2 {label}", spec,
+                                      args, sg, card, plain)
     del got
+    if cut:
+        times["PASS1"]["cut"], times["TB+seg"]["cut"] = _lowmem_cut(
+            smoke, card, label, p1, (spec, args), sg.shape[1])
+    return times
+
+
+def _lowmem_cut(smoke, card, label, p1, p2, seg_cap):
+    """The low-mem modes held against their plain versions at the
+    dispatch shapes ``p1`` (spec, lanes, args) and ``p2`` (spec, args)
+    with every lane stopped past score MAIN_CUT: pass 1 at step CUT_STEP
+    with its n_snap rows, so it takes a snapshot; pass 2 with the first
+    ``seg_cap`` checkpoints of each lane from a whole step-CUT_STEP pass 1
+    (the kernel's, decoded by W2), so it collapses its band at one."""
+    import dataclasses
+    import torch
+    from miniwfa_tpu_torch.models import exact
+    from miniwfa_tpu_torch.models import traceback as tbk
+    from miniwfa_tpu_torch.ops import traceback_device as tbd
+    from miniwfa_tpu_torch.ops import wavefront_kernel as wk
+    spec, lanes, args = p1
+    s1 = dataclasses.replace(spec, step=CUT_STEP)
+    res1 = _hold_cut(smoke, f"lowmem pass 1 {label}", s1, args, None, card)
+    full = dataclasses.replace(s1, n_snap=spec.S_CAP // CUT_STEP + 2)
+    out, _, _, snap = wk.wavefront(full, *args)
+    fin, recs = tbd.chain_ptrs(snap, out[:, wk.O_LP], out[:, wk.O_SNC])
+    del snap
+    o = out.cpu().numpy()
+    segs = [tbk.decode_checkpoints_ptrs(
+        recs[:, j], int(fin[j]), int(lanes[j, wk.L_ANC]),
+        int(o[j, wk.O_SNC]), full)[:seg_cap] for j in range(len(lanes))]
+    sg = torch.from_numpy(exact.seg_input(segs)).to(smoke.dev)
+    res2 = _hold_cut(smoke, f"lowmem pass 2 {label}", p2[0], p2[1], sg,
+                     card)
+    return res1, res2
+
+
+def wide_times(smoke: Smoke, card: str, first) -> dict:
+    """Phase 5, wide: nbear1m's score run in K1 (one block) and in the
+    wide kernel (the whole card) at the spec of align_batch's wide call
+    (``first``, phase 4d's): every output equal, and both kernel times
+    (CUDA events; the wide kernel's summed over run_chunked's calls)."""
+    from miniwfa_tpu_torch.ops import wavefront_kernel as wk
+    from miniwfa_tpu_torch.ops import wavefront_wide as ww
+
+    spec, *args = first
+    print(f"phase 5, wide: nbear1m score, K1 against the wide kernel at "
+          f"W={spec.W} (cpw={spec.cpw})", flush=True)
+    with WideTimer() as wt:
+        out, _, _ = ww.run_chunked(spec, *args)
+    wide = wt.totals()["SCORE"]
+    k1, k1_ms = _ms(lambda: wk.wavefront(spec, *args))
+    err = _max_err(out, k1[0])
+    smoke.err["wavefront_wide"] = max(smoke.err["wavefront_wide"], err)
+    o = out.cpu().numpy()[0]
+    smoke.check(err == 0 and o[wk.O_DONE] == 1, f"wide vs K1 nbear1m score "
+                f"W={spec.W}: s={o[wk.O_S]} n_iter={o[wk.O_NITER]}, every "
+                f"output equal (max_abs_err={err})")
+    print(f"  nbear1m score W={spec.W}: wide_kernel_ms={wide['ms']:.3f} "
+          f"({wide['calls']} calls, "
+          f"{ww.wide.blocks.get((smoke.dev.index, wk.MODE_SCORE))} "
+          f"blocks) "
+          f"k1_kernel_ms={k1_ms:.3f} (1 block) cells={wide['cells']} "
+          f"bound_ms={wide['bound_ms']:.6f} ({wide['bound_by']}) "
+          f"card={card}", flush=True)
+    return dict(wide, k1_ms=k1_ms, W=spec.W)
+
+
+# the wide kernel against wide_plain at the path's own specs, from a fresh
+# state: score past five 256-cycle shrinks, pass 1 past its first snapshot
+# (score 4999); the kernel in calls that pause right after the shrink cycle
+# 767, (PASS1) the snapshot cycle step-1, and at the end
+T_SCORE, T_PASS1, T_SHRINK = 1300, 5200, 768
+# div5m's pass-1 spec at step 64 with 40 snapshot rows of 113 MB: the last
+# rows lie past 2^32 bytes into the buffer, as div5m's 58 rows do at step
+# 5000
+STEP_ROWS, N_ROWS = 64, 40
+
+
+def wide_real_shapes(smoke: Smoke, card: str, first) -> dict:
+    """Phase 5, wide: the wide kernel against wide_plain at the specs its
+    path ran in phase 4d (``first``: nbear1m score at W=2^20, div5m pass 1
+    at step 5000, and the latter at step STEP_ROWS with N_ROWS snapshot
+    rows), for the cycles set above: every output, the state row, the
+    planes and the snapshot rows equal.  Returns the plain and kernel
+    times by run."""
+    import dataclasses
+    import torch
+    from miniwfa_tpu_torch.ops import wavefront_kernel as wk
+    from miniwfa_tpu_torch.ops import wavefront_wide as ww
+
+    print("phase 5, wide: the wide kernel against wide_plain at the path's "
+          "specs", flush=True)
+    d5 = first["div5m"][0]
+    runs = (("nbear1m score", first["nbear1m"][0], T_SCORE),
+            ("div5m pass 1", dataclasses.replace(
+                d5, n_snap=max(d5.n_snap, T_PASS1 // d5.step)), T_PASS1),
+            (f"div5m pass 1 step={STEP_ROWS}", dataclasses.replace(
+                d5, step=STEP_ROWS, n_snap=N_ROWS), STEP_ROWS * N_ROWS))
+    times = {}
+    for label, spec, t_end in runs:
+        args = first[label.split()[0]][1:]
+        B = args[0].shape[0]
+
+        def lim(t):
+            return torch.full((B,), t, dtype=torch.int64, device=smoke.dev)
+
+        pst = ww.new_state(spec, args[0])
+        want, plain_ms = _ms(lambda: ww.wide_plain(spec, *args, pst,
+                                                   lim(t_end)))
+        kst = ww.new_state(spec, args[0])
+        stops = sorted({T_SHRINK, t_end} | ({spec.step} if spec.step
+                                            else set()))
+        ms = 0.0
+        for t in stops:
+            got, m = _ms(lambda: ww.wide(spec, *args, kst, lim(t)))
+            ms += m
+        err = max(_max_err(x, y) for x, y in (
+            (got, want), (kst.row, pst.row), (kst.planes, pst.planes),
+            (kst.snap, pst.snap)))
+        rows = int(want[:, wk.O_SNC].sum())
+        del kst, pst
+        smoke.err["wavefront_wide"] = max(smoke.err["wavefront_wide"], err)
+        smoke.check(err == 0 and bool(want[:, ww.OW_PAUSE].all()),
+                    f"wide {label} W={spec.W} S_CAP={spec.S_CAP} "
+                    f"cycles 0..{t_end - 1} in calls ending at {stops}: "
+                    f"{rows} snapshot rows, every output, the state "
+                    f"row, the planes and the snapshot rows equal "
+                    f"wide_plain's, max_abs_err={err} (kernel_ms={ms:.3f} "
+                    f"plain_ms={plain_ms:.3f} card={card})")
+        times[label] = dict(cycles=t_end, ms=ms, plain_ms=plain_ms)
     return times
 
 
@@ -901,32 +1336,67 @@ def main() -> int:
     smoke = Smoke(torch.device("cuda", 0))
     t0 = time.perf_counter()
     kernel_phases(smoke)
+    wtimes8 = wide_phases(smoke, card)
     t1 = time.perf_counter()
     info = main_path(smoke, card)
+    winfo = wide_path(smoke, card, info["fixture"], info["sgold"])
     t2 = time.perf_counter()
-    times = kernel_times(smoke, card, info["ts"], info["qs"])
-    gtimes = gaps_times(smoke, card, *info["div5m"])
+    print("phase 5: kernel timings at the main path's dispatch shapes, "
+          "each K1 mode held against its plain version there with its lanes "
+          "stopped early, the plain versions timed at the 8 kb benchmark "
+          "shape", flush=True)
+    times = kernel_times(smoke, card, "main", info["ts"], info["qs"],
+                         STEP_MAIN, plain=False, cut=True)
+    pairs = make_pairs(8000, 64)[:8]
+    ptimes = kernel_times(smoke, card, "bench8k",
+                          [t.encode() for t, _ in pairs],
+                          [q.encode() for _, q in pairs], 200, plain=True)
+    gtimes = gaps_times(smoke, card, *info["fixture"]("div5m"))
+    wtime = wide_times(smoke, card, winfo["first"]["nbear1m"])
+    wreal = wide_real_shapes(smoke, card, winfo["first"])
     print(f"phase seconds: kernels {t1 - t0:.1f}, main path {t2 - t1:.1f}, "
           f"timings {time.perf_counter() - t2:.1f}", flush=True)
     launches = info["launches"]
+    wl = winfo["launches"]
 
-    def timed(t):
-        return {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+    def timed(t, p=None):
+        """ms and bound at the main path's shape; plain_ms (and the
+        kernel's own time there) at the 8 kb shape ``p``."""
+        res = {k: t[k] for k in ("ms", "bound_ms", "bound_by")}
+        p = p or t
+        res["plain_ms"] = p.get("plain_ms")
+        if p is not t:
+            res["plain_shape_kernel_ms"] = p["ms"]
+        return res
 
-    modes = {m: {"launches": launches["modes"].get(m, 0), **timed(times[m])}
+    # each K1 mode's check against its plain version at the main shape,
+    # its lanes stopped past max_s: both times
+    modes = {m: {"launches": launches["modes"].get(m, 0),
+                 **timed(times[m], ptimes[m]),
+                 "main_shape_cut": times[m]["cut"]}
              for m in ("SCORE", "TB", "PASS1", "TB+seg")}
+    d5 = winfo["div5m_pass1"]
+    wmodes = {
+        "SCORE": {"launches": wl["modes"].get("SCORE", 0),
+                  **timed(wtime, wtimes8["SCORE"]), "k1_ms": wtime["k1_ms"],
+                  "shape": f"nbear1m score W={wtime['W']}"},
+        "PASS1": {"launches": wl["modes"].get("PASS1", 0),
+                  **timed(d5, wtimes8["PASS1"]),
+                  "shape": "div5m low-mem pass 1"}}
     kernels = [
         {"name": "wavefront", "route": "cuda",
          "source": "miniwfa_tpu_torch/csrc/wavefront.cu",
          "replaces": "miniwfa_tpu/ops/wavefront_kernel.py:226",
          "launches": launches["wavefront"],
-         "max_abs_err": smoke.err["wavefront"], **timed(times["SCORE"]),
+         "max_abs_err": smoke.err["wavefront"],
+         **timed(times["SCORE"], ptimes["SCORE"]),
          "library_ms": None, "modes": modes},
         {"name": "walk", "route": "cuda",
          "source": "miniwfa_tpu_torch/csrc/walk.cu",
          "replaces": "miniwfa_tpu/ops/traceback_device.py:33",
          "launches": launches["walk"], "max_abs_err": smoke.err["walk"],
-         **timed(times["walk"]), "library_ms": None,
+         **timed(times["walk"], ptimes["walk"]), "library_ms": None,
+         "main_shape_plain_ms": times["walk"]["plain_ms"],
          "on_gaps": {"launches": launches["walk_on_gaps"],
                      **timed(gtimes["walk"])}},
         {"name": "gaps", "route": "cuda",
@@ -934,7 +1404,14 @@ def main() -> int:
          "replaces": "miniwfa_tpu/ops/wavefront_gaps.py:90",
          "launches": launches["gaps"], "max_abs_err": smoke.err["gaps"],
          **timed(gtimes["TB"]), "library_ms": None,
-         "modes": {m: timed(gtimes[m]) for m in ("SCORE", "TB")}}]
+         "modes": {m: timed(gtimes[m]) for m in ("SCORE", "TB")}},
+        {"name": "wavefront_wide", "route": "cuda",
+         "source": "miniwfa_tpu_torch/csrc/wavefront_wide.cu",
+         "replaces": "miniwfa_tpu/ops/wavefront_wide.py:158",
+         "launches": wl["wavefront_wide"],
+         "max_abs_err": smoke.err["wavefront_wide"],
+         **timed(wtime, wtimes8["SCORE"]), "library_ms": None,
+         "modes": wmodes, "path_spec_checks": wreal}]
     print(json.dumps({"kernels": kernels}), flush=True)
     if smoke.failures:
         print(f"chip_smoke: {len(smoke.failures)} check(s) failed:",

@@ -34,6 +34,20 @@ And for the gaps kernel (``miniwfa_tpu/ops/wavefront_gaps.py``, K3):
   byte ``t & 3`` of word ``[g, t >> 2, w]``) ↔ the port's
   ``tb [G, S_CAP, 128] uint8``.
 
+And for the wide kernel (``miniwfa_tpu/ops/wavefront_wide.py``, K2):
+
+* its out row, the 10 O_* columns then OW_T, OW_WLO, OW_WHI, OW_TLO,
+  OW_THI, OW_PAUSE and the band registry, ↔ the port's ``out [B, OW_N]``
+  (O_* + OW_PAUSE) and the scalar columns of its state row (ST_*);
+* its snapshot rows ``[B, n_snap+1, NRING, WR+8, 128]``: rows below
+  snap_cnt are the snapshots, the next one holds the live pointer rings;
+  rings of depth max age (DH, DE1, DE2), not max age + 1 as in the port,
+  and flat pointers ``plane * WPT + w`` with ``WPT = (WR+8) * 128``.  A
+  pointer into snapshot row c names ring slot j, which at that snapshot's
+  score ``(c+1)*step - 1`` held one score; the port's slot of that score
+  gives the port's pointer (``wide_ptr``), so the converted rows decode
+  with the port's checkpoint chain and decoder.
+
 The JAX package's column numbers are restated here, so this module needs
 neither JAX nor that package.
 """
@@ -44,12 +58,16 @@ import numpy as np
 
 from .ops import wavefront_gaps as wg
 from .ops import wavefront_kernel as wk
+from .ops import wavefront_wide as ww
 
 # scalar-input columns of the JAX kernel
 (SC_TL, SC_QL, SC_ANC, SC_NSEG, SC_MS, SC_MILO, SC_MIHI, SC_SEG) = range(8)
 # scalar-output columns of the JAX kernel
 (JO_S, JO_DONE, JO_STOP, JO_OVFB, JO_OVFS, JO_LS, JO_NLO, JO_NHI,
  JO_LP, JO_SNC, JO_N) = range(11)
+# the JAX wide kernel's out-row columns after the O_* ones
+(JW_T, JW_WLO, JW_WHI, JW_TLO, JW_THI, JW_PAUSE, JW_BND) = \
+    range(JO_N, JO_N + 7)
 NTAB = 128        # word-table rows/cols: one segment = 128*128 words
 SEGSTRIDE = 127   # segment stride in 128-word blocks
 _LO30 = (1 << 30) - 1
@@ -209,3 +227,78 @@ def tb_from_gaps_packed(tb_packed: np.ndarray) -> np.ndarray:
     for j in range(4):
         out[:, :, j, :] = (p >> np.uint32(8 * j)) & 0xFF
     return out.reshape(G, S4 * 4, W)
+
+
+def _wide_plane_map(spec: wk.KSpec, t: int) -> np.ndarray:
+    """The port's snapshot plane of each JAX wide-kernel ring plane, at a
+    snapshot taken at score ``t``."""
+    port = wk.snapshot_layout(spec)
+    out = []
+    for p0, depth in zip(port[:5], (spec.rings[0], spec.rings[1],
+                                    spec.rings[1], spec.rings[2],
+                                    spec.rings[2])):
+        dj = depth - 1           # the JAX ring's depth
+        for j in range(dj):
+            out.append(p0 + (t - (t - j) % dj) % depth)
+    return np.array(out, np.int64)
+
+
+def wide_ptr(v, c: int, spec: wk.KSpec, wpt: int) -> np.ndarray:
+    """JAX wide-kernel flat pointers into snapshot row ``c`` -> the port's
+    (-1, the chain's origin, and unset entries stay as they are)."""
+    v = np.asarray(v, np.int64)
+    pm = _wide_plane_map(spec, spec.step * (c + 1) - 1)
+    plane, w = v // wpt, v % wpt
+    ok = (v >= 0) & (plane < len(pm)) & (w < spec.W)
+    return np.where(ok, pm[np.clip(plane, 0, len(pm) - 1)] * spec.W + w,
+                    np.where(v == -1, -1, wk.WF_NEG_INF))
+
+
+def wide_out_from_row(row: np.ndarray, spec: wk.KSpec, wpt: int = 0):
+    """The JAX wide kernel's out row -> (the port's out [B, OW_N], the
+    scalar columns of its state row [B, ST_BND]).  In PASS1 ``wpt`` is
+    the JAX snapshot stride, and last_ptr is carried into the port's
+    layout."""
+    row = np.asarray(row, np.int64)
+    out = np.zeros((row.shape[0], ww.OW_N), np.int64)
+    out[:, :wk.O_N] = out_from_row(row[:, :JO_N])
+    out[:, ww.OW_PAUSE] = row[:, JW_PAUSE]
+    if spec.mode == wk.MODE_PASS1:
+        for b in range(row.shape[0]):
+            snc = int(out[b, wk.O_SNC])
+            if snc:
+                out[b, wk.O_LP] = wide_ptr(out[b, wk.O_LP], snc - 1, spec,
+                                           wpt)
+    st = np.zeros((row.shape[0], ww.ST_BND), np.int64)
+    for c, src in ((ww.ST_T, row[:, JW_T]), (ww.ST_WLO, row[:, JW_WLO]),
+                   (ww.ST_WHI, row[:, JW_WHI]), (ww.ST_TLO, row[:, JW_TLO]),
+                   (ww.ST_THI, row[:, JW_THI]),
+                   (ww.ST_NITER, out[:, wk.O_NITER]),
+                   (ww.ST_LP, out[:, wk.O_LP]), (ww.ST_SNC, out[:, wk.O_SNC]),
+                   (ww.ST_S, out[:, wk.O_S]), (ww.ST_DONE, out[:, wk.O_DONE]),
+                   (ww.ST_STOP, out[:, wk.O_STOP]),
+                   (ww.ST_OVFB, out[:, wk.O_OVFB])):
+        st[:, c] = src
+    return out, st
+
+
+def snap_from_wide(snap: np.ndarray, snap_cnt, spec: wk.KSpec) -> np.ndarray:
+    """The JAX wide kernel's snapshot rows [B, n_snap+1, NRING, WR+8, 128]
+    -> the port's layout [B, n_snap, NP, W]: each lane's first snap_cnt
+    rows, every pointer carried into the port's planes; the rest
+    WF_NEG_INF."""
+    snap = np.asarray(snap)
+    B, R1, NR, WRT, _ = snap.shape
+    wpt, W = WRT * 128, spec.W
+    out = np.full((B, R1 - 1, wk.snapshot_layout(spec)[5], W),
+                  wk.WF_NEG_INF, np.int32)
+    for c in range(R1 - 1):
+        vals = snap[:, c].reshape(B, NR, wpt)[:, :, :W].astype(np.int64)
+        if c:
+            vals = wide_ptr(vals, c - 1, spec, wpt)
+        else:   # row 0 holds the chain's origin and nothing else
+            vals = np.where(vals == -1, -1, wk.WF_NEG_INF)
+        pm = _wide_plane_map(spec, spec.step * (c + 1) - 1)
+        taken = np.asarray(snap_cnt)[:, None, None] > c
+        out[:, c, pm] = np.where(taken, vals, wk.WF_NEG_INF)
+    return out

@@ -7,6 +7,10 @@
 // miniwfa_tpu_torch/ops/wavefront_kernel.py::wavefront_plain, and the
 // module docstring there describes the state layout both share.
 //
+// The per-diagonal code (extension probe, band-masked reads, the 5-state
+// transition of one cell, the PASS1 pointer choice) lives in
+// wavefront_common.cuh, shared with the wide kernel (wavefront_wide.cu).
+//
 // Design: one thread block per lane runs that lane's whole `while s += 1`
 // loop.  Every thread keeps an identical copy of the lane's scalars (score
 // t, committed band wf_lo/wf_hi, top band t_lo/t_hi, flags, n_iter) and
@@ -66,19 +70,13 @@
 // several CTAs per lane, shared-memory rings for narrow bands, packing
 // several lanes per block) is later work.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "wavefront_common.cuh"
 
 namespace {
 
-constexpr int NEG = -0x40000000;  // reference sentinel (miniwfa.c:67)
-constexpr int BIG = 0x3FFFFFFF;
-constexpr int THREADS = 512;
-constexpr int MAX_RING = 32;      // NS <= 31 (vb packs NS bits)
+using namespace mwf;
 
-enum { L_TL, L_QL, L_ANC, L_MS, L_MI, L_N };
-enum { O_S, O_DONE, O_STOP, O_OVFB, O_OVFS, O_LS, O_NITER, O_LP, O_SNC, O_N };
-enum { MODE_SCORE, MODE_TB, MODE_PASS1 };
+constexpr int THREADS = 512;
 
 struct Params {
   const long long* lanes;     // [B, L_N]
@@ -97,50 +95,9 @@ struct Params {
   int step, n_snap;
 };
 
-// A source plane of the transition: the ring slot of score t+1-age and
-// that score's recorded band (empty for negative scores).
-struct Src {
-  const int* p;
-  int lo, hi;
-};
-
-__device__ __forceinline__ unsigned chars_at(const unsigned* w, long long pos,
-                                             int logc, int bits, int cpw) {
-  const long long j = pos >> logc;
-  return __funnelshift_r(w[j], w[j + 1], (int)(pos & (cpw - 1)) * bits);
-}
-
-// k advanced along the diagonal's match run, capped at the matrix edge.
-__device__ int extend(const unsigned* tw, const unsigned* qw, int k, int d,
-                      int tl, int ql, int cpw, int logc, int bits, int logb) {
-  const int cap = min(tl - 1 - k, ql - 1 - (d + k));
-  const long long pt = (long long)k + 1, pq = (long long)d + k + 1;
-  int adv = 0;
-  while (adv < cap) {
-    const unsigned x = chars_at(tw, pt + adv, logc, bits, cpw) ^
-                       chars_at(qw, pq + adv, logc, bits, cpw);
-    if (x) {
-      adv += (__ffs((int)x) - 1) >> logb;
-      break;
-    }
-    adv += cpw;
-  }
-  return k + min(adv, cap);
-}
-
-// k in [-1, tl) and d+k in [-1, ql) (miniwfa.c:139-171)
-__device__ __forceinline__ bool good_diag(int v, int d, int tl, int ql) {
-  return v >= -1 && v < tl && d + v >= -1 && d + v < ql;
-}
-
-// value (off = 0) or pointer (off = poff) of a source slot, NEG outside
-// its score's band
-__device__ __forceinline__ int rd(const Src& s, int slot, int anc,
-                                  size_t off = 0) {
-  const int d = anc + slot;
-  return (d >= s.lo && d <= s.hi) ? s.p[off + slot] : NEG;
-}
-
+// One instantiation per mode, so a mode compiles none of the others' code
+// (SCORE computes no tb byte and copies no pointer).
+template <int MODE>
 __global__ void __launch_bounds__(THREADS) wavefront_kernel(Params p) {
   const int b = blockIdx.x, tid = threadIdx.x;
   const long long* ln = p.lanes + (size_t)b * L_N;
@@ -154,7 +111,7 @@ __global__ void __launch_bounds__(THREADS) wavefront_kernel(Params p) {
   const int RE1 = max(p.e1, 1) + 1, RE2 = max(p.e2, 1) + 1;
   const unsigned vmask = (1u << NS) - 1u;
   const int vmask2 = (1 << (NS - 1)) - 1;
-  const bool is_tb = p.mode == MODE_TB, is_p1 = p.mode == MODE_PASS1;
+  constexpr bool is_tb = MODE == MODE_TB, is_p1 = MODE == MODE_PASS1;
   const int NP = RH + 2 * RE1 + 2 * RE2;
   const int cpw = p.cpw, bits = 32 / cpw;
   const int logc = cpw == 16 ? 4 : 2, logb = cpw == 16 ? 1 : 3;
@@ -265,18 +222,8 @@ __global__ void __launch_bounds__(THREADS) wavefront_kernel(Params p) {
       } else {
         int* srow = p.snap + ((size_t)b * p.n_snap + row) * NP * Wz;
         for (int pl = 0; pl < NP; ++pl) {
-          // ring depth and slot of plane pl (H | E1 | F1 | E2 | F2)
           int depth, j;
-          if (pl < RH) {
-            depth = RH;
-            j = pl;
-          } else if (pl < RH + 2 * RE1) {
-            depth = RE1;
-            j = (pl - RH) % RE1;
-          } else {
-            depth = RE2;
-            j = (pl - RH - 2 * RE1) % RE2;
-          }
+          plane_slot(pl, RH, RE1, RE2, depth, j);
           const int sj = t - ((t - j) % depth + depth) % depth;
           if (sj < 0) continue;
           const int a = max(bnd_lo[sj % RH] - anc, 0);
@@ -318,10 +265,10 @@ __global__ void __launch_bounds__(THREADS) wavefront_kernel(Params p) {
         }
         return r;
       };
-      const Src sx = mk(H, RH, ag_x), sh1 = mk(H, RH, ag_o1),
-                sh2 = mk(H, RH, ag_o2), se1 = mk(E1, RE1, p.e1),
-                sf1 = mk(F1, RE1, p.e1), se2 = mk(E2, RE2, p.e2),
-                sf2 = mk(F2, RE2, p.e2);
+      const Sources S{mk(H, RH, ag_x),     mk(H, RH, ag_o1),
+                      mk(H, RH, ag_o2),    mk(E1, RE1, p.e1),
+                      mk(F1, RE1, p.e1),   mk(E2, RE2, p.e2),
+                      mk(F2, RE2, p.e2)};
       const int a = max(min(t_lo, lo) - anc, 0);
       const int e = min(max(t_hi, hi) - anc, W - 1);
       for (int s = a + tid; s <= e; s += THREADS) {
@@ -336,47 +283,22 @@ __global__ void __launch_bounds__(THREADS) wavefront_kernel(Params p) {
         vb[s] = (int)((v | (unsigned)viab) & vmask);
         lastt[s] = t;
         if (d < lo || d > hi) continue;
-        const int ho1m = rd(sh1, s - 1, anc), ho1p = rd(sh1, s + 1, anc);
-        const int ho2m = rd(sh2, s - 1, anc), ho2p = rd(sh2, s + 1, anc);
-        const int e1m = rd(se1, s - 1, anc), f1p = rd(sf1, s + 1, anc);
-        const int e2m = rd(se2, s - 1, anc), f2p = rd(sf2, s + 1, anc);
-        const int hx = rd(sx, s, anc) + 1;
-        const int ne1 = max(ho1m, e1m), ne2 = max(ho2m, e2m);
-        const int nf1 = max(ho1p, f1p) + 1, nf2 = max(ho2p, f2p) + 1;
-        const int ev = max(ne1, ne2), fv = max(nf1, nf2);
-        int z = ev >= fv ? (ne1 >= ne2 ? 1 : 3) : (nf1 >= nf2 ? 2 : 4);
-        const int hv = max(ev, fv);
-        if (hx >= hv) z = 0;
-        const int nh = max(hx, hv);
-        Hn[s] = nh;
-        E1n[s] = ne1;
-        F1n[s] = nf1;
-        E2n[s] = ne2;
-        F2n[s] = nf2;
-        if (is_tb)
-          tb[(size_t)t * Wz + s] = (unsigned char)(
-              ((ho1m < e1m) << 3) | ((ho1p < f1p) << 4) |
-              ((ho2m < e2m) << 5) | ((ho2p < f2p) << 6) | z);
+        const Cell c = transition<false>(S, s, anc);
+        Hn[s] = c.h;
+        E1n[s] = c.e1;
+        F1n[s] = c.f1;
+        E2n[s] = c.e2;
+        F2n[s] = c.f2;
+        if (is_tb) tb[(size_t)t * Wz + s] = (unsigned char)c.tb;
         if (is_p1) {  // copy the chosen source's pointer
-          const int pe1 = ho1m < e1m ? rd(se1, s - 1, anc, poff)
-                                     : rd(sh1, s - 1, anc, poff);
-          const int pf1 = ho1p < f1p ? rd(sf1, s + 1, anc, poff)
-                                     : rd(sh1, s + 1, anc, poff);
-          const int pe2 = ho2m < e2m ? rd(se2, s - 1, anc, poff)
-                                     : rd(sh2, s - 1, anc, poff);
-          const int pf2 = ho2p < f2p ? rd(sf2, s + 1, anc, poff)
-                                     : rd(sh2, s + 1, anc, poff);
-          Hn[poff + s] = z == 0   ? rd(sx, s, anc, poff)
-                         : z == 1 ? pe1
-                         : z == 2 ? pf1
-                         : z == 3 ? pe2
-                                  : pf2;
-          E1n[poff + s] = pe1;
-          F1n[poff + s] = pf1;
-          E2n[poff + s] = pe2;
-          F2n[poff + s] = pf2;
+          const Cell q = pointers<false>(S, s, anc, poff, c.tb);
+          Hn[poff + s] = q.h;
+          E1n[poff + s] = q.e1;
+          F1n[poff + s] = q.f1;
+          E2n[poff + s] = q.e2;
+          F2n[poff + s] = q.f2;
         }
-        if (nh >= -1 || ne1 >= -1 || nf1 >= -1 || ne2 >= -1 || nf2 >= -1) {
+        if (any_viable(c)) {
           if (d == lo) f_loq[par] = 1;
           if (d == hi) f_hiq[par] = 1;
         }
@@ -443,6 +365,13 @@ extern "C" int mwf_wavefront(const long long* lanes, const unsigned* tw,
                              int n_snap, void* stream) {
   Params p{lanes, tw, qw, nw, planes, out, tb, bands, segs, seg_cap, snap,
            W, S_CAP, mode, cpw, x, o1, e1, o2, e2, step, n_snap};
-  wavefront_kernel<<<B, THREADS, 0, (cudaStream_t)stream>>>(p);
+  const dim3 grid(B), block(THREADS);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (mode == MODE_TB)
+    wavefront_kernel<MODE_TB><<<grid, block, 0, st>>>(p);
+  else if (mode == MODE_PASS1)
+    wavefront_kernel<MODE_PASS1><<<grid, block, 0, st>>>(p);
+  else
+    wavefront_kernel<MODE_SCORE><<<grid, block, 0, st>>>(p);
   return (int)cudaGetLastError();
 }

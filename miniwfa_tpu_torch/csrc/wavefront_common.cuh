@@ -1,0 +1,164 @@
+// Device code shared by the wavefront kernels: K1 (wavefront.cu, one block
+// per lane) and the wide kernel (wavefront_wide.cu, one lane over the whole
+// card).  Both run the same cycle (see the notes in wavefront.cu); what they
+// share here is the per-diagonal work: the extension probe, the good-diagonal
+// test, the band-masked source read, the 5-state transition of one cell with
+// its tb bits, the PASS1 pointer choice, and the snapshot plane -> ring slot
+// map.  The load policy is a template flag: K1 reads its planes with plain
+// loads (one block owns a lane, so __syncthreads orders every access), the
+// wide kernel with ld.global.cg, which skips the SM's L1: another SM may
+// have written the line in the same launch, and L1 is not coherent across
+// SMs.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace mwf {
+
+constexpr int NEG = -0x40000000;  // reference sentinel (miniwfa.c:67)
+constexpr int BIG = 0x3FFFFFFF;
+constexpr int MAX_RING = 32;      // NS <= 31 (vb packs NS bits)
+
+enum { L_TL, L_QL, L_ANC, L_MS, L_MI, L_N };
+enum { O_S, O_DONE, O_STOP, O_OVFB, O_OVFS, O_LS, O_NITER, O_LP, O_SNC, O_N };
+enum { MODE_SCORE, MODE_TB, MODE_PASS1 };
+
+template <bool CG>
+__device__ __forceinline__ int ld(const int* p) {
+  if constexpr (CG) {
+    return __ldcg(p);
+  } else {
+    return *p;
+  }
+}
+
+// A source plane of the transition: the ring slot of score t+1-age and
+// that score's recorded band (empty for negative scores).
+struct Src {
+  const int* p;
+  int lo, hi;
+};
+
+__device__ __forceinline__ unsigned chars_at(const unsigned* w, long long pos,
+                                             int logc, int bits, int cpw) {
+  const long long j = pos >> logc;
+  return __funnelshift_r(w[j], w[j + 1], (int)(pos & (cpw - 1)) * bits);
+}
+
+// k advanced along the diagonal's match run, capped at the matrix edge.
+__device__ __forceinline__ int extend(const unsigned* tw, const unsigned* qw,
+                                      int k, int d, int tl, int ql, int cpw,
+                                      int logc, int bits, int logb) {
+  const int cap = min(tl - 1 - k, ql - 1 - (d + k));
+  const long long pt = (long long)k + 1, pq = (long long)d + k + 1;
+  int adv = 0;
+  while (adv < cap) {
+    const unsigned x = chars_at(tw, pt + adv, logc, bits, cpw) ^
+                       chars_at(qw, pq + adv, logc, bits, cpw);
+    if (x) {
+      adv += (__ffs((int)x) - 1) >> logb;
+      break;
+    }
+    adv += cpw;
+  }
+  return k + min(adv, cap);
+}
+
+// k in [-1, tl) and d+k in [-1, ql) (miniwfa.c:139-171)
+__device__ __forceinline__ bool good_diag(int v, int d, int tl, int ql) {
+  return v >= -1 && v < tl && d + v >= -1 && d + v < ql;
+}
+
+// value (off = 0) or pointer (off = poff) of a source slot, NEG outside
+// its score's band
+template <bool CG>
+__device__ __forceinline__ int rd(const Src& s, int slot, int anc,
+                                  size_t off = 0) {
+  const int d = anc + slot;
+  return (d >= s.lo && d <= s.hi) ? ld<CG>(s.p + off + slot) : NEG;
+}
+
+// The sources of the transition into score t+1, in the order Hx, Ho1, Ho2,
+// E1, F1, E2, F2 (ages x, o1+e1, o2+e2, e1, e1, e2, e2).
+struct Sources {
+  Src x, h1, h2, e1, f1, e2, f2;
+};
+
+// One cell of the transition into score t+1 (miniwfa.c:243-327), with the
+// exact '>=' / '<' tie-breaks of wf_next_tb (miniwfa.c:287-307); `tb` is
+// the 7-bit traceback byte.
+struct Cell {
+  int h, e1, f1, e2, f2, tb;
+};
+
+template <bool CG>
+__device__ __forceinline__ Cell transition(const Sources& S, int s, int anc) {
+  const int ho1m = rd<CG>(S.h1, s - 1, anc), ho1p = rd<CG>(S.h1, s + 1, anc);
+  const int ho2m = rd<CG>(S.h2, s - 1, anc), ho2p = rd<CG>(S.h2, s + 1, anc);
+  const int e1m = rd<CG>(S.e1, s - 1, anc), f1p = rd<CG>(S.f1, s + 1, anc);
+  const int e2m = rd<CG>(S.e2, s - 1, anc), f2p = rd<CG>(S.f2, s + 1, anc);
+  const int hx = rd<CG>(S.x, s, anc) + 1;
+  const int ne1 = max(ho1m, e1m), ne2 = max(ho2m, e2m);
+  const int nf1 = max(ho1p, f1p) + 1, nf2 = max(ho2p, f2p) + 1;
+  const int ev = max(ne1, ne2), fv = max(nf1, nf2);
+  int z = ev >= fv ? (ne1 >= ne2 ? 1 : 3) : (nf1 >= nf2 ? 2 : 4);
+  const int hv = max(ev, fv);
+  if (hx >= hv) z = 0;
+  Cell c;
+  c.h = max(hx, hv);
+  c.e1 = ne1;
+  c.f1 = nf1;
+  c.e2 = ne2;
+  c.f2 = nf2;
+  c.tb = ((ho1m < e1m) << 3) | ((ho1p < f1p) << 4) | ((ho2m < e2m) << 5) |
+         ((ho2p < f2p) << 6) | z;
+  return c;
+}
+
+// PASS1: each state copies the pointer of the source its tb bits chose
+// (reference wf_next_seg, miniwfa.c:495-523); pointer planes sit `poff`
+// after their value planes.
+template <bool CG>
+__device__ __forceinline__ Cell pointers(const Sources& S, int s, int anc,
+                                         size_t poff, int tb) {
+  Cell p;
+  p.e1 = (tb & 0x08) ? rd<CG>(S.e1, s - 1, anc, poff)
+                     : rd<CG>(S.h1, s - 1, anc, poff);
+  p.f1 = (tb & 0x10) ? rd<CG>(S.f1, s + 1, anc, poff)
+                     : rd<CG>(S.h1, s + 1, anc, poff);
+  p.e2 = (tb & 0x20) ? rd<CG>(S.e2, s - 1, anc, poff)
+                     : rd<CG>(S.h2, s - 1, anc, poff);
+  p.f2 = (tb & 0x40) ? rd<CG>(S.f2, s + 1, anc, poff)
+                     : rd<CG>(S.h2, s + 1, anc, poff);
+  const int z = tb & 7;
+  p.h = z == 0   ? rd<CG>(S.x, s, anc, poff)
+        : z == 1 ? p.e1
+        : z == 2 ? p.f1
+        : z == 3 ? p.e2
+                 : p.f2;
+  p.tb = 0;
+  return p;
+}
+
+__device__ __forceinline__ bool any_viable(const Cell& c) {
+  return c.h >= -1 || c.e1 >= -1 || c.f1 >= -1 || c.e2 >= -1 || c.f2 >= -1;
+}
+
+// Ring depth and slot of snapshot plane pl (H | E1 | F1 | E2 | F2).
+__device__ __forceinline__ void plane_slot(int pl, int RH, int RE1, int RE2,
+                                           int& depth, int& j) {
+  if (pl < RH) {
+    depth = RH;
+    j = pl;
+  } else if (pl < RH + 2 * RE1) {
+    depth = RE1;
+    j = (pl - RH) % RE1;
+  } else {
+    depth = RE2;
+    j = (pl - RH - 2 * RE1) % RE2;
+  }
+}
+
+}  // namespace mwf

@@ -16,10 +16,12 @@ each checkpoint score, so its traceback table needs a band of about
 Host work (cheap, O(n+s) per pair): sequence packing, capacity bucket
 selection with escalate-and-retry on overflow, checkpoint decoding.
 Device work: the whole wavefront loop of a batch
-(ops/wavefront_kernel.py), the checkpoint chain and, in CIGAR mode, the
-traceback walk (ops/traceback_device.py), all on the ``device`` the
-caller names: a CUDA device launches the hand-written kernels, the CPU
-runs their plain PyTorch versions.
+(ops/wavefront_kernel.py, one block per lane; past its windows, score and
+pass-1 runs go to the wide engine, ops/wavefront_wide.py, one lane over the
+whole card), the checkpoint chain and, in CIGAR mode, the traceback walk
+(ops/traceback_device.py), all on the ``device`` the caller names: a CUDA
+device launches the hand-written kernels, the CPU runs their plain
+PyTorch versions.
 
 Lanes that outgrow the band window (W) or the cycle budget (S_CAP) re-run
 in an escalated bucket; every lane's result is independent of the others
@@ -28,6 +30,7 @@ in its batch.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
@@ -39,17 +42,23 @@ from ..options import Options
 from ..ops import pack
 from ..ops import traceback_device as tbd
 from ..ops import wavefront_kernel as wk
+from ..ops import wavefront_wide as ww
 from . import traceback as tbk
 
 MODE_SCORE, MODE_TB, MODE_PASS1 = wk.MODE_SCORE, wk.MODE_TB, wk.MODE_PASS1
 Seg = List[Tuple[int, int]]   # (score, diagonal) checkpoints of one pair
 
-# band windows the CUDA kernel serves: its ring planes live in device
-# memory (29 planes of 4 B/diagonal per lane at the default penalties), so
-# the score-mode cap is set by int32 offsets and memory, not by on-chip
-# storage; CIGAR mode also holds S_CAP * W traceback bytes per lane
-SCORE_W_CAP = 1 << 20
+# band windows: K1 (one block per lane) serves score runs up to
+# WIDE_SCORE_W_MIN diagonals and pass-1 runs up to WIDE_PASS1_W_MIN; wider
+# ones go to the wide engine (the whole card per lane) up to WIDE_W_CAP
+# (models/exact.py:166-194 of the JAX package).  CIGAR mode stays in K1 up
+# to TB_W_CAP: it holds S_CAP * W traceback bytes per lane
+WIDE_SCORE_W_MIN = 65536
+WIDE_PASS1_W_MIN = 32768
+WIDE_W_CAP = 1 << 20
 TB_W_CAP = 65536
+# snapshot rows a wide pass-1 run starts with (run_chunked grows them)
+WIDE_SNAP_ROWS0 = 8
 # pass-1 planes + snapshot bytes one dispatch may hold on the CPU (plain
 # version): keeps a process well under 1 GiB even at step=1
 CPU_PASS1_BUDGET = 256 << 20
@@ -170,7 +179,7 @@ def _device_w_cap(mode: int, device: torch.device) -> int:
     """Largest band window the device serves (no cap on the CPU)."""
     if device.type != "cuda":
         return 1 << 30
-    return TB_W_CAP if mode == MODE_TB else SCORE_W_CAP
+    return TB_W_CAP if mode == MODE_TB else WIDE_W_CAP
 
 
 def _tb_budget(device: torch.device) -> int:
@@ -213,7 +222,7 @@ def _pass1_w_cap(opt: Options, device: torch.device) -> int:
     if device.type != "cuda":
         return 1 << 30
     per_w = (10 * _n_planes(opt) + 2) * 4
-    return min(SCORE_W_CAP, _prev_pow2(_pass1_budget(device) // per_w))
+    return min(WIDE_W_CAP, _prev_pow2(_pass1_budget(device) // per_w))
 
 
 def _band_limit_error(opt: Options, mode: int, W: int,
@@ -288,12 +297,54 @@ def walk_meta(lanes: np.ndarray, o: np.ndarray) -> np.ndarray:
     return meta
 
 
+def band_max(opt: Options, bk: _Buckets, w_cap: int) -> int:
+    """The widest band a batch of the bucket can reach (both sequences'
+    lengths and the shrink slack, rounded up to 16384), clipped to
+    W_full and the device's cap: the wide engine's window, where an
+    oversized window costs memory and nothing per cycle."""
+    ns = opt.max_pen + 1
+    return min(-(-(bk.LT + bk.LQ + 2 * ns + 64) // 16384) * 16384,
+               bk.W_full, w_cap)
+
+
+def _wide_eligible(opt: Options, mode: int, W: int) -> bool:
+    """Whether a dispatch goes to the wide engine: score runs past K1's
+    WIDE_SCORE_W_MIN, pass-1 runs past WIDE_PASS1_W_MIN, up to WIDE_W_CAP
+    (the JAX package's _wide_eligible, on every device)."""
+    w_min = {MODE_SCORE: WIDE_SCORE_W_MIN,
+             MODE_PASS1: WIDE_PASS1_W_MIN}.get(mode)
+    return (w_min is not None and w_min < W <= WIDE_W_CAP
+            and opt.max_pen + 1 <= 31)
+
+
+def _run_wide(opt: Options, mode: int, bk: _Buckets,
+              ts_list: List[bytes], qs_list: List[bytes],
+              device: torch.device):
+    """One wide-engine run over a batch, in resumable calls (lanes one
+    after another, each over the whole card); returns as _run_kernel.
+    Pass 1 starts with WIDE_SNAP_ROWS0 snapshot rows, grown under the
+    pass-1 budget."""
+    spec, lanes, tw, qw = kernel_inputs(opt, mode, bk.W, bk.S_CAP,
+                                        ts_list, qs_list)
+    if mode == MODE_PASS1:
+        spec = dataclasses.replace(
+            spec, n_snap=min(spec.n_snap, WIDE_SNAP_ROWS0))
+    tw = torch.from_numpy(tw).to(device)
+    qw = torch.from_numpy(qw).to(device)
+    out, snap, spec = ww.run_chunked(
+        spec, torch.from_numpy(lanes).to(device), tw, qw,
+        snap_budget=_pass1_budget(device))
+    return out.cpu().numpy(), None, snap, lanes, tw, qw, spec
+
+
 def _run_kernel(opt: Options, mode: int, bk: _Buckets,
                 ts_list: List[bytes], qs_list: List[bytes],
                 device: torch.device, segs=None):
     """One wavefront dispatch over a batch; returns the outputs (out as
     numpy, tb and snap on the device) and the inputs the walker and the
-    checkpoint decoder reuse."""
+    checkpoint decoder reuse.  Windows past K1's go to the wide engine."""
+    if _wide_eligible(opt, mode, bk.W):
+        return _run_wide(opt, mode, bk, ts_list, qs_list, device)
     spec, lanes, tw, qw = kernel_inputs(opt, mode, bk.W, bk.S_CAP,
                                         ts_list, qs_list)
     tw = torch.from_numpy(tw).to(device)
@@ -372,14 +423,27 @@ def _run_pass1(opt: Options, ts_list: List[bytes], qs_list: List[bytes],
     """Low-mem pass 1 for a batch (reference mwf_wfa_seg,
     miniwfa.c:551-601): per-pair checkpoint lists and optimal scores.
     Lanes are chunked under the pass-1 budget; overflowed lanes re-run in
-    an escalated bucket."""
+    an escalated bucket.  A window past WIDE_PASS1_W_MIN (the wide
+    engine's territory) is sized once at the largest band the pair can
+    reach, clipped to the cap: the wide engine's cycles sweep only the live
+    band, so the oversized window costs memory and nothing per cycle; the
+    band overflows at about W/2, which bounds the score and so S_CAP; and
+    the snapshot rows start small and grow between calls (exact.py:577-592
+    of the JAX package)."""
     bk, w_cap = first_bucket(opt, MODE_PASS1, ts_list, qs_list, w0, s0,
                              device)
     n = len(ts_list)
     segs: List[Optional[Seg]] = [None] * n
     s_fin = [0] * n
     idx = list(range(n))
+    sized = False
     while idx:
+        if not sized and bk.W > WIDE_PASS1_W_MIN:
+            sized = True
+            W = max(band_max(opt, bk, w_cap), bk.W)
+            S = min(-(-(W // 2 + 4 * (opt.max_pen + 1) + 64) // 4096) * 4096,
+                    bk.S_full)
+            bk = _Buckets(bk.LT, bk.LQ, W, S, bk.W_full, bk.S_full)
         cap = _pass1_lane_cap(opt, bk, device)
         idx, idx_rest = idx[:cap], idx[cap:]
         o, _, snap, lanes, _, _, spec = _run_kernel(
@@ -526,8 +590,17 @@ def align_batch(pairs: Sequence[Tuple[object, object]], opt: Options,
             need_band = False
         if retry:
             cur_bk = _escalate(cur_bk, need_band, bool(ovf_s.any()))
-            cur_bk = _Buckets(cur_bk.LT, cur_bk.LQ, min(cur_bk.W, w_cap),
-                              cur_bk.S_CAP, cur_bk.W_full, cur_bk.S_full)
+            new_w = min(cur_bk.W, w_cap)
+            if need_band and mode == MODE_SCORE and \
+                    new_w > WIDE_SCORE_W_MIN:
+                # past K1's windows the wide engine's cycles sweep only the
+                # live band, so an oversized window costs memory and
+                # nothing per cycle: jump to the largest band the pair can
+                # reach instead of re-running W/2 cycles per x4 rung
+                # (exact.py:966-975 of the JAX package)
+                new_w = max(new_w, band_max(opt, cur_bk, w_cap))
+            cur_bk = _Buckets(cur_bk.LT, cur_bk.LQ, new_w, cur_bk.S_CAP,
+                              cur_bk.W_full, cur_bk.S_full)
         idx = retry + idx_rest
     return results  # type: ignore[return-value]
 

@@ -3,13 +3,15 @@
 Each ``csrc/<name>.cu`` holds kernels and one plain C entry point per
 kernel that launches it on a given stream and returns
 ``cudaGetLastError()``.  ``nvcc`` compiles a source into
-``build/miniwfa_tpu_torch/lib<name>.so`` (rebuilt when the source is
-newer); no PyTorch header is included, so a build takes seconds.
+``build/miniwfa_tpu_torch/lib<name>.so`` (rebuilt when the source or a
+shared ``csrc/*.cuh`` header is newer); no PyTorch header is included, so
+a build takes seconds.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -19,7 +21,7 @@ from typing import Dict, Iterable, Sequence
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "miniwfa_tpu_torch")
-SOURCES = ("wavefront", "walk", "gaps")
+SOURCES = ("wavefront", "walk", "gaps", "wavefront_wide")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -50,8 +52,9 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     procs = {}
     for name in names:
         src, so = _paths(name)
-        if os.path.exists(so) and \
-                os.path.getmtime(so) >= os.path.getmtime(src):
+        newest = max(os.path.getmtime(f) for f in
+                     [src, *glob.glob(os.path.join(CSRC, "*.cuh"))])
+        if os.path.exists(so) and os.path.getmtime(so) >= newest:
             continue
         tmp = f"{so}.{os.getpid()}.tmp"
         procs[name] = (tmp, so, subprocess.Popen(

@@ -8,9 +8,12 @@ SCORE, TB and PASS1 modes, with the pass-2 checkpoint collapse.  Two
 implementations of one algorithm:
 
 * ``wavefront_plain`` — plain PyTorch, vectorised over lanes and over
-  the union of the lanes' live bands; any device.
+  the union of the lanes' live bands; any device.  Its cycle loop,
+  ``run_cycles``, runs from a ``PlainState`` to a cycle limit over planes
+  in the kernels' layout (``new_planes``), so the wide engine's plain
+  version (ops/wavefront_wide.py) resumes it across calls.
 * ``csrc/wavefront.cu`` — the hand-written Hopper kernel, one thread
-  block per lane.
+  block per lane, one instantiation per mode.
 
 ``wavefront`` dispatches on the device of its inputs: CPU tensors run the
 plain version, CUDA tensors launch the kernel (or raise).
@@ -244,6 +247,71 @@ def _snapshot(ptrs, snap, row: int, t: int, act, bnd, anc, W: int) -> None:
             plane += 1
 
 
+def plane_count(spec: KSpec) -> int:
+    """Planes of one lane in the kernels' layout: the value rings (H | E1 |
+    F1 | E2 | F2, as ``snapshot_layout``), PASS1's pointer rings laid out
+    the same, then vb and lastt."""
+    NP = snapshot_layout(spec)[5]
+    return NP * (2 if spec.mode == MODE_PASS1 else 1) + 2
+
+
+def new_planes(spec: KSpec, lanes: torch.Tensor) -> torch.Tensor:
+    """Fresh planes ``[B, plane_count, W] int32`` on the lanes' device:
+    zeros, and the score-0 top at d=0 (H = -1, E1..F2 = WF_NEG_INF, and in
+    PASS1 the same pointers, -1 being the chain's origin).  Any other ring
+    entry is read only inside its score's recorded band, so its content
+    never matters; vb and lastt start at 0."""
+    B, W = lanes.shape[0], spec.W
+    planes = torch.zeros((B, plane_count(spec), W), dtype=torch.int32,
+                         device=lanes.device)
+    s0 = -lanes[:, L_ANC]           # score-0 top: H[d=0] = -1 (miniwfa.c:119)
+    has0 = (s0 >= 0) & (s0 < W)
+    rows = torch.arange(B, device=lanes.device)[has0]
+    s0 = s0[has0]
+    lay = snapshot_layout(spec)
+    for off in (0, lay[5]) if spec.mode == MODE_PASS1 else (0,):
+        planes[rows, off, s0] = -1
+        for p0 in lay[1:5]:
+            planes[rows, off + p0, s0] = WF_NEG_INF
+    return planes
+
+
+class PlainState:
+    """Where the plain version's cycle loop stands: the cycle ``t`` (one
+    for all lanes), the per-lane scalars [B] (``t_lane``: the cycle after
+    the lane's last, as a kernel that runs the lane alone keeps it) and
+    the band registry ``bnd [B, RH, 2]`` (score s at s % RH; lo > hi is an
+    empty band)."""
+
+    def __init__(self, spec: KSpec, B: int, dev):
+        def zeros(dtype=torch.int64):
+            return torch.zeros(B, dtype=dtype, device=dev)
+
+        self.t = 0
+        self.wf_lo, self.wf_hi, self.t_lo, self.t_hi = \
+            zeros(), zeros(), zeros(), zeros()
+        self.done, self.stopped, self.ovf = zeros(bool), zeros(bool), \
+            zeros(bool)
+        self.final_s = torch.full((B,), -1, dtype=torch.int64, device=dev)
+        self.last_ptr = torch.full((B,), WF_NEG_INF, dtype=torch.int64,
+                                   device=dev)
+        self.last_state, self.n_iter, self.snap_cnt, self.sid = \
+            zeros(), zeros(), zeros(), zeros()
+        self.t_lane = zeros()
+        self.bnd = torch.zeros((B, spec.rings[0], 2), dtype=torch.int64,
+                               device=dev)
+        self.bnd[:, :, 0] = 1
+
+    def outputs(self, S_CAP: int) -> torch.Tensor:
+        """out int64 [B, O_N]; O_OVFS marks lanes alive at cycle S_CAP-1."""
+        alive = ~(self.done | self.stopped | self.ovf)
+        return torch.stack([self.final_s, self.done.long(),
+                            self.stopped.long(), self.ovf.long(),
+                            (alive & (self.t >= S_CAP - 1)).long(),
+                            self.last_state, self.n_iter, self.last_ptr,
+                            self.snap_cnt], 1)
+
+
 def wavefront_plain(spec: KSpec, lanes: torch.Tensor, tw: torch.Tensor,
                     qw: torch.Tensor, segs: Optional[torch.Tensor] = None):
     """Plain PyTorch version of the wavefront kernel (same algorithm, same
@@ -254,6 +322,30 @@ def wavefront_plain(spec: KSpec, lanes: torch.Tensor, tw: torch.Tensor,
     NP, W] or None)."""
     _check_spec(spec)
     dev = lanes.device
+    B, W = lanes.shape[0], spec.W
+    tb = bands = snap = None
+    if spec.mode == MODE_TB:
+        tb = torch.zeros((B, spec.S_CAP, W), dtype=torch.uint8, device=dev)
+        bands = torch.zeros((B, spec.S_CAP, 2), dtype=torch.int32,
+                            device=dev)
+    if spec.mode == MODE_PASS1:
+        snap = torch.full((B, spec.n_snap, snapshot_layout(spec)[5], W),
+                          WF_NEG_INF, dtype=torch.int32, device=dev)
+    m = PlainState(spec, B, dev)
+    run_cycles(spec, m, new_planes(spec, lanes), lanes, tw, qw,
+               spec.S_CAP - 1, snap=snap, tb=tb, bands=bands, segs=segs)
+    return m.outputs(spec.S_CAP), tb, bands, snap
+
+
+def run_cycles(spec: KSpec, m: PlainState, planes: torch.Tensor,
+               lanes: torch.Tensor, tw: torch.Tensor, qw: torch.Tensor,
+               t_lim: int, snap=None, tb=None, bands=None, segs=None) -> None:
+    """The plain version's cycle loop: run the lanes from ``m`` while
+    ``m.t < t_lim``, updating ``m``, ``planes`` (``new_planes``' layout),
+    and the snapshot rows, tb and bands in place.  A loop that stops at
+    ``t_lim`` and one resumed from there equal one uninterrupted loop, and
+    a lane's state and planes stay as they were from its end on."""
+    dev = lanes.device
     B, W, NEG, NS = lanes.shape[0], spec.W, WF_NEG_INF, spec.NS
     RH, RE1, RE2 = spec.rings
     is_tb = spec.mode == MODE_TB
@@ -263,49 +355,32 @@ def wavefront_plain(spec: KSpec, lanes: torch.Tensor, tw: torch.Tensor,
     max_s, max_iter = lanes[:, L_MS], lanes[:, L_MI]
     d_end = ql - tl
     rows = torch.arange(B, device=dev)
-
-    def plane(depth):
-        return torch.full((B, depth, W), NEG, dtype=torch.int32, device=dev)
-
-    H, E1, F1, E2, F2 = plane(RH), plane(RE1), plane(RE1), plane(RE2), \
-        plane(RE2)
-    vb = torch.zeros((B, W), dtype=torch.int64, device=dev)
-    lastt = torch.zeros((B, W), dtype=torch.int64, device=dev)
-    bnd = torch.zeros((B, RH, 2), dtype=torch.int64, device=dev)
-    bnd[:, :, 0] = 1    # empty band until really recorded
-    s0 = -anc           # score-0 top: H[d=0] = -1 (miniwfa.c:119)
-    has0 = (s0 >= 0) & (s0 < W)
-    H[rows[has0], 0, s0[has0]] = -1
-    tb = bands = snap = ptrs = None
-    if is_tb:
-        tb = torch.zeros((B, spec.S_CAP, W), dtype=torch.uint8, device=dev)
-        bands = torch.zeros((B, spec.S_CAP, 2), dtype=torch.int32,
-                            device=dev)
+    lay = snapshot_layout(spec)
+    NP = lay[5]
+    H, E1, F1, E2, F2 = (planes[:, p0:p0 + depth] for p0, depth in
+                         zip(lay[:5], (RH, RE1, RE1, RE2, RE2)))
+    ptrs = None
     if is_p1:
-        # pointer rings beside the value rings; score 0's H pointer at
-        # d=0 is the chain's origin -1
-        ptrs = (plane(RH), plane(RE1), plane(RE1), plane(RE2), plane(RE2))
-        ptrs[0][rows[has0], 0, s0[has0]] = -1
-        snap = torch.full((B, spec.n_snap, snapshot_layout(spec)[5], W), NEG,
-                          dtype=torch.int32, device=dev)
+        ptrs = tuple(planes[:, NP + p0:NP + p0 + depth] for p0, depth in
+                     zip(lay[:5], (RH, RE1, RE1, RE2, RE2)))
+    vb, lastt = planes[:, -2], planes[:, -1]
 
     def zeros(dtype=torch.int64):
         return torch.zeros(B, dtype=dtype, device=dev)
 
-    wf_lo, wf_hi, t_lo, t_hi = zeros(), zeros(), zeros(), zeros()
-    done, stopped, ovf = zeros(bool), zeros(bool), zeros(bool)
-    final_s = torch.full((B,), -1, dtype=torch.int64, device=dev)
-    last_ptr = torch.full((B,), NEG, dtype=torch.int64, device=dev)
-    last_state, n_iter, snap_cnt, sid = zeros(), zeros(), zeros(), zeros()
+    t, bnd = m.t, m.bnd
+    wf_lo, wf_hi, t_lo, t_hi = m.wf_lo, m.wf_hi, m.t_lo, m.t_hi
+    done, stopped, ovf = m.done, m.stopped, m.ovf
+    final_s, last_ptr, last_state = m.final_s, m.last_ptr, m.last_state
+    n_iter, snap_cnt, sid, t_lane = m.n_iter, m.snap_cnt, m.sid, m.t_lane
     seg_cap = 0 if segs is None else segs.shape[1]
-    t = 0
-    while t < spec.S_CAP - 1:
+    while t < t_lim:
         run = ~(done | stopped | ovf)
         if not bool(run.any()):
             break
         rh = t % RH
-        bnd[:, rh, 0] = t_lo
-        bnd[:, rh, 1] = t_hi
+        bnd[:, rh, 0] = torch.where(run, t_lo, bnd[:, rh, 0])
+        bnd[:, rh, 1] = torch.where(run, t_hi, bnd[:, rh, 1])
 
         # --- 1. extension of the top band (miniwfa.c:400-411)
         term, zero = zeros(bool), zeros(bool)
@@ -385,9 +460,11 @@ def wavefront_plain(spec: KSpec, lanes: torch.Tensor, tw: torch.Tensor,
                 v = v.long()
                 viab |= (v >= -1) & (v < tl[:, None]) & (d + v >= -1) \
                     & (d + v < ql[:, None])
-            delta = (t - lastt[:, a:b]).clamp(0, NS)
-            vbc = torch.where(delta >= NS, 0, vb[:, a:b] << delta)
-            upd = act[:, None]
+            delta = (t - lastt[:, a:b].long()).clamp(0, NS)
+            vbc = torch.where(delta >= NS, 0, vb[:, a:b].long() << delta)
+            # each lane's own span (the union's other slots are not its)
+            upd = act[:, None] & (d >= torch.minimum(t_lo, lo)[:, None]) \
+                & (d <= torch.maximum(t_hi, hi)[:, None])
             vb[:, a:b] = torch.where(upd, (vbc | (viab & in_top).long())
                                      & ((1 << NS) - 1), vb[:, a:b])
             lastt[:, a:b] = torch.where(upd, t, lastt[:, a:b])
@@ -411,10 +488,16 @@ def wavefront_plain(spec: KSpec, lanes: torch.Tensor, tw: torch.Tensor,
                 Hx=hx[:, 1:-1], Ho1m=ho1[:, :-2], Ho1p=ho1[:, 2:],
                 Ho2m=ho2[:, :-2], Ho2p=ho2[:, 2:], E1m=e1b[:, :-2],
                 F1p=f1b[:, 2:], E2m=e2b[:, :-2], F2p=f2b[:, 2:]))
+            def put(ring, v):
+                # score t+1's slot in each lane's band; a slot is read
+                # only inside its score's recorded band, so the rest of
+                # the span (other lanes' bands) is left as it was
+                slot = ring[:, (t + 1) % ring.shape[1], a:b]
+                slot.copy_(torch.where(in_new, v, slot.long()))
+
             viable = torch.zeros_like(in_new)
             for ring, v in zip((H, E1, F1, E2, F2), new[:5]):
-                ring[:, (t + 1) % ring.shape[1], a:b] = \
-                    torch.where(in_new, v, NEG).int()
+                put(ring, v)
                 viable |= v >= -1
             viable &= in_new
             bits = new[5]
@@ -441,8 +524,7 @@ def wavefront_plain(spec: KSpec, lanes: torch.Tensor, tw: torch.Tensor,
                 for zi, v in ((1, e1p), (2, f1p), (3, e2p), (4, f2p)):
                     hp = torch.where(z == zi, v, hp)
                 for ring, v in zip(ptrs, (hp, e1p, f1p, e2p, f2p)):
-                    ring[:, (t + 1) % ring.shape[1], a:b] = \
-                        torch.where(in_new, v, NEG).int()
+                    put(ring, v)
             # boundary commit (miniwfa.c:325-326)
             lo_ok = (viable & (d == lo[:, None])).any(1)
             hi_ok = (viable & (d == hi[:, None])).any(1)
@@ -478,12 +560,12 @@ def wavefront_plain(spec: KSpec, lanes: torch.Tensor, tw: torch.Tensor,
         stop = ((max_iter > 0) & (n_iter > max_iter)) \
             | ((max_s > 0) & (t + 1 > max_s))
         stopped = stopped | (act & stop)
+        t_lane = torch.where(run, t + 1, t_lane)
         t += 1
-    alive = ~(done | stopped | ovf)
-    out = torch.stack([final_s, done.long(), stopped.long(), ovf.long(),
-                       alive.long(), last_state, n_iter, last_ptr, snap_cnt],
-                      1)
-    return out, tb, bands, snap
+    m.t, m.wf_lo, m.wf_hi, m.t_lo, m.t_hi = t, wf_lo, wf_hi, t_lo, t_hi
+    m.done, m.stopped, m.ovf = done, stopped, ovf
+    m.final_s, m.last_ptr, m.last_state = final_s, last_ptr, last_state
+    m.n_iter, m.snap_cnt, m.sid, m.t_lane = n_iter, snap_cnt, sid, t_lane
 
 
 def _check_inputs(spec: KSpec, lanes, tw, qw, segs) -> None:
@@ -542,8 +624,8 @@ def wavefront(spec: KSpec, lanes: torch.Tensor, tw: torch.Tensor,
     # value rings (+ PASS1's pointer rings, laid out the same) + vb +
     # lastt; vb/lastt must start at 0, ring contents are never read
     # outside a recorded band
-    planes = torch.zeros((B, NP * (2 if is_p1 else 1) + 2, W),
-                         dtype=torch.int32, device=dev)
+    planes = torch.zeros((B, plane_count(spec), W), dtype=torch.int32,
+                         device=dev)
     tb = bands = snap = None
     if spec.mode == MODE_TB:
         tb = torch.zeros((B, spec.S_CAP, W), dtype=torch.uint8, device=dev)

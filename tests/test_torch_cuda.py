@@ -16,6 +16,7 @@ from miniwfa_tpu_torch.models import traceback as tbk
 from miniwfa_tpu_torch.ops import traceback_device as tbd
 from miniwfa_tpu_torch.ops import wavefront_gaps as wg
 from miniwfa_tpu_torch.ops import wavefront_kernel as wk
+from miniwfa_tpu_torch.ops import wavefront_wide as ww
 
 pytestmark = pytest.mark.cuda
 
@@ -167,3 +168,81 @@ def test_chain_auto_goldens_on_cuda(goldens, dev):
         for r, e in zip(res, goldens["runs"][run]):
             assert (r.s, r.cigar_str) == (e["s"], e["cigar"]), run
     assert wg.gaps.launches > before[0] and tbd.walk.launches > before[1]
+
+
+@pytest.mark.parametrize("chunk", [0, 77])
+@pytest.mark.parametrize("step", [0, 16])
+def test_wide_kernel_matches_plain(goldens, dev, monkeypatch, step, chunk):
+    """The wide kernel on the goldens at W=16384, one call or 77-cycle
+    calls per lane, against wide_plain in one call: every output, the
+    snapshot rows and (one call) the state row and planes."""
+    ts, qs = _golden_pairs(goldens)
+    opt = Options(cigar=bool(step), step=step)
+    mode = wk.MODE_PASS1 if step else wk.MODE_SCORE
+    spec, lanes, tw, qw = exact.kernel_inputs(opt, mode, 16384, 1100, ts, qs)
+    args = [torch.from_numpy(a).to(dev) for a in (lanes, tw, qw)]
+    big = torch.full((len(ts),), 1 << 40, dtype=torch.int64, device=dev)
+    pst = ww.new_state(spec, args[0])
+    want = ww.wide_plain(spec, *args, pst, big)
+    assert int(want[:, wk.O_DONE].sum()) == len(ts)
+    before = ww.wide.launches
+    if chunk:
+        monkeypatch.setattr(ww, "CYCLES_PER_CALL", chunk * len(ts))
+        out, snap, kspec = ww.run_chunked(spec, *args)
+        assert ww.wide.launches - before >= 3 and kspec == spec
+        assert torch.equal(out, want[:, :wk.O_N])
+    else:
+        kst = ww.new_state(spec, args[0])
+        out = ww.wide(spec, *args, kst, big)
+        assert ww.wide.launches == before + 1
+        assert torch.equal(out, want)
+        assert torch.equal(kst.row, pst.row)
+        assert torch.equal(kst.planes, pst.planes)
+        snap = kst.snap
+    assert (snap is None) == (step == 0)
+    assert step == 0 or torch.equal(snap, pst.snap)
+
+
+@pytest.mark.parametrize("opt", [Options(), Options(cigar=True, step=16)])
+def test_align_batch_goldens_through_wide_route(goldens, dev, monkeypatch,
+                                                opt):
+    monkeypatch.setattr(exact, "WIDE_SCORE_W_MIN", 256)
+    monkeypatch.setattr(exact, "WIDE_PASS1_W_MIN", 256)
+    ts, qs = _golden_pairs(goldens)
+    before = ww.wide.launches
+    res = exact.align_batch(list(zip(ts, qs)), opt, device=dev)
+    assert ww.wide.launches > before
+    run = "lowmem_p16" if opt.step else "score"
+    for c, r, e in zip(goldens["cases"], res, goldens["runs"][run]):
+        assert r.s == e["s"], c["name"]
+        if opt.cigar:
+            assert r.cigar_str == e["cigar"], c["name"]
+
+
+@pytest.mark.parametrize("step", [0, 16])
+def test_wide_kernel_pauses_on_snapshot_and_shrink_cycles(goldens, dev, step):
+    """Calls of 16 cycles on the goldens: every pause falls right after a
+    step-16 snapshot cycle, and one right after the 256-cycle shrink; the
+    resumed run equals wide_plain in one call, state and planes too."""
+    ts, qs = _golden_pairs(goldens)
+    opt = Options(cigar=bool(step), step=step)
+    mode = wk.MODE_PASS1 if step else wk.MODE_SCORE
+    spec, lanes, tw, qw = exact.kernel_inputs(opt, mode, 16384, 1100, ts, qs)
+    args = [torch.from_numpy(a).to(dev) for a in (lanes, tw, qw)]
+    B = len(ts)
+    pst = ww.new_state(spec, args[0])
+    want = ww.wide_plain(spec, *args, pst,
+                         torch.full((B,), 1 << 40, dtype=torch.int64,
+                                    device=dev))
+    kst = ww.new_state(spec, args[0])
+    for lim in range(16, spec.S_CAP + 16, 16):
+        out = ww.wide(spec, *args, kst,
+                      torch.full((B,), lim, dtype=torch.int64, device=dev))
+        if lim == 256:
+            paused = out[:, ww.OW_PAUSE] == 1
+            assert bool(paused.any())
+            assert bool((kst.row[paused, ww.ST_T] == 256).all())
+    assert torch.equal(out, want)
+    for a, b in ((kst.row, pst.row), (kst.planes, pst.planes),
+                 (kst.snap, pst.snap)):
+        assert (a is None and b is None) or torch.equal(a, b)

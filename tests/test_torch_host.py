@@ -185,6 +185,8 @@ def test_port_imports_no_jax():
             "'miniwfa_tpu_torch.ops.traceback_device', "
             "'miniwfa_tpu_torch.ops.wavefront_gaps', "
             "'miniwfa_tpu_torch.ops.wavefront_kernel', "
+            "'miniwfa_tpu_torch.ops.wavefront_wide', "
+            "'miniwfa_tpu_torch.tools.k1_ab', "
             "'miniwfa_tpu_torch.utils.native', "
             "'miniwfa_tpu_torch.utils.spans', 'chip_smoke'):\n"
             "    importlib.import_module(m)\n"
