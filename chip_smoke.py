@@ -7,8 +7,11 @@
    miniwfa_tpu_torch/csrc (one nvcc per source, started together);
 2. holds the wavefront kernel (K1) against its plain PyTorch version on
    the card, SCORE and TB modes, on the golden corpus (four penalty
-   regimes) and on 8 of the 8 kb benchmark pairs: every per-lane output,
-   every traceback byte and every recorded band must be equal; then the
+   regimes, and two of large gap-open costs, o2=40 and o2=100 with e2=1)
+   and on 8 of the 8 kb benchmark pairs: every per-lane output, every
+   traceback byte and every recorded band must be equal, and the
+   multi-lane kernel (K4) at 2, 4 and 8 lanes per block must equal the
+   same plain outputs in every SCORE, TB and TB+seg check; then the
    low-mem modes on the goldens (step 16 and 100) and the 8 kb pairs
    (step 200): K1 PASS1 (every output and the whole snapshot buffer),
    the checkpoint chain from both snapshot buffers, and K1 TB with the
@@ -16,11 +19,13 @@
    kernel (K3) in SCORE and TB modes at cpw 16 and 4 on every gap fill of
    at most 127 bp in the goldens' chain plans, on seeded random gaps with
    the edge pairs, and with a max_s early stop: every output and every
-   traceback byte must be equal; then the wide kernel (one lane over the
-   whole card) against its plain version, SCORE and PASS1 at W=16384 on
-   the goldens (step 16) and the 8 kb pairs (step 200), in one call
-   (every output, the state row, the planes and the snapshot rows) and
-   in calls of 77 cycles a lane (every output and the snapshot rows);
+   traceback byte must be equal (and on the goldens' gaps at the large
+   gap-open costs); then the wide kernel (one lane over the whole card)
+   against its plain version, SCORE and PASS1 at W=16384 on the goldens
+   (step 16) and the 8 kb pairs (step 200), and SCORE on the goldens of at
+   most 256 bp at the large gap-open costs, in one call (every output, the
+   state row, the planes and the snapshot rows) and in calls of 77 cycles
+   a lane (every output and the snapshot rows);
 3. holds the CIGAR walker (W1) against its plain version on phase 2's
    traceback outputs, K1's and K3's: identical run lists;
 4. drives the main path, ``align_batch`` on 16 pairs of 100 kb at 2%
@@ -28,10 +33,15 @@
    score and CIGAR digest against tests/data/bench_goldens.json, that each
    CIGAR re-scores and consumes both sequences, and that each mode's
    kernels were launched (counts set to 0 just before each run and read
-   just after); then the chain (-u -c) and auto (-t -c) modes on the
-   scale fixtures, up to div5m (5 Mb), against
-   tests/data/scale_goldens.json, with the split of div5m auto's wall;
-   then the wide path: ``align_batch`` in score mode on dissim150k,
+   just after); score and CIGAR again with ``MWF_ENGINE=multi
+   MWF_KERNEL_G=4`` (K4 at 4 lanes per block, launched and no K1), their
+   walls beside K1's; then the chain (-u -c) and auto (-t -c) modes on
+   the scale fixtures, up to div5m (5 Mb), against
+   tests/data/scale_goldens.json, with the split of div5m auto's wall, and
+   div5m auto on the multi-lane route, its K1 gap fills span beside the K1
+   run's; phase 4e: t3 at o2=40 and o2=100 in exact, -p 16, -u and -t
+   modes, each equal to the JAX package's (s, n_iter, CIGAR); then the
+   wide path: ``align_batch`` in score mode on dissim150k,
    nbear1m and sv300k and in low-mem mode (step 5000) on those and div5m,
    against scale_goldens.json, each run with its wall, peak memory, wide
    calls and kernel time, and pass 1's wall apart from pass 2's;
@@ -44,16 +54,21 @@
    benchmark shape; K3 SCORE and TB and the walker on K3's traceback
    against their plain versions at div5m auto's first K3 dispatch;
    nbear1m's score run in K1 (one block) and in the wide kernel (the whole
-   card) at the same window, held equal; and the wide kernel against
+   card) at the same window, held equal; the wide kernel against
    wide_plain at the specs of phase 4d's nbear1m score and div5m pass 1
-   for their first few thousand cycles.
+   for their first few thousand cycles; K4 at G=4 at the main path's
+   SCORE and TB shapes, held equal to K1 there, whole and with its lanes
+   stopped past MAIN_CUT; and K1 against K4 at 2, 4 and 8 lanes per block
+   on 2048 pairs of 1 kb (the chain's K1 gap fills come in chunks of
+   2048), each against the plain version.
 
 The tolerance of every comparison is exact equality: both versions run
 the same integer algorithm.  Prints a ``kernels`` JSON line (each entry's
 ``ms``, ``bound_ms`` and ``bound_by`` are phase 5's at the main path's
 shape: the wavefront entry's SCORE's, the gaps entry's TB's, the wide
-entry's nbear1m score's; ``plain_ms`` is the plain version's at the 8 kb
-shape, beside the kernel's own time there, ``plain_shape_kernel_ms``;
+entry's nbear1m score's, the multi entry's SCORE's at G=4; ``plain_ms`` is
+the plain version's at the 8 kb shape (the multi entry's at the 2048 x 1
+kb shape), beside the kernel's own time there, ``plain_shape_kernel_ms``;
 ``modes`` holds every mode's launches in the main path's runs and its
 times, the wide entry's PASS1 those of div5m's pass 1, summed over its
 calls; ``launches`` sums the main path's runs, phase 4) and, last, a
@@ -82,6 +97,7 @@ import os
 import subprocess
 import sys
 import time
+from unittest import mock
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_MAIN, B_MAIN = 100_000, 16
@@ -100,6 +116,17 @@ OPS_SCORE, OPS_TB, OPS_PASS1 = 20, 14, 9
 # the walker: one DP step decodes a tb byte (~12 ops), one match word is
 # two funnel shifts, an XOR, a clz and the cursor updates (~8)
 OPS_WALK_STEP, OPS_WALK_WORD = 12, 8
+# large gap-open costs (o2, with e2=1) of the penalty checks
+PENALTY_O2 = (40, 100)
+# t3 (goldens.json) at those penalties: (s, n_iter, CIGAR) by mode, the
+# JAX package's values (tests/test_torch_penalties.py pins the same)
+T3_EXACT = "1X16=1X14=128I4=1X24="
+T3_CHAIN = "1X16=1X18=128I1X24="
+T3_PENALTIES = {
+    40: {"exact": (180, 18100, T3_EXACT), "p16": (180, 17836, T3_EXACT),
+         "chain": (180, 11818, T3_CHAIN), "auto": (180, 18100, T3_EXACT)},
+    100: {"exact": (240, 25510, T3_EXACT), "p16": (240, 24900, T3_EXACT),
+          "chain": (240, 16708, T3_CHAIN), "auto": (240, 25510, T3_EXACT)}}
 # chain (-u -c) and auto (-t -c) runs on the scale fixtures
 SCALE_RUNS = (("chain", ("div100k", "sv300k", "rep200k", "dissim150k",
                          "nbear1m")),
@@ -195,9 +222,12 @@ def _reset_counts():
     from miniwfa_tpu_torch.ops import traceback_device as tbd
     from miniwfa_tpu_torch.ops import wavefront_gaps as wg
     from miniwfa_tpu_torch.ops import wavefront_kernel as wk
+    from miniwfa_tpu_torch.ops import wavefront_multi as wm
     from miniwfa_tpu_torch.ops import wavefront_wide as ww
     wk.wavefront.launches = 0
     wk.wavefront.launches_by_mode.clear()
+    wm.wavefront_multi.launches = 0
+    wm.wavefront_multi.launches_by_mode.clear()
     ww.wide.launches = 0
     ww.wide.launches_by_mode.clear()
     tbd.walk.launches = 0
@@ -208,10 +238,13 @@ def _read_counts() -> dict:
     from miniwfa_tpu_torch.ops import traceback_device as tbd
     from miniwfa_tpu_torch.ops import wavefront_gaps as wg
     from miniwfa_tpu_torch.ops import wavefront_kernel as wk
+    from miniwfa_tpu_torch.ops import wavefront_multi as wm
     from miniwfa_tpu_torch.ops import wavefront_wide as ww
     return {"wavefront": wk.wavefront.launches, "walk": tbd.walk.launches,
             "gaps": wg.gaps.launches,
             "modes": dict(wk.wavefront.launches_by_mode),
+            "multi": wm.wavefront_multi.launches,
+            "multi_modes": dict(wm.wavefront_multi.launches_by_mode),
             "wide": ww.wide.launches,
             "wide_modes": dict(ww.wide.launches_by_mode)}
 
@@ -301,7 +334,7 @@ class Smoke:
         self.dev = dev
         self.failures = []
         self.err = {"wavefront": 0, "walk": 0, "gaps": 0,
-                    "wavefront_wide": 0}
+                    "wavefront_wide": 0, "wavefront_multi": 0}
 
     def check(self, cond: bool, what: str) -> None:
         print(f"  {'ok  ' if cond else 'FAIL'} {what}", flush=True)
@@ -331,9 +364,28 @@ class Smoke:
         self.check(err == 0, f"K1 {label} mode={wk.launch_mode(spec, sg)} "
                    f"cpw={spec.cpw} B={len(ts)} W={W} S_CAP={S_CAP}: "
                    f"{done} done, max_abs_err={err}")
+        if mode != wk.MODE_PASS1:
+            self.k4_pair(label, spec, (lanes_t, tw_t, qw_t, sg), want)
         if keep_plain:
             return spec, lanes, got, tw_t, qw_t, want
         return spec, lanes, got, tw_t, qw_t
+
+    def k4_pair(self, label, spec, args, want):
+        """K4 at G = 2, 4 and 8 on K1's inputs, each held against the
+        plain outputs K1 was held against (every output, traceback byte
+        and band row)."""
+        from miniwfa_tpu_torch.ops import wavefront_kernel as wk
+        from miniwfa_tpu_torch.ops import wavefront_multi as wm
+        errs = []
+        for G in wm.GS:
+            got = wm.wavefront_multi(spec, G, *args)
+            errs.append(max(_max_err(g, w) for g, w in zip(got, want)))
+            del got
+        err = max(errs)
+        self.err["wavefront_multi"] = max(self.err["wavefront_multi"], err)
+        self.check(err == 0, f"K4 {label} mode="
+                   f"{wk.launch_mode(spec, args[3])} G={wm.GS}: "
+                   f"max_abs_err={errs}")
 
     def wide_pair(self, label, spec, args):
         """The wide kernel against wide_plain in one call (every output,
@@ -470,6 +522,10 @@ def kernel_phases(smoke: Smoke) -> None:
                 wk.MODE_TB),
                ("affine_cigar", base.replace(cigar=True).as_single_affine(),
                 wk.MODE_TB))
+    # large gap-open costs (max_pen 41 and 101), which goldens.json does
+    # not hold: the kernels against their plain versions only
+    regimes += tuple((f"o2={o2}_cigar", base.replace(cigar=True, o2=o2, e2=1),
+                      wk.MODE_TB) for o2 in PENALTY_O2)
     print("phase 2+3: kernels against their plain versions", flush=True)
     for run, opt, mode in regimes:
         # the whole corpus packs at cpw=4 (it holds lowercase and
@@ -477,11 +533,19 @@ def kernel_phases(smoke: Smoke) -> None:
         batches = [(f"goldens-acgt/{run}", acgt)]
         if run in ("score", "cigar"):
             batches.insert(0, (f"goldens/{run}", range(len(cases))))
+        if run not in gold["runs"]:
+            batches = [(f"goldens/{run}", range(len(cases)))]
         for label, sel in batches:
             sub_t, sub_q = [ts[i] for i in sel], [qs[i] for i in sel]
             spec, lanes, got, tw, qw = smoke.k1_pair(
                 label, opt, mode, 8192, 4096, sub_t, sub_q)
             o = got[0].cpu().numpy()
+            if run not in gold["runs"]:
+                smoke.check(int(o[:, wk.O_DONE].sum()) == len(sel),
+                            f"K1 {label}: every lane done")
+                smoke.w1_pair(label, opt, spec, lanes, got, tw, qw)
+                del got
+                continue
             exp = [gold["runs"][run][i] for i in sel]
             smoke.check(all(int(o[j, wk.O_S]) == e["s"]
                             for j, e in enumerate(exp)),
@@ -549,6 +613,9 @@ def kernel_phases(smoke: Smoke) -> None:
                 p for p in pairs if pack.can_pack2(p)]
             for opt in (base, base.replace(cigar=True)):
                 smoke.k3_pair(label, opt, cpw, sel)
+    for o2 in PENALTY_O2:
+        smoke.k3_pair(f"goldens o2={o2}", base.replace(cigar=True, o2=o2,
+                                                       e2=1), 4, sets[0][1])
     stop = sets[0][1] + sets[1][1]
     smoke.k3_pair("max_s=12", base.replace(cigar=True, max_s=12), 4, stop)
 
@@ -644,6 +711,20 @@ def wide_phases(smoke: Smoke, card: str) -> dict:
                       f"plain_ms={t['plain_ms']:.3f} card={card}",
                       flush=True)
             del want, args
+    # large gap-open costs on the goldens of at most 256 bp (their scores
+    # stay below 300), SCORE
+    small = [c for c in gold["cases"] if max(len(c["t"]), len(c["q"])) <= 256]
+    for o2 in PENALTY_O2:
+        opt = Options(**gold["penalties"]).replace(o2=o2, e2=1)
+        spec, lanes, tw, qw = exact.kernel_inputs(
+            opt, wk.MODE_SCORE, 16384, 1100,
+            [c["t"].encode("latin1") for c in small],
+            [c["q"].encode("latin1") for c in small])
+        args = [torch.from_numpy(a).to(smoke.dev) for a in (lanes, tw, qw)]
+        want, _ = smoke.wide_pair(f"goldens-small o2={o2}", spec, args)
+        smoke.check(int(want[:, wk.O_DONE].sum()) == len(small),
+                    f"wide goldens-small o2={o2}: every lane done")
+        del want, args
     from miniwfa_tpu_torch.ops import wavefront_wide as ww
     print(f"  wide kernel grid (blocks of 512 threads, by device and mode): "
           f"{ww.wide.blocks}", flush=True)
@@ -791,6 +872,11 @@ def wide_path(smoke: Smoke, card: str, fixture, sgold) -> dict:
     return {"launches": launches, "div5m_pass1": div5m, "first": first}
 
 
+# the multi-lane route of phase 4 (K4 at G=4 for every K1 SCORE and TB
+# dispatch of more than one lane)
+MULTI_ENV = {"MWF_ENGINE": "multi", "MWF_KERNEL_G": "4"}
+
+
 def _drive(label, pairs, opt, card, fn=None, **kw):
     """One run of ``fn`` (default ``align_batch``) on the card with the
     launch counts set to 0 just before it and read just after; returns
@@ -810,6 +896,7 @@ def _drive(label, pairs, opt, card, fn=None, **kw):
     print(f"  {label}: wall_s={wall:.6f} cells={cells} "
           f"cells_per_s={cells / wall:.6e} peak_bytes={peak} "
           f"launches wavefront={counts['wavefront']} {counts['modes']} "
+          f"wavefront_multi={counts['multi']} {counts['multi_modes']} "
           f"wavefront_wide={counts['wide']} {counts['wide_modes']} "
           f"walk={counts['walk']} gaps={counts['gaps']} card={card}",
           flush=True)
@@ -860,9 +947,12 @@ def main_path(smoke: Smoke, card: str) -> dict:
 
     print(f"phase 4: main path, {B_MAIN} pairs x {N_MAIN} bp, 2% divergence",
           flush=True)
-    launches = {"wavefront": 0, "walk": 0, "modes": {}}
+    launches = {"wavefront": 0, "walk": 0, "modes": {}, "wavefront_multi": 0,
+                "multi_modes": {}}
+    walls = {}
     for mode, opt, kmodes in modes:
-        res, counts, _, _ = _drive(mode, list(zip(ts, qs)), opt, card)
+        res, counts, walls[mode], _ = _drive(mode, list(zip(ts, qs)), opt,
+                                             card)
         smoke.check([r.s for r in res] == [g["s"] for g in gold],
                     f"main {mode}: {B_MAIN} scores equal bench_goldens.json")
         if opt.cigar:
@@ -878,10 +968,34 @@ def main_path(smoke: Smoke, card: str) -> dict:
         smoke.check(counts["wide"] == 0, f"main {mode} launched "
                     f"wavefront_wide {counts['wide']} times (K1's windows "
                     f"serve it)")
+        smoke.check(counts["multi"] == 0, f"main {mode} launched "
+                    f"wavefront_multi {counts['multi']} times (the default "
+                    f"route is K1)")
         for k in ("wavefront", "walk"):
             launches[k] += counts[k]
         for k, n in counts["modes"].items():
             launches["modes"][k] = launches["modes"].get(k, 0) + n
+
+    # the multi-lane route: the same runs with K4 at G=4
+    for mode, opt, kmodes in modes[:2]:
+        with mock.patch.dict(os.environ, MULTI_ENV):
+            res, counts, wall, _ = _drive(f"{mode} MWF_ENGINE=multi G=4",
+                                          list(zip(ts, qs)), opt, card)
+        smoke.check([r.s for r in res] == [g["s"] for g in gold],
+                    f"main {mode} multi: {B_MAIN} scores equal "
+                    f"bench_goldens.json")
+        if opt.cigar:
+            _check_cigars(smoke, f"main {mode} multi", ts, qs, res,
+                          [g["cigar_md5"] for g in gold])
+        n = sum(counts["multi_modes"].get(k, 0) for k in kmodes)
+        smoke.check(n > 0 and counts["wavefront"] == 0,
+                    f"main {mode} multi launched wavefront_multi{kmodes} {n} "
+                    f"times and wavefront {counts['wavefront']}")
+        print(f"  main {mode}: wall_s K1={walls[mode]:.6f} "
+              f"K4(G=4)={wall:.6f} card={card}", flush=True)
+        launches["wavefront_multi"] += counts["multi"]
+        for k, n in counts["multi_modes"].items():
+            launches["multi_modes"][k] = launches["multi_modes"].get(k, 0) + n
 
     with open(os.path.join(ROOT, "tests", "data", "scale_goldens.json")) as f:
         sgold = json.load(f)
@@ -949,8 +1063,60 @@ def main_path(smoke: Smoke, card: str) -> dict:
                 print(f"  div5m auto wall split (s): {split} "
                       f"rest={rest:.6f} wall={wall:.6f} card={card}",
                       flush=True)
+                _div5m_multi(smoke, card, t, q, g, spans, launches)
     return {"launches": launches, "ts": ts, "qs": qs, "fixture": fixture,
             "sgold": sgold}
+
+
+def _div5m_multi(smoke, card, t, q, g, k1_spans, launches) -> None:
+    """div5m auto again on the multi-lane route (K4 at G=4 for its K1
+    gap fills of more than one lane): parity with scale_goldens.json, and
+    its K1 gap fills span beside the K1 run's."""
+    from miniwfa_tpu_torch import Options
+    from miniwfa_tpu_torch.models.auto import align_auto_batch
+    from miniwfa_tpu_torch.utils.spans import Spans
+    spans = Spans()
+    with mock.patch.dict(os.environ, MULTI_ENV):
+        res, counts, wall, _ = _drive("div5m auto MWF_ENGINE=multi G=4",
+                                      [(t, q)], Options(cigar=True), card,
+                                      align_auto_batch, spans=spans)
+    smoke.check(res[0].s == g["s"], f"div5m auto multi: s={res[0].s} "
+                f"equals scale_goldens.json ({g['s']})")
+    _check_cigars(smoke, "div5m auto multi", [t], [q], res,
+                  [g["cigar_md5"]], chained=True)
+    span = "K1 gap fills"
+    print(f"  div5m auto '{span}' span: K1={k1_spans.totals.get(span, 0):.6f}"
+          f" s, K4(G=4)={spans.totals.get(span, 0):.6f} s "
+          f"(wavefront_multi {counts['multi']} {counts['multi_modes']}, "
+          f"wavefront {counts['wavefront']} {counts['modes']}) "
+          f"wall={wall:.6f} card={card}", flush=True)
+    launches["wavefront_multi"] += counts["multi"]
+    for k, n in counts["multi_modes"].items():
+        launches["multi_modes"][k] = launches["multi_modes"].get(k, 0) + n
+
+
+def penalty_runs(smoke: Smoke, card: str) -> None:
+    """Phase 4e: t3 at o2=40 and o2=100 (e2=1) in exact, low-mem (-p 16),
+    chain (-u) and auto (-t) CIGAR modes on the card, each equal to the
+    JAX package's (s, n_iter, CIGAR)."""
+    from miniwfa_tpu_torch import Options
+    from miniwfa_tpu_torch.models.auto import align_auto_batch
+    from miniwfa_tpu_torch.models.chain import align_chain_batch
+
+    print("phase 4e: t3 at large gap-open costs", flush=True)
+    with open(os.path.join(ROOT, "tests", "data", "goldens.json")) as f:
+        c = {c["name"]: c for c in json.load(f)["cases"]}["t3"]
+    pair = [(c["t"], c["q"])]
+    runs = {"exact": ({}, None), "p16": ({"step": 16}, None),
+            "chain": ({}, align_chain_batch), "auto": ({}, align_auto_batch)}
+    for o2 in PENALTY_O2:
+        for mode, (kw, fn) in runs.items():
+            opt = Options(cigar=True, o2=o2, e2=1, **kw)
+            res, _, _, _ = _drive(f"t3 o2={o2} {mode}", pair, opt, card, fn)
+            got = (res[0].s, res[0].n_iter, res[0].cigar_str)
+            want = T3_PENALTIES[o2][mode]
+            smoke.check(got == want, f"t3 o2={o2} e2=1 {mode}: (s, n_iter, "
+                        f"CIGAR) = {got}, the JAX package's {want}")
 
 
 def _time_pair(smoke, label, spec, args, segs, card, plain):
@@ -998,6 +1164,83 @@ def _hold_cut(smoke, label, spec, args, segs, card) -> dict:
                 f"equal, max_abs_err={err} (kernel_ms={ms:.3f} "
                 f"plain_ms={plain_ms:.3f} card={card})")
     return dict(max_s=MAIN_CUT, ms=ms, plain_ms=plain_ms)
+
+
+def _multi_main(smoke, label, spec, args, k1, card, G=4) -> dict:
+    """K4 at G lanes per block on a K1 dispatch's inputs (CUDA events),
+    every output held against K1's (``k1``), then again with every lane
+    stopped past score MAIN_CUT, against K1 there."""
+    from miniwfa_tpu_torch.ops import wavefront_kernel as wk
+    from miniwfa_tpu_torch.ops import wavefront_multi as wm
+    got, ms = _ms(lambda: wm.wavefront_multi(spec, G, *args))
+    bound_ms, bound_by = _k1_bound(spec, args, None, got)
+    err = max(_max_err(a, b) for a, b in zip(got, k1))
+    del got
+    lanes = args[0].clone()
+    lanes[:, wk.L_MS] = MAIN_CUT
+    cut = max(_max_err(a, b) for a, b in zip(
+        wm.wavefront_multi(spec, G, lanes, *args[1:]),
+        wk.wavefront(spec, lanes, *args[1:])))
+    smoke.err["wavefront_multi"] = max(smoke.err["wavefront_multi"], err,
+                                       cut)
+    mode = wk.launch_mode(spec, None)
+    smoke.check(err == 0 and cut == 0,
+                f"K4 {label} {mode} G={G}: every output equal K1's, whole "
+                f"and with lanes stopped past max_s={MAIN_CUT}, "
+                f"max_abs_err={max(err, cut)}")
+    print(f"  wavefront_multi[{mode}] {label} G={G} B={len(args[0])} "
+          f"W={spec.W} S_CAP={spec.S_CAP}: kernel_ms={ms:.3f} "
+          f"bound_ms={bound_ms:.6f} ({bound_by}) card={card}", flush=True)
+    return dict(G=G, ms=ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+# the chain's K1 gap fills: dispatches of up to 2048 lanes (models/chain.py
+# CHUNK), here 1 kb pairs, SCORE
+FILL_N, FILL_B = 1000, 2048
+
+
+def gap_fill_times(smoke: Smoke, card: str) -> dict:
+    """Phase 5, K4: FILL_B pairs of FILL_N bp (make_pairs) in SCORE mode
+    at G = 1 (K1) and 2, 4, 8 lanes per block (K4), CUDA events, each
+    with its bound and every output held against the plain version's."""
+    import torch
+    from miniwfa_tpu_torch import Options
+    from miniwfa_tpu_torch.models import exact
+    from miniwfa_tpu_torch.ops import wavefront_kernel as wk
+    from miniwfa_tpu_torch.ops import wavefront_multi as wm
+
+    pairs = make_pairs(FILL_N, FILL_B)
+    ts = [t.encode() for t, _ in pairs]
+    qs = [q.encode() for _, q in pairs]
+    opt = Options()
+    bk, _ = exact.first_bucket(opt, wk.MODE_SCORE, ts, qs, 512, 512,
+                               smoke.dev)
+    spec, lanes, tw, qw = exact.kernel_inputs(opt, wk.MODE_SCORE, bk.W,
+                                              bk.S_CAP, ts, qs)
+    args = [torch.from_numpy(a).to(smoke.dev) for a in (lanes, tw, qw)]
+    print(f"phase 5, K4: {FILL_B} pairs of {FILL_N} bp, SCORE, W={spec.W} "
+          f"S_CAP={spec.S_CAP}", flush=True)
+    want, plain_ms = _ms(lambda: wk.wavefront_plain(spec, *args))
+    done = int(want[0][:, wk.O_DONE].sum())
+    smoke.check(done == FILL_B, f"plain {FILL_B} x {FILL_N} bp: {done} done "
+                f"(plain_ms={plain_ms:.3f})")
+    res = {"plain_ms": plain_ms, "W": spec.W, "cells":
+           int(want[0][:, wk.O_NITER].sum())}
+    for G in (1,) + tuple(sorted(wm.GS)):
+        fn = (lambda: wk.wavefront(spec, *args)) if G == 1 else \
+            (lambda: wm.wavefront_multi(spec, G, *args))
+        got, ms = _ms(fn)
+        bound_ms, bound_by = _k1_bound(spec, args, None, got)
+        err = max(_max_err(a, b) for a, b in zip(got, want))
+        key = "wavefront" if G == 1 else "wavefront_multi"
+        smoke.err[key] = max(smoke.err[key], err)
+        smoke.check(err == 0, f"{key} {FILL_B} x {FILL_N} bp G={G}: every "
+                    f"output equal the plain version's, max_abs_err={err}")
+        print(f"  {key}[SCORE] G={G}: kernel_ms={ms:.3f} "
+              f"bound_ms={bound_ms:.6f} ({bound_by}) plain_ms={plain_ms:.3f}"
+              f" card={card}", flush=True)
+        res[G] = dict(ms=ms, bound_ms=bound_ms, bound_by=bound_by)
+    return res
 
 
 def _time_walk(smoke, label, tb, meta, tw, qw, cpw, pens, card, plain=True):
@@ -1059,6 +1302,8 @@ def kernel_times(smoke: Smoke, card: str, label: str, ts, qs, step: int,
         if cut:
             times[name]["cut"] = _hold_cut(smoke, label, spec, args, None,
                                            card)
+            times[name]["multi"] = _multi_main(smoke, label, spec, args, got,
+                                               card)
         if not opt.cigar:
             continue
         meta = torch.from_numpy(
@@ -1165,7 +1410,8 @@ def wide_times(smoke: Smoke, card: str, first) -> dict:
                 f"output equal (max_abs_err={err})")
     print(f"  nbear1m score W={spec.W}: wide_kernel_ms={wide['ms']:.3f} "
           f"({wide['calls']} calls, "
-          f"{ww.wide.blocks.get((smoke.dev.index, wk.MODE_SCORE))} "
+          f"{ww.wide.blocks.get((smoke.dev.index, spec.mode, spec.rings[0]))}"
+          f" "
           f"blocks) "
           f"k1_kernel_ms={k1_ms:.3f} (1 block) cells={wide['cells']} "
           f"bound_ms={wide['bound_ms']:.6f} ({wide['bound_by']}) "
@@ -1339,6 +1585,7 @@ def main() -> int:
     wtimes8 = wide_phases(smoke, card)
     t1 = time.perf_counter()
     info = main_path(smoke, card)
+    penalty_runs(smoke, card)
     winfo = wide_path(smoke, card, info["fixture"], info["sgold"])
     t2 = time.perf_counter()
     print("phase 5: kernel timings at the main path's dispatch shapes, "
@@ -1352,6 +1599,7 @@ def main() -> int:
                           [t.encode() for t, _ in pairs],
                           [q.encode() for _, q in pairs], 200, plain=True)
     gtimes = gaps_times(smoke, card, *info["fixture"]("div5m"))
+    ftimes = gap_fill_times(smoke, card)
     wtime = wide_times(smoke, card, winfo["first"]["nbear1m"])
     wreal = wide_real_shapes(smoke, card, winfo["first"])
     print(f"phase seconds: kernels {t1 - t0:.1f}, main path {t2 - t1:.1f}, "
@@ -1411,7 +1659,22 @@ def main() -> int:
          "launches": wl["wavefront_wide"],
          "max_abs_err": smoke.err["wavefront_wide"],
          **timed(wtime, wtimes8["SCORE"]), "library_ms": None,
-         "modes": wmodes, "path_spec_checks": wreal}]
+         "modes": wmodes, "path_spec_checks": wreal},
+        {"name": "wavefront_multi", "route": "cuda",
+         "source": "miniwfa_tpu_torch/csrc/wavefront.cu",
+         "replaces": "miniwfa_tpu/ops/wavefront_multi.py:138",
+         "launches": launches["wavefront_multi"],
+         "max_abs_err": smoke.err["wavefront_multi"],
+         **{k: times["SCORE"]["multi"][k] for k in ("ms", "bound_ms",
+                                                    "bound_by")},
+         "plain_ms": ftimes["plain_ms"],
+         "plain_shape_kernel_ms": ftimes[8]["ms"], "library_ms": None,
+         "modes": {m: {"launches": launches["multi_modes"].get(m, 0),
+                       **times[m]["multi"]} for m in ("SCORE", "TB")},
+         "gap_fills": {"shape": f"{FILL_B} x {FILL_N} bp SCORE "
+                                f"W={ftimes['W']}",
+                       "cells": ftimes["cells"],
+                       "by_G": {str(g): ftimes[g] for g in (1, 2, 4, 8)}}}]
     print(json.dumps({"kernels": kernels}), flush=True)
     if smoke.failures:
         print(f"chip_smoke: {len(smoke.failures)} check(s) failed:",

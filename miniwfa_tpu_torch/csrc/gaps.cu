@@ -23,7 +23,8 @@
 //      words, __ffs of the XOR), capped at the matrix edge; termination
 //      and its zero-extension flag by __any_sync; last_state comes from
 //      the owning lane's previous tb byte by __shfl_sync.
-//   2. viability bits of the retired score-t slice, kept in registers.
+//   2. viability of the retired score-t slice: per slot, in a register,
+//      one past the last score whose slice was viable there (0: never).
 //   3. the 5-state transition into t+1 with the '>=' / '<' tie-breaks of
 //      wf_next_tb (miniwfa.c:287-307).  Neighbour diagonals are read from
 //      shared memory; a __syncwarp separates every read of the source
@@ -39,7 +40,9 @@
 // What bounds it: a cycle is a few dozen dependent integer operations per
 // slot and a handful of warp votes, so the time is the warps' instruction
 // latency over s cycles, with 4 gaps a block and 16 gaps an SM resident
-// (12 KB of rings each at the default penalties).  DRAM traffic is only
+// (12 KB of rings each at the default penalties).  The rings bound the
+// penalties: one gap's must fit a block's shared memory, at most 453 ring
+// planes (max_pen 449 at e1 = e2 = 1; ops/wavefront_gaps.py::fits).  DRAM traffic is only
 // the inputs, the outputs and the traceback rows.  Correctness first:
 // skipping the slots outside the live band and packing several small gaps
 // per warp are later work.
@@ -123,8 +126,6 @@ __global__ void __launch_bounds__(32 * WARPS) gaps_kernel(Params p) {
   const int tl = p.lens[2 * g], ql = p.lens[2 * g + 1], d_end = ql - tl;
   const int ag_x = p.x, ag_o1 = p.o1 + p.e1, ag_o2 = p.o2 + p.e2;
   const int NS = max(ag_x, max(ag_o1, ag_o2)) + 1;
-  const unsigned vmask = (1u << NS) - 1u;
-  const unsigned vmask2 = (1u << (NS - 1)) - 1u;
   const bool is_tb = p.mode == MODE_TB;
   const int cpw = p.cpw, bits = 32 / cpw;
   const int logc = cpw == 16 ? 4 : 2, logb = cpw == 16 ? 1 : 3;
@@ -140,7 +141,7 @@ __global__ void __launch_bounds__(32 * WARPS) gaps_kernel(Params p) {
   __syncwarp();
 
   const int s0 = 4 * lane;     // this lane's first slot
-  unsigned vb[4] = {0u, 0u, 0u, 0u};
+  int lastv[4] = {0, 0, 0, 0};
   unsigned pbits = 0u;         // this lane's 4 bytes of the last tb row
   int t = 0, wlo = 0, whi = 0, tlo = 0, thi = 0;
   int final_s = -1, last_state = 0, n_iter = 0;
@@ -179,7 +180,7 @@ __global__ void __launch_bounds__(32 * WARPS) gaps_kernel(Params p) {
     // --- 3. band growth, clamped to the matrix (miniwfa.c:417-418)
     const int lo = max(wlo - 1, -tl), hi = min(whi + 1, ql);
 
-    // --- 4. viability bits of the retired score-t slice
+    // --- 4. viability of the retired score-t slice
     {
       const int* E1t = rE1 + (t % DE1) * WIN;
       const int* F1t = rF1 + (t % DE1) * WIN;
@@ -188,11 +189,10 @@ __global__ void __launch_bounds__(32 * WARPS) gaps_kernel(Params p) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int s = s0 + i, d = s - tl;
-        const bool viab =
-            good_diag(Ht[s], d, tl, ql) || good_diag(E1t[s], d, tl, ql) ||
+        if (good_diag(Ht[s], d, tl, ql) || good_diag(E1t[s], d, tl, ql) ||
             good_diag(F1t[s], d, tl, ql) || good_diag(E2t[s], d, tl, ql) ||
-            good_diag(F2t[s], d, tl, ql);
-        vb[i] = ((vb[i] << 1) | (unsigned)viab) & vmask;
+            good_diag(F2t[s], d, tl, ql))
+          lastv[i] = t + 1;
       }
     }
 
@@ -270,6 +270,7 @@ __global__ void __launch_bounds__(32 * WARPS) gaps_kernel(Params p) {
     // --- 7. shrink every 256 cycles (miniwfa.c:420): hull of the new
     // tops' good diagonals and the NS-1 youngest retired slices
     if (((t + 1) & 0xFF) == 0) {
+      const int vfloor = max(t - NS + 3, 1);  // last viable >= t-NS+2
       int mn = BIG, mx = -BIG;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -278,7 +279,7 @@ __global__ void __launch_bounds__(32 * WARPS) gaps_kernel(Params p) {
             good_diag(nh[i], d, tl, ql) || good_diag(ne1[i], d, tl, ql) ||
             good_diag(nf1[i], d, tl, ql) || good_diag(ne2[i], d, tl, ql) ||
             good_diag(nf2[i], d, tl, ql);
-        if ((top || (vb[i] & vmask2)) && d >= wlo && d <= whi) {
+        if ((top || lastv[i] >= vfloor) && d >= wlo && d <= whi) {
           mn = min(mn, d);
           mx = max(mx, d);
         }

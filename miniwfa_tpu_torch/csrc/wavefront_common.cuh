@@ -19,7 +19,7 @@ namespace mwf {
 
 constexpr int NEG = -0x40000000;  // reference sentinel (miniwfa.c:67)
 constexpr int BIG = 0x3FFFFFFF;
-constexpr int MAX_RING = 32;      // NS <= 31 (vb packs NS bits)
+constexpr int SMEM_DEFAULT = 48 * 1024;  // dynamic shared memory without opt-in
 
 enum { L_TL, L_QL, L_ANC, L_MS, L_MI, L_N };
 enum { O_S, O_DONE, O_STOP, O_OVFB, O_OVFS, O_LS, O_NITER, O_LP, O_SNC, O_N };
@@ -144,6 +144,24 @@ __device__ __forceinline__ Cell pointers(const Sources& S, int s, int anc,
 
 __device__ __forceinline__ bool any_viable(const Cell& c) {
   return c.h >= -1 || c.e1 >= -1 || c.f1 >= -1 || c.e2 >= -1 || c.f2 >= -1;
+}
+
+// The shrink hull keeps a retired slot whose last viable score is one of
+// t-NS+2 .. t.  `lastv` holds one past that score (0: never viable), so
+// the test is lastv >= t-NS+3, and lastv >= 1 rules out "never".
+__device__ __forceinline__ int viable_floor(int t, int NS) {
+  return max(t - NS + 3, 1);
+}
+
+// Dynamic shared memory of `lanes` band registries (lo and hi for RH
+// scores each), with the kernel opted in past the default 48 KB; a
+// registry past the block's limit returns an error, never a launch.
+inline cudaError_t registry_smem(const void* fn, int lanes, int RH,
+                                 int* bytes) {
+  *bytes = lanes * 2 * RH * (int)sizeof(int);
+  if (*bytes <= SMEM_DEFAULT) return cudaSuccess;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              *bytes);
 }
 
 // Ring depth and slot of snapshot plane pl (H | E1 | F1 | E2 | F2).

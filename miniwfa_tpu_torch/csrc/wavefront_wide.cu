@@ -21,7 +21,8 @@
 // after another, each over the whole grid.
 //
 // Cross-SM coherence.  The band's partition moves every cycle, so a block
-// reads ring slots, vb/lastt and pointer planes that another block wrote
+// reads ring slots, the lastv plane and pointer planes that another block
+// wrote
 // earlier in the same launch: every such read is ld.global.cg (L2, never a
 // stale L1 line), and every plane store is st.global.cg.
 //
@@ -31,8 +32,8 @@
 // double-buffered by cycle parity (atomics before a grid.sync, cg reads
 // after it; block 0 clears the other parity's set after the cycle's first
 // grid.sync, when every read of it from the previous cycle is done).  Each
-// block keeps its own copy of the band registry in shared memory, written
-// by its thread 0 with the same values.
+// block keeps its own copy of the band registry in dynamic shared memory
+// (2 x RH ints), written by its thread 0 with the same values.
 //
 // Resume.  A launch runs each lane from the state row it is given (t, the
 // committed and top bands, n_iter, last_ptr, snap_cnt, final_s, the
@@ -79,7 +80,7 @@ struct Params {
   long long* state;           // [B, st_n] (in and out)
   int st_n;
   const long long* t_lim;     // [B] cycle limit of this call
-  int* planes;                // [B, NP (x2 in PASS1) + 2, W]
+  int* planes;                // [B, NP (x2 in PASS1) + 1, W]
   int* snap;                  // [B, n_snap, NP, W] (PASS1) or null
   long long* out;             // [B, OW_N]
   int* flags;                 // [2, F_N] scratch
@@ -114,16 +115,16 @@ __global__ void __launch_bounds__(THREADS) wide_kernel(Params p) {
   const int DH = max(ag_x, max(ag_o1, ag_o2));
   const int NS = DH + 1, RH = DH + 1;
   const int RE1 = max(p.e1, 1) + 1, RE2 = max(p.e2, 1) + 1;
-  const unsigned vmask = (1u << NS) - 1u;
-  const int vmask2 = (1 << (NS - 1)) - 1;
   constexpr bool is_p1 = IS_P1;
   const int NP = RH + 2 * RE1 + 2 * RE2;
   const int cpw = p.cpw, bits = 32 / cpw;
   const int logc = cpw == 16 ? 4 : 2, logb = cpw == 16 ? 1 : 3;
   const size_t poff = is_p1 ? NP * Wz : 0;
-  const size_t lane_planes = (size_t)(NP * (is_p1 ? 2 : 1) + 2) * Wz;
+  const size_t lane_planes = (size_t)(NP * (is_p1 ? 2 : 1) + 1) * Wz;
 
-  __shared__ int bnd_lo[MAX_RING], bnd_hi[MAX_RING];
+  extern __shared__ int registry[];
+  int* bnd_lo = registry;
+  int* bnd_hi = registry + RH;
 
   for (int b = 0; b < p.B; ++b) {
     const long long* ln = p.lanes + (size_t)b * L_N;
@@ -135,8 +136,7 @@ __global__ void __launch_bounds__(THREADS) wide_kernel(Params p) {
     int* F1 = E1 + RE1 * Wz;
     int* E2 = F1 + RE1 * Wz;
     int* F2 = E2 + RE2 * Wz;
-    int* vb = H + NP * Wz + poff;
-    int* lastt = vb + Wz;
+    int* lastv = H + NP * Wz + poff;
     const unsigned* tw = p.tw + (size_t)b * p.nw;
     const unsigned* qw = p.qw + (size_t)b * p.nw;
     long long* sr = p.state + (size_t)b * p.st_n;
@@ -151,9 +151,9 @@ __global__ void __launch_bounds__(THREADS) wide_kernel(Params p) {
     bool done = sr[ST_DONE] != 0, stopped = sr[ST_STOP] != 0;
     bool ovf = sr[ST_OVFB] != 0;
     const long long lim = min(p.t_lim[b], (long long)p.S_CAP - 1);
-    if (tid < RH) {
-      bnd_lo[tid] = (int)sr[ST_BND + tid];
-      bnd_hi[tid] = (int)sr[ST_BND + RH + tid];
+    for (int j = tid; j < RH; j += THREADS) {
+      bnd_lo[j] = (int)sr[ST_BND + j];
+      bnd_hi[j] = (int)sr[ST_BND + RH + j];
     }
     if (lead) {
       for (int q = 0; q < 2; ++q) {
@@ -238,7 +238,8 @@ __global__ void __launch_bounds__(THREADS) wide_kernel(Params p) {
         }
       }
       if (act) {
-        // --- 4. viability of the retired slice + transition into t+1
+        // --- 4. viability of the retired slice (lastv) + transition into
+        // t+1
         const int re1 = t % RE1, re2 = t % RE2;
         const int* E1t = E1 + re1 * Wz;
         const int* F1t = F1 + re1 * Wz;
@@ -273,18 +274,13 @@ __global__ void __launch_bounds__(THREADS) wide_kernel(Params p) {
         bool loq = false, hiq = false;
         for (int s = a + tid; s <= e; s += THREADS) {
           const int d = anc + s;
-          bool viab = false;
-          if (d >= t_lo && d <= t_hi)
-            viab = good_diag(__ldcg(Ht + s), d, tl, ql) ||
-                   good_diag(__ldcg(E1t + s), d, tl, ql) ||
-                   good_diag(__ldcg(F1t + s), d, tl, ql) ||
-                   good_diag(__ldcg(E2t + s), d, tl, ql) ||
-                   good_diag(__ldcg(F2t + s), d, tl, ql);
-          const int delta = min(max(t - __ldcg(lastt + s), 0), NS);
-          const unsigned v =
-              delta >= NS ? 0u : ((unsigned)__ldcg(vb + s) << delta);
-          st(vb + s, (int)((v | (unsigned)viab) & vmask));
-          st(lastt + s, t);
+          if (d >= t_lo && d <= t_hi &&
+              (good_diag(__ldcg(Ht + s), d, tl, ql) ||
+               good_diag(__ldcg(E1t + s), d, tl, ql) ||
+               good_diag(__ldcg(F1t + s), d, tl, ql) ||
+               good_diag(__ldcg(E2t + s), d, tl, ql) ||
+               good_diag(__ldcg(F2t + s), d, tl, ql)))
+            st(lastv + s, t + 1);
           if (d < lo || d > hi) continue;
           const Cell c = transition<true>(S, s, anc);
           st(Hn + s, c.h);
@@ -317,6 +313,7 @@ __global__ void __launch_bounds__(THREADS) wide_kernel(Params p) {
         if (((t + 1) & 0xFF) == 0) {
           int sa, se;
           share(max(wf_lo - anc, 0), min(wf_hi - anc, W - 1), sa, se);
+          const int vfloor = viable_floor(t, NS);
           int mn = BIG, mx = -BIG;
           for (int s = sa + tid; s <= se; s += THREADS) {
             const int d = anc + s;
@@ -325,7 +322,7 @@ __global__ void __launch_bounds__(THREADS) wide_kernel(Params p) {
                 (__ldcg(Hn + s) >= -1 || __ldcg(E1n + s) >= -1 ||
                  __ldcg(F1n + s) >= -1 || __ldcg(E2n + s) >= -1 ||
                  __ldcg(F2n + s) >= -1);
-            if (top || (__ldcg(vb + s) & vmask2)) {
+            if (top || __ldcg(lastv + s) >= vfloor) {
               mn = min(mn, d);
               mx = max(mx, d);
             }
@@ -391,18 +388,20 @@ const void* kernel_of(int mode) {
 
 }  // namespace
 
-// Blocks of one cooperative launch in `mode`: as many as can be
-// co-resident.
-extern "C" int mwf_wide_grid(int mode, int* blocks) {
-  int dev, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+// Blocks of one cooperative launch in `mode` with a registry of RH scores:
+// as many as can be co-resident.
+extern "C" int mwf_wide_grid(int mode, int RH, int* blocks) {
+  int dev, per_sm = 0, smem;
+  cudaError_t err = registry_smem(kernel_of(mode), 1, RH, &smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   cudaDeviceProp prop;
   err = cudaGetDeviceProperties(&prop, dev);
   if (err != cudaSuccess) return (int)err;
   if (!prop.cooperativeLaunch) return (int)cudaErrorNotSupported;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel_of(mode),
-                                                      THREADS, 0);
+                                                      THREADS, smem);
   if (err != cudaSuccess) return (int)err;
   *blocks = per_sm * prop.multiProcessorCount;
   return *blocks > 0 ? 0 : (int)cudaErrorCooperativeLaunchTooLarge;
@@ -418,9 +417,13 @@ extern "C" int mwf_wide(const long long* lanes, const unsigned* tw,
   Params p{lanes, tw, qw, nw, state, st_n, t_lim, planes, snap, out, flags,
            B, W, S_CAP, mode, cpw, x, o1, e1, o2, e2, step, n_snap};
   void* args[] = {&p};
-  cudaError_t err = cudaLaunchCooperativeKernel(
-      kernel_of(mode), dim3(blocks), dim3(THREADS), args, 0,
-      (cudaStream_t)stream);
+  int smem;
+  cudaError_t err = registry_smem(
+      kernel_of(mode), 1, max(x, max(o1 + e1, o2 + e2)) + 1, &smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaLaunchCooperativeKernel(kernel_of(mode), dim3(blocks),
+                                    dim3(THREADS), args, smem,
+                                    (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -16,9 +16,10 @@ each checkpoint score, so its traceback table needs a band of about
 Host work (cheap, O(n+s) per pair): sequence packing, capacity bucket
 selection with escalate-and-retry on overflow, checkpoint decoding.
 Device work: the whole wavefront loop of a batch
-(ops/wavefront_kernel.py, one block per lane; past its windows, score and
-pass-1 runs go to the wide engine, ops/wavefront_wide.py, one lane over the
-whole card), the checkpoint chain and, in CIGAR mode, the traceback walk
+(ops/wavefront_kernel.py, one block per lane, or with ``MWF_ENGINE=multi``
+several lanes per block, ops/wavefront_multi.py; past its windows, score
+and pass-1 runs go to the wide engine, ops/wavefront_wide.py, one lane over
+the whole card), the checkpoint chain and, in CIGAR mode, the traceback walk
 (ops/traceback_device.py), all on the ``device`` the caller names: a CUDA
 device launches the hand-written kernels, the CPU runs their plain
 PyTorch versions.
@@ -31,6 +32,7 @@ in its batch.
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
@@ -42,6 +44,7 @@ from ..options import Options
 from ..ops import pack
 from ..ops import traceback_device as tbd
 from ..ops import wavefront_kernel as wk
+from ..ops import wavefront_multi as wm
 from ..ops import wavefront_wide as ww
 from . import traceback as tbk
 
@@ -205,10 +208,10 @@ def _pass1_budget(device: torch.device) -> int:
 
 
 def _pass1_lane_bytes(opt: Options, bk: _Buckets) -> int:
-    """One PASS1 lane's device bytes: value and pointer planes, vb and
-    lastt, and the snapshot rows."""
+    """One PASS1 lane's device bytes: value and pointer planes, lastv,
+    and the snapshot rows."""
     NP = _n_planes(opt)
-    return ((_n_snap(opt, bk.S_CAP) + 2) * NP + 2) * bk.W * 4
+    return ((_n_snap(opt, bk.S_CAP) + 2) * NP + 1) * bk.W * 4
 
 
 def _pass1_lane_cap(opt: Options, bk: _Buckets, device) -> int:
@@ -221,7 +224,7 @@ def _pass1_w_cap(opt: Options, device: torch.device) -> int:
     cap, cut so that one lane with 8 snapshot rows fits the budget."""
     if device.type != "cuda":
         return 1 << 30
-    per_w = (10 * _n_planes(opt) + 2) * 4
+    per_w = (10 * _n_planes(opt) + 1) * 4
     return min(WIDE_W_CAP, _prev_pow2(_pass1_budget(device) // per_w))
 
 
@@ -313,8 +316,7 @@ def _wide_eligible(opt: Options, mode: int, W: int) -> bool:
     (the JAX package's _wide_eligible, on every device)."""
     w_min = {MODE_SCORE: WIDE_SCORE_W_MIN,
              MODE_PASS1: WIDE_PASS1_W_MIN}.get(mode)
-    return (w_min is not None and w_min < W <= WIDE_W_CAP
-            and opt.max_pen + 1 <= 31)
+    return w_min is not None and w_min < W <= WIDE_W_CAP
 
 
 def _run_wide(opt: Options, mode: int, bk: _Buckets,
@@ -337,12 +339,24 @@ def _run_wide(opt: Options, mode: int, bk: _Buckets,
     return out.cpu().numpy(), None, snap, lanes, tw, qw, spec
 
 
+def _multi_g(mode: int, B: int, device: torch.device) -> int:
+    """Lanes per block of the multi-lane engine K4 for a K1 dispatch, or 1
+    (K1): K4 takes SCORE and TB (with or without checkpoints) batches of
+    more than one lane when ``MWF_ENGINE=multi`` and ``pick_g`` packs them
+    (exact.py:339-365 of the JAX package)."""
+    if os.environ.get("MWF_ENGINE") != "multi" or B < 2 \
+            or mode not in (MODE_SCORE, MODE_TB):
+        return 1
+    return wm.pick_g(mode, B, device)
+
+
 def _run_kernel(opt: Options, mode: int, bk: _Buckets,
                 ts_list: List[bytes], qs_list: List[bytes],
                 device: torch.device, segs=None):
     """One wavefront dispatch over a batch; returns the outputs (out as
     numpy, tb and snap on the device) and the inputs the walker and the
-    checkpoint decoder reuse.  Windows past K1's go to the wide engine."""
+    checkpoint decoder reuse.  Windows past K1's go to the wide engine;
+    with ``MWF_ENGINE=multi``, K1's SCORE and TB batches to K4."""
     if _wide_eligible(opt, mode, bk.W):
         return _run_wide(opt, mode, bk, ts_list, qs_list, device)
     spec, lanes, tw, qw = kernel_inputs(opt, mode, bk.W, bk.S_CAP,
@@ -350,9 +364,11 @@ def _run_kernel(opt: Options, mode: int, bk: _Buckets,
     tw = torch.from_numpy(tw).to(device)
     qw = torch.from_numpy(qw).to(device)
     sg = seg_input(segs)
-    out, tb, _, snap = wk.wavefront(
-        spec, torch.from_numpy(lanes).to(device), tw, qw,
-        None if sg is None else torch.from_numpy(sg).to(device))
+    lanes_t = torch.from_numpy(lanes).to(device)
+    sg = None if sg is None else torch.from_numpy(sg).to(device)
+    G = _multi_g(mode, len(ts_list), device)
+    out, tb, _, snap = wk.wavefront(spec, lanes_t, tw, qw, sg) if G == 1 \
+        else wm.wavefront_multi(spec, G, lanes_t, tw, qw, sg)
     return out.cpu().numpy(), tb, snap, lanes, tw, qw, spec
 
 
@@ -506,10 +522,6 @@ def align_batch(pairs: Sequence[Tuple[object, object]], opt: Options,
         raise ValueError(f"band_limit must be 'raise' or 'stop', got "
                          f"{band_limit!r}")
     device = check_device(device)
-    if opt.max_pen + 1 > 31:
-        raise NotImplementedError(
-            f"max penalty {opt.max_pen} > 30 is past the wavefront "
-            f"kernel's packed viability bits")
     ts_list = [as_bytes(t) for t, _ in pairs]
     qs_list = [as_bytes(q) for _, q in pairs]
     n = len(pairs)

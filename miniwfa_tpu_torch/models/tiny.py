@@ -33,9 +33,11 @@ GMAX = 16384
 
 
 def tiny_eligible(opt: Options, pairs_tot_max: int) -> bool:
-    """Engine gate: window-sized pairs, penalties within the viability
-    bits' 31."""
-    return pairs_tot_max <= wg.MAX_TOT and opt.max_pen + 1 <= 31
+    """Engine gate: window-sized pairs, and penalties whose rings fit the
+    gaps kernel's shared memory (``wavefront_gaps.fits``; past it the
+    gaps go to align_batch)."""
+    return pairs_tot_max <= wg.MAX_TOT and wg.fits(wg.GSpec(
+        S_CAP=2, x=opt.x, o1=opt.o1, e1=opt.e1, o2=opt.o2, e2=opt.e2))
 
 
 def _s_bound(opt: Options, tl: int, ql: int) -> int:

@@ -19,9 +19,11 @@ Semantics contract: identical to the wavefront kernel
 diagonal ``w - tl``, so the window spans the whole legal diagonal range
 ``[-tl, ql]``: band growth is clamped at the matrix edge and a band
 overflow cannot happen.  Band bookkeeping follows the JAX kernel exactly:
-the retired slice's viability bits ``vb`` shift every cycle (bit j =
-score t-j), and the shrink every 256 cycles takes the hull of the new
-tops' good diagonals and the NS-1 youngest retired slices.
+the shrink every 256 cycles takes the hull of the new tops' good
+diagonals and the NS-1 youngest retired slices, read from ``lastv``, one
+past the last score whose retired slice was viable at the slot (0:
+never).  A gap's rings must fit one block's shared memory (``fits``),
+which bounds the penalties at a few hundred.
 
 Inputs: ``lens [G, 2] int32`` (tl, ql) and the flat packed word streams
 ``tw``/``qw [G, NW] int32`` of ops/pack.py, NW = n_words of the longest
@@ -52,6 +54,7 @@ MODE_SCORE, MODE_TB, WF_NEG_INF = wk.MODE_SCORE, wk.MODE_TB, wk.WF_NEG_INF
 # eligibility: a 128-diagonal window spans [-tl, ql] iff tl + ql + 1 <= 128
 MAX_TOT = 127
 WIN = 128
+SMEM_CAP = 232448   # shared memory one block may use (csrc/gaps.cu)
 
 
 @dataclass(frozen=True)
@@ -81,13 +84,22 @@ class GSpec:
                 max(self.e1, 1), max(self.e2, 1))
 
 
+def fits(spec: GSpec) -> bool:
+    """Whether one gap's rings and words fit a block's shared memory
+    (csrc/gaps.cu, mwf_gaps)."""
+    DH, DE1, DE2 = spec.rings
+    return 4 * ((DH + 2 * DE1 + 2 * DE2) * WIN
+                + 2 * pack.n_words(MAX_TOT, 4)) <= SMEM_CAP
+
+
 def _check(spec: GSpec, lens, tw, qw) -> None:
     if spec.mode not in (MODE_SCORE, MODE_TB):
         raise ValueError(f"unsupported gaps mode {spec.mode}")
     if spec.cpw not in (4, 16):
         raise ValueError(f"cpw must be 4 or 16, got {spec.cpw}")
-    if spec.NS > 31:   # vb packs NS bits into an int32
-        raise ValueError(f"max penalty {spec.NS - 1} exceeds 30")
+    if not fits(spec):
+        raise ValueError(f"a gap's rings at max penalty {spec.NS - 1} "
+                         f"exceed a block's shared memory")
     if spec.S_CAP < 2:
         raise ValueError(f"bad cycle budget S_CAP={spec.S_CAP}")
     dev = lens.device
@@ -148,7 +160,7 @@ def gaps_plain(spec: GSpec, lens: torch.Tensor, tw: torch.Tensor,
     rE1, rF1 = [full(NEG) for _ in range(DE1)], [full(NEG) for _ in range(DE1)]
     rE2, rF2 = [full(NEG) for _ in range(DE2)], [full(NEG) for _ in range(DE2)]
     rH[0] = torch.where(DD == 0, -1, NEG)   # score-0 top (miniwfa.c:119)
-    vb, pbits = full(0), full(0)
+    lastv, pbits = full(0), full(0)
     wlo, whi, tlo, thi = col(), col(), col(), col()
     done, stopped = col(0, torch.bool), col(0, torch.bool)
     fs, ls, ni = col(-1), col(), col()
@@ -197,12 +209,11 @@ def gaps_plain(spec: GSpec, lens: torch.Tensor, tw: torch.Tensor,
         hi = torch.minimum(whi + 1, ql)
         in_new = (DD >= lo) & (DD <= hi)
 
-        # --- 4. viability bits of the retired score-t slice
+        # --- 4. viability of the retired score-t slice
         h_t, e1_t, f1_t = k_new, rE1[t % DE1], rF1[t % DE1]
         e2_t, f2_t = rE2[t % DE2], rF2[t % DE2]
         viab = good(h_t) | good(e1_t) | good(f1_t) | good(e2_t) | good(f2_t)
-        vb = torch.where(act2, ((vb << 1) | viab.long()) & ((1 << NS) - 1),
-                         vb)
+        lastv = torch.where(act2 & viab, t + 1, lastv)
 
         # --- 5. transition into score t+1 (wf_next_tb semantics)
         def rd(ring, age):
@@ -239,7 +250,7 @@ def gaps_plain(spec: GSpec, lens: torch.Tensor, tw: torch.Tensor,
         # tops' good diagonals and the NS-1 youngest retired slices
         if ((t + 1) & 0xFF) == 0:
             goodt = good(Hn) | good(E1n) | good(F1n) | good(E2n) | good(F2n)
-            g = (goodt & in_new) | ((vb & ((1 << (NS - 1)) - 1)) != 0)
+            g = (goodt & in_new) | (lastv >= max(t - NS + 3, 1))
             g &= (DD >= wlo) & (DD <= whi)
             shr = act2 & g.any(1, keepdim=True)
             wlo = torch.where(shr, torch.where(g, DD, wk._BIG)

@@ -28,9 +28,11 @@ the current "tops" are simply the ring slot of score t.  Ring reads are
 masked by the band recorded for the source score (a registry of score
 bands, the analog of the reference's per-slice [lo, hi],
 miniwfa.c:67-137): a slot outside it reads as ``WF_NEG_INF`` whatever
-stale value it holds, so no plane is ever cleared.  The shrink scan's
-per-slot viability bits ``vb`` (bit j = score t-j) carry the cycle of
-their last update ``lastt`` and age by the cycles missed.
+stale value it holds, so no plane is ever cleared.  The shrink scan asks
+of a slot whether its retired slice was viable at one of the scores
+t-NS+2..t; one plane ``lastv`` answers it for any NS: one past the last
+such score (0: never), set for every viable slot of the cycle's update
+span, which holds every slot the shrink reads.
 
 TB mode writes the 7-bit traceback byte of every in-band cell of the
 transition into score t+1 at ``tb[lane, t, d - anc]`` (1 byte/cell, the
@@ -158,8 +160,6 @@ def _check_spec(spec: KSpec) -> None:
                          f"step={spec.step} n_snap={spec.n_snap}")
     if spec.cpw not in (4, 16):
         raise ValueError(f"cpw must be 4 or 16, got {spec.cpw}")
-    if spec.NS > 31:   # vb packs NS bits into an int32
-        raise ValueError(f"max penalty {spec.NS - 1} exceeds 30")
     if spec.W < 1 or spec.S_CAP < 2:
         raise ValueError(f"bad window/cycle budget W={spec.W} "
                          f"S_CAP={spec.S_CAP}")
@@ -250,9 +250,9 @@ def _snapshot(ptrs, snap, row: int, t: int, act, bnd, anc, W: int) -> None:
 def plane_count(spec: KSpec) -> int:
     """Planes of one lane in the kernels' layout: the value rings (H | E1 |
     F1 | E2 | F2, as ``snapshot_layout``), PASS1's pointer rings laid out
-    the same, then vb and lastt."""
+    the same, then lastv."""
     NP = snapshot_layout(spec)[5]
-    return NP * (2 if spec.mode == MODE_PASS1 else 1) + 2
+    return NP * (2 if spec.mode == MODE_PASS1 else 1) + 1
 
 
 def new_planes(spec: KSpec, lanes: torch.Tensor) -> torch.Tensor:
@@ -260,7 +260,7 @@ def new_planes(spec: KSpec, lanes: torch.Tensor) -> torch.Tensor:
     zeros, and the score-0 top at d=0 (H = -1, E1..F2 = WF_NEG_INF, and in
     PASS1 the same pointers, -1 being the chain's origin).  Any other ring
     entry is read only inside its score's recorded band, so its content
-    never matters; vb and lastt start at 0."""
+    never matters; lastv starts at 0 (never viable)."""
     B, W = lanes.shape[0], spec.W
     planes = torch.zeros((B, plane_count(spec), W), dtype=torch.int32,
                          device=lanes.device)
@@ -363,7 +363,7 @@ def run_cycles(spec: KSpec, m: PlainState, planes: torch.Tensor,
     if is_p1:
         ptrs = tuple(planes[:, NP + p0:NP + p0 + depth] for p0, depth in
                      zip(lay[:5], (RH, RE1, RE1, RE2, RE2)))
-    vb, lastt = planes[:, -2], planes[:, -1]
+    lastv = planes[:, -1]
 
     def zeros(dtype=torch.int64):
         return torch.zeros(B, dtype=dtype, device=dev)
@@ -453,21 +453,15 @@ def run_cycles(spec: KSpec, m: PlainState, planes: torch.Tensor,
             in_new = act[:, None] & (d >= lo[:, None]) & (d <= hi[:, None])
             rE1, rE2 = t % RE1, t % RE2
 
-            # --- 4. shrink viability of the retired score-t slice
+            # --- 4. shrink viability of the retired score-t slice: its
+            # viable slots (in the lane's top band) get lastv = t+1
             viab = torch.zeros_like(in_top)
             for v in (H[:, rh, a:b], E1[:, rE1, a:b], F1[:, rE1, a:b],
                       E2[:, rE2, a:b], F2[:, rE2, a:b]):
                 v = v.long()
                 viab |= (v >= -1) & (v < tl[:, None]) & (d + v >= -1) \
                     & (d + v < ql[:, None])
-            delta = (t - lastt[:, a:b].long()).clamp(0, NS)
-            vbc = torch.where(delta >= NS, 0, vb[:, a:b].long() << delta)
-            # each lane's own span (the union's other slots are not its)
-            upd = act[:, None] & (d >= torch.minimum(t_lo, lo)[:, None]) \
-                & (d <= torch.maximum(t_hi, hi)[:, None])
-            vb[:, a:b] = torch.where(upd, (vbc | (viab & in_top).long())
-                                     & ((1 << NS) - 1), vb[:, a:b])
-            lastt[:, a:b] = torch.where(upd, t, lastt[:, a:b])
+            lastv[:, a:b] = torch.where(viab & in_top, t + 1, lastv[:, a:b])
 
             # --- 5. transition into score t+1 (miniwfa.c:243-327)
             def src(ring, age):
@@ -535,7 +529,7 @@ def run_cycles(spec: KSpec, m: PlainState, planes: torch.Tensor,
 
         # --- 6. shrink every 256 cycles (miniwfa.c:420): good-diagonal hull
         # of the new tops and the retired slices of scores t..t-NS+2 (the
-        # stale score t+1-NS slice, bit NS-1, is excluded)
+        # stale score t+1-NS slice is excluded): lastv >= t-NS+3
         if ((t + 1) & 0xFF) == 0:
             span = _span(wf_lo - anc, wf_hi - anc, act, W)
             if span:
@@ -545,7 +539,7 @@ def run_cycles(spec: KSpec, m: PlainState, planes: torch.Tensor,
                 for ring in (H, E1, F1, E2, F2):
                     top |= ring[:, (t + 1) % ring.shape[1], a:b] >= -1
                 good = (top & (d >= t_lo[:, None]) & (d <= t_hi[:, None])) \
-                    | ((vb[:, a:b] & ((1 << (NS - 1)) - 1)) != 0)
+                    | (lastv[:, a:b] >= max(t - NS + 3, 1))
                 good &= act[:, None] & (d >= wf_lo[:, None]) \
                     & (d <= wf_hi[:, None])
                 has = good.any(1)
@@ -599,6 +593,64 @@ def launch_mode(spec: KSpec, segs) -> str:
     return name + "+seg" if segs is not None and segs.shape[1] else name
 
 
+def launch(spec: KSpec, lanes: torch.Tensor, tw: torch.Tensor,
+           qw: torch.Tensor, segs: Optional[torch.Tensor], G: int = 1):
+    """Launch ``csrc/wavefront.cu`` on CUDA inputs (checked by the
+    caller): K1 (``mwf_wavefront``, one block per lane) when G is 1, else
+    K4 (``mwf_wavefront_multi``, G lanes per block); outputs as
+    ``wavefront_plain``.  Counts nothing: each wrapper counts its own."""
+    if G == 1:
+        fn = build.load("wavefront", "mwf_wavefront",
+                        [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+                        + [ctypes.c_void_p] * 4
+                        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+                        + [ctypes.c_int] * 12 + [ctypes.c_void_p])
+    else:
+        fn = build.load("wavefront", "mwf_wavefront_multi",
+                        [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+                        + [ctypes.c_void_p] * 4
+                        + [ctypes.c_void_p, ctypes.c_int]
+                        + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+    dev = lanes.device
+    B, W = lanes.shape[0], spec.W
+    is_p1 = spec.mode == MODE_PASS1
+    NP = snapshot_layout(spec)[5]
+    out = torch.empty((B, O_N), dtype=torch.int64, device=dev)
+    # value rings (+ PASS1's pointer rings, laid out the same) + lastv;
+    # lastv must start at 0, ring contents are never read outside a
+    # recorded band
+    planes = torch.zeros((B, plane_count(spec), W), dtype=torch.int32,
+                         device=dev)
+    tb = bands = snap = None
+    if spec.mode == MODE_TB:
+        tb = torch.zeros((B, spec.S_CAP, W), dtype=torch.uint8, device=dev)
+        bands = torch.zeros((B, spec.S_CAP, 2), dtype=torch.int32,
+                            device=dev)
+    if is_p1:
+        snap = torch.full((B, spec.n_snap, NP, W), WF_NEG_INF,
+                          dtype=torch.int32, device=dev)
+    seg_cap = 0 if segs is None else segs.shape[1]
+    ptrs = (lanes.data_ptr(), tw.data_ptr(), qw.data_ptr(), tw.shape[1],
+            planes.data_ptr(), out.data_ptr(),
+            tb.data_ptr() if tb is not None else None,
+            bands.data_ptr() if bands is not None else None,
+            segs.data_ptr() if seg_cap else None, seg_cap)
+    pens = (spec.x, spec.o1, spec.e1, spec.o2, spec.e2)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if G == 1:
+            rc = fn(*ptrs, snap.data_ptr() if snap is not None else None,
+                    B, W, spec.S_CAP, spec.mode, spec.cpw, *pens,
+                    spec.step, spec.n_snap, stream)
+        else:
+            rc = fn(*ptrs, B, W, spec.S_CAP, spec.mode, spec.cpw, *pens, G,
+                    stream)
+    if rc:
+        raise RuntimeError(f"wavefront kernel launch failed (G={G}): CUDA "
+                           f"error {rc}")
+    return out, tb, bands, snap
+
+
 def wavefront(spec: KSpec, lanes: torch.Tensor, tw: torch.Tensor,
               qw: torch.Tensor, segs: Optional[torch.Tensor] = None):
     """Run the wavefront loop for every lane; outputs as
@@ -611,46 +663,10 @@ def wavefront(spec: KSpec, lanes: torch.Tensor, tw: torch.Tensor,
         return wavefront_plain(spec, lanes, tw, qw, segs)
     if lanes.device.type != "cuda":
         raise ValueError(f"unsupported device {lanes.device}")
-    fn = build.load("wavefront", "mwf_wavefront",
-                    [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
-                    + [ctypes.c_void_p] * 4
-                    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-                    + [ctypes.c_int] * 12 + [ctypes.c_void_p])
-    dev = lanes.device
-    B, W = lanes.shape[0], spec.W
-    is_p1 = spec.mode == MODE_PASS1
-    NP = snapshot_layout(spec)[5]
-    out = torch.empty((B, O_N), dtype=torch.int64, device=dev)
-    # value rings (+ PASS1's pointer rings, laid out the same) + vb +
-    # lastt; vb/lastt must start at 0, ring contents are never read
-    # outside a recorded band
-    planes = torch.zeros((B, plane_count(spec), W), dtype=torch.int32,
-                         device=dev)
-    tb = bands = snap = None
-    if spec.mode == MODE_TB:
-        tb = torch.zeros((B, spec.S_CAP, W), dtype=torch.uint8, device=dev)
-        bands = torch.zeros((B, spec.S_CAP, 2), dtype=torch.int32,
-                            device=dev)
-    if is_p1:
-        snap = torch.full((B, spec.n_snap, NP, W), WF_NEG_INF,
-                          dtype=torch.int32, device=dev)
-    seg_cap = 0 if segs is None else segs.shape[1]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(lanes.data_ptr(), tw.data_ptr(), qw.data_ptr(), tw.shape[1],
-                planes.data_ptr(), out.data_ptr(),
-                tb.data_ptr() if tb is not None else None,
-                bands.data_ptr() if bands is not None else None,
-                segs.data_ptr() if seg_cap else None, seg_cap,
-                snap.data_ptr() if snap is not None else None,
-                B, W, spec.S_CAP, spec.mode, spec.cpw,
-                spec.x, spec.o1, spec.e1, spec.o2, spec.e2,
-                spec.step, spec.n_snap, stream)
-    if rc:
-        raise RuntimeError(f"wavefront kernel launch failed: CUDA error {rc}")
+    res = launch(spec, lanes, tw, qw, segs)
     wavefront.launches += 1
     wavefront.launches_by_mode[launch_mode(spec, segs)] += 1
-    return out, tb, bands, snap
+    return res
 
 
 wavefront.launches = 0

@@ -190,13 +190,14 @@ def wide_plain(spec: wk.KSpec, lanes: torch.Tensor, tw: torch.Tensor,
     return _outputs(spec, state.row)
 
 
-def _grid(mode: int) -> int:
-    """Blocks of the wide kernel's cooperative launch in ``mode`` on the
+def _grid(spec: wk.KSpec) -> int:
+    """Blocks of the wide kernel's cooperative launch for ``spec`` (its
+    mode and its band registry's RH scores of shared memory) on the
     current card: as many as can be co-resident (occupancy x SMs)."""
     fn = build.load("wavefront_wide", "mwf_wide_grid",
-                    [ctypes.c_int, ctypes.c_void_p])
+                    [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     blocks = ctypes.c_int(0)
-    rc = fn(mode, ctypes.addressof(blocks))
+    rc = fn(spec.mode, spec.rings[0], ctypes.addressof(blocks))
     if rc:
         raise RuntimeError(f"wide kernel occupancy query failed: CUDA error "
                            f"{rc}")
@@ -226,10 +227,10 @@ def wide(spec: wk.KSpec, lanes: torch.Tensor, tw: torch.Tensor,
     B = lanes.shape[0]
     out = torch.empty((B, OW_N), dtype=torch.int64, device=dev)
     flags = torch.empty((2 * F_N,), dtype=torch.int32, device=dev)
-    key = (dev.index, spec.mode)
+    key = (dev.index, spec.mode, spec.rings[0])
     with torch.cuda.device(dev):
         if key not in wide.blocks:
-            wide.blocks[key] = _grid(spec.mode)
+            wide.blocks[key] = _grid(spec)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(lanes.data_ptr(), tw.data_ptr(), qw.data_ptr(), tw.shape[1],
                 state.row.data_ptr(), state.row.shape[1], t_lim.data_ptr(),
@@ -248,7 +249,7 @@ def wide(spec: wk.KSpec, lanes: torch.Tensor, tw: torch.Tensor,
 
 wide.launches = 0
 wide.launches_by_mode = collections.Counter()
-wide.blocks = {}   # cooperative grid size per (CUDA device index, mode)
+wide.blocks = {}   # cooperative grid size per (CUDA device, mode, RH)
 
 
 def _grow_snap(spec: wk.KSpec, state: WideState, n2: int) -> wk.KSpec:

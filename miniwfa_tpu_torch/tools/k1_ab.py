@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """K1 (csrc/wavefront.cu) kernel times of two checkouts on one card, in
-turns (a, b, b, a): SCORE and PASS1 at the main path's first dispatch
+turns (a, b, b, a): SCORE, TB and PASS1 at the main path's first dispatch
 shapes (the 16 pairs of 100 kb of each checkout's ``chip_smoke.py``,
 low-mem step 5000), three CUDA-event timings each after a warm-up launch.
 Each turn is a process of its own, started in that checkout, that builds
@@ -40,6 +40,7 @@ pairs = make_pairs(N_MAIN, B_MAIN)
 ts, qs = [t.encode() for t, _ in pairs], [q.encode() for _, q in pairs]
 res = {}
 for name, opt, mode in (("SCORE", Options(), wk.MODE_SCORE),
+                        ("TB", Options(cigar=True), wk.MODE_TB),
                         ("PASS1", Options(cigar=True, step=STEP_MAIN),
                          wk.MODE_PASS1)):
     bk, _ = exact.first_bucket(opt, mode, ts, qs, 512, 512, dev)

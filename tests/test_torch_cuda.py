@@ -16,6 +16,7 @@ from miniwfa_tpu_torch.models import traceback as tbk
 from miniwfa_tpu_torch.ops import traceback_device as tbd
 from miniwfa_tpu_torch.ops import wavefront_gaps as wg
 from miniwfa_tpu_torch.ops import wavefront_kernel as wk
+from miniwfa_tpu_torch.ops import wavefront_multi as wm
 from miniwfa_tpu_torch.ops import wavefront_wide as ww
 
 pytestmark = pytest.mark.cuda
@@ -246,3 +247,84 @@ def test_wide_kernel_pauses_on_snapshot_and_shrink_cycles(goldens, dev, step):
     for a, b in ((kst.row, pst.row), (kst.planes, pst.planes),
                  (kst.snap, pst.snap)):
         assert (a is None and b is None) or torch.equal(a, b)
+
+
+def _equal(got, want):
+    for g, w in zip(got, want):
+        assert (g is None and w is None) or torch.equal(g, w)
+
+
+@pytest.mark.parametrize("B", [10, 75])
+@pytest.mark.parametrize("G", [2, 4, 8])
+@pytest.mark.parametrize("run", ["score", "cigar", "cigar+seg"])
+def test_multi_kernel_matches_k1_and_plain(goldens, dev, run, G, B):
+    """K4 (G lanes per block) against K1 and the plain version on the
+    first B goldens (10 and 75 lanes: a ragged last block at every G):
+    every output, traceback byte and band row; TB+seg with the
+    checkpoints of a step-16 pass 1."""
+    ts, qs = [x[:B] for x in _golden_pairs(goldens)]
+    opt = Options(cigar=run != "score")
+    mode = wk.MODE_TB if opt.cigar else wk.MODE_SCORE
+    sg = None
+    if run == "cigar+seg":
+        segs, _ = exact._run_pass1(opt.replace(step=16), ts, qs, 512, 512,
+                                   dev)
+        sg = torch.from_numpy(exact.seg_input(segs)).to(dev)
+    spec, lanes, tw, qw = exact.kernel_inputs(opt, mode, 8192, 4096, ts, qs)
+    args = [torch.from_numpy(a).to(dev) for a in (lanes, tw, qw)]
+    before = wm.wavefront_multi.launches
+    got = wm.wavefront_multi(spec, G, *args, sg)
+    assert wm.wavefront_multi.launches == before + 1
+    _equal(got, wk.wavefront(spec, *args, sg))
+    _equal(got, wk.wavefront_plain(spec, *args, sg))
+    assert int(got[0][:, wk.O_DONE].sum()) == B
+
+
+def test_kernels_at_o2_100_match_plain(goldens, dev):
+    """max_pen 101: K1 SCORE and TB, K4 TB at G=4, K2 SCORE in one call
+    and K3 TB against their plain versions on the goldens."""
+    from miniwfa_tpu_torch.models import tiny
+    ts, qs = _golden_pairs(goldens)
+    opt = Options(o2=100, e2=1)
+    for mode in (wk.MODE_SCORE, wk.MODE_TB):
+        spec, lanes, tw, qw = exact.kernel_inputs(
+            opt.replace(cigar=mode == wk.MODE_TB), mode, 8192, 4096, ts, qs)
+        args = [torch.from_numpy(a).to(dev) for a in (lanes, tw, qw)]
+        want = wk.wavefront_plain(spec, *args)
+        assert int(want[0][:, wk.O_DONE].sum()) == len(ts)
+        _equal(wk.wavefront(spec, *args), want)
+        if mode == wk.MODE_TB:
+            _equal(wm.wavefront_multi(spec, 4, *args), want)
+    spec, lanes, tw, qw = exact.kernel_inputs(opt, wk.MODE_SCORE, 16384,
+                                              4096, ts, qs)
+    args = [torch.from_numpy(a).to(dev) for a in (lanes, tw, qw)]
+    big = torch.full((len(ts),), 1 << 40, dtype=torch.int64, device=dev)
+    pst, kst = ww.new_state(spec, args[0]), ww.new_state(spec, args[0])
+    assert torch.equal(ww.wide(spec, *args, kst, big),
+                       ww.wide_plain(spec, *args, pst, big))
+    assert torch.equal(kst.row, pst.row) and torch.equal(kst.planes,
+                                                         pst.planes)
+    gaps = _golden_gaps(goldens)
+    copt = opt.replace(cigar=True)
+    assert tiny.tiny_eligible(copt, max(len(a) + len(b) for a, b in gaps))
+    gspec, lens, gtw, gqw = tiny.dispatch_inputs(
+        copt, [a for a, _ in gaps], [b for _, b in gaps], 4, 1024)
+    gargs = [torch.from_numpy(a).to(dev) for a in (lens, gtw, gqw)]
+    _equal(wg.gaps(gspec, *gargs), wg.gaps_plain(gspec, *gargs))
+
+
+@pytest.mark.parametrize("opt", [Options(), Options(cigar=True)])
+def test_engine_multi_route_on_cuda(goldens, dev, monkeypatch, opt):
+    """MWF_ENGINE=multi MWF_KERNEL_G=4: align_batch launches K4 and gives
+    the goldens' results; without MWF_ENGINE it launches none."""
+    pairs = list(zip(*_golden_pairs(goldens)))
+    run = "cigar" if opt.cigar else "score"
+    before = wm.wavefront_multi.launches
+    exact.align_batch(pairs, opt, device=dev)
+    assert wm.wavefront_multi.launches == before
+    monkeypatch.setenv("MWF_ENGINE", "multi")
+    monkeypatch.setenv("MWF_KERNEL_G", "4")
+    res = exact.align_batch(pairs, opt, device=dev)
+    assert wm.wavefront_multi.launches > before
+    for r, e in zip(res, goldens["runs"][run]):
+        assert r.s == e["s"] and (not opt.cigar or r.cigar_str == e["cigar"])

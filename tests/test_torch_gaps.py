@@ -207,7 +207,11 @@ def test_bounds_and_buckets_match_jax():
     with pytest.raises(ValueError):
         tiny._scap_bucket(1023)
     assert tiny.tiny_eligible(opt, 127) and not tiny.tiny_eligible(opt, 128)
-    assert not tiny.tiny_eligible(Options(x=31), 10)
+    # any penalty set whose rings fit the kernel's shared memory: 447 + 2*2
+    # + 2*1 ring planes of 128 slots and both sides' words fit 232448 bytes
+    assert tiny.tiny_eligible(Options(x=31), 10)
+    assert tiny.tiny_eligible(Options(x=447), 10)
+    assert not tiny.tiny_eligible(Options(x=448), 10)
 
 
 @pytest.mark.parametrize("cpw", [16, 4])

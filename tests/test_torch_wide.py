@@ -364,7 +364,7 @@ def test_wide_routing_thresholds():
     assert el(opt, wk.MODE_SCORE, 1 << 20)
     assert not el(opt, wk.MODE_SCORE, (1 << 20) + 1)
     assert not el(opt, wk.MODE_TB, 1 << 20)
-    assert not el(Options(o2=40), wk.MODE_SCORE, 1 << 17)
+    assert el(Options(o2=40), wk.MODE_SCORE, 1 << 17)   # any penalty set
 
 
 class _Sized(Exception):
