@@ -334,7 +334,7 @@ class Smoke:
         self.dev = dev
         self.failures = []
         self.err = {"wavefront": 0, "walk": 0, "gaps": 0,
-                    "wavefront_wide": 0, "wavefront_multi": 0}
+                    "wavefront_wide": 0, "wavefront_multi": 0, "probes": 0}
 
     def check(self, cond: bool, what: str) -> None:
         print(f"  {'ok  ' if cond else 'FAIL'} {what}", flush=True)
@@ -1535,6 +1535,68 @@ def gaps_times(smoke: Smoke, card: str, t: bytes, q: bytes) -> dict:
     return times
 
 
+def probe_phase(smoke: Smoke, card: str) -> dict:
+    """Phase 2p, group P: the probe kernels of csrc/probes.cu, through the
+    entry point a user runs, ``tools/microbench.py``, on every probe file
+    at its shapes with the loop counts cut to 16 (P5 to 128 cycles, so
+    that its 64-slot tb ring wraps).  Each case runs once: held equal to
+    its plain version there and timed (CUDA events), with its bound and
+    one library op's time.  The counts are set to 0 just before and read
+    just after: every one of the 32 probe wrappers must have launched.
+    Returns the ``kernels`` line's ``probes`` entry."""
+    import io
+    from miniwfa_tpu_torch.tools import microbench as mb
+
+    wrappers = mb.wrappers()
+    names = {c.pid: c.fn.__name__ for c in mb.all_cases()}
+    for f in wrappers:
+        f.launches = 0
+    log = io.StringIO()
+    out = (mb.run([f for f in mb.FILES if f != "chunk"], smoke.dev,
+                  iters=mb.CHECK_ITERS, out=log)
+           + mb.run(["chunk"], smoke.dev, iters=mb.CHECK_CYCLES, out=log))
+    launches = {f.__name__: f.launches for f in wrappers}
+    idle = [n for n, k in launches.items() if k == 0]
+    smoke.check(not idle and len(wrappers) == 32,
+                f"probes: tools/microbench.py on all {len(mb.FILES)} files "
+                f"launched all {len(wrappers)} probe kernels "
+                f"({sum(launches.values())} launches; none: {idle})")
+    recs = {}
+    for r in out:
+        smoke.err["probes"] = max(smoke.err["probes"], r["max_abs_err"])
+        recs.setdefault(r["pid"], (names[r["pid"]], []))[1].append(r)
+    bodies = []
+    for pid, (name, rs) in recs.items():
+        err = max(r["max_abs_err"] for r in rs)
+        smoke.check(err == 0, f"probe {pid} {name} on {len(rs)} shape(s): "
+                    f"max_abs_err={err}")
+        top = max(rs, key=lambda r: r["ms"])
+        bodies.append({
+            "id": pid, "name": name, "replaces": mb.SITES[pid],
+            "launches": launches[name], "max_abs_err": err,
+            "shape": top["label"], "iters": top["iters"], "ms": top["ms"],
+            "per_op_us": top["per_op_us"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": top["library_ms"]})
+        print(f"  {pid:4s} {name:20s} {top['label']:38s} it={top['iters']}: "
+              f"kernel_ms={top['ms']:.4f} plain_ms={top['plain_ms']:.3f} "
+              f"bound_ms={top['bound_ms']:.6f} ({top['bound_by']}) "
+              f"library_ms={top['library_ms']} card={card}", flush=True)
+    worst = max(bodies, key=lambda b: b["bound_ms"])
+    return {
+        "name": "probes", "route": "cuda",
+        "source": "miniwfa_tpu_torch/csrc/probes.cu",
+        "replaces": ", ".join(dict.fromkeys(mb.SITES.values())),
+        "launches": sum(launches.values()),
+        "max_abs_err": smoke.err["probes"],
+        "ms": sum(b["ms"] for b in bodies),
+        "plain_ms": sum(b["plain_ms"] for b in bodies),
+        "bound_ms": sum(b["bound_ms"] for b in bodies),
+        "bound_by": worst["bound_by"], "library_ms": None,
+        "entry_point": "miniwfa_tpu_torch/tools/microbench.py",
+        "bodies": bodies}
+
+
 def main() -> int:
     try:
         import torch
@@ -1583,6 +1645,11 @@ def main() -> int:
     t0 = time.perf_counter()
     kernel_phases(smoke)
     wtimes8 = wide_phases(smoke, card)
+    tp = time.perf_counter()
+    print("phase 2p: the probe kernels (group P) through "
+          "tools/microbench.py, each against its plain version",
+          flush=True)
+    probes = probe_phase(smoke, card)
     t1 = time.perf_counter()
     info = main_path(smoke, card)
     penalty_runs(smoke, card)
@@ -1602,8 +1669,9 @@ def main() -> int:
     ftimes = gap_fill_times(smoke, card)
     wtime = wide_times(smoke, card, winfo["first"]["nbear1m"])
     wreal = wide_real_shapes(smoke, card, winfo["first"])
-    print(f"phase seconds: kernels {t1 - t0:.1f}, main path {t2 - t1:.1f}, "
-          f"timings {time.perf_counter() - t2:.1f}", flush=True)
+    print(f"phase seconds: kernels {tp - t0:.1f}, probes {t1 - tp:.1f}, "
+          f"main path {t2 - t1:.1f}, timings {time.perf_counter() - t2:.1f}",
+          flush=True)
     launches = info["launches"]
     wl = winfo["launches"]
 
@@ -1674,7 +1742,8 @@ def main() -> int:
          "gap_fills": {"shape": f"{FILL_B} x {FILL_N} bp SCORE "
                                 f"W={ftimes['W']}",
                        "cells": ftimes["cells"],
-                       "by_G": {str(g): ftimes[g] for g in (1, 2, 4, 8)}}}]
+                       "by_G": {str(g): ftimes[g] for g in (1, 2, 4, 8)}}},
+        probes]
     print(json.dumps({"kernels": kernels}), flush=True)
     if smoke.failures:
         print(f"chip_smoke: {len(smoke.failures)} check(s) failed:",

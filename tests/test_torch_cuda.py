@@ -13,11 +13,13 @@ import torch
 from miniwfa_tpu_torch import Options
 from miniwfa_tpu_torch.models import exact
 from miniwfa_tpu_torch.models import traceback as tbk
+from miniwfa_tpu_torch.ops import probes as pb
 from miniwfa_tpu_torch.ops import traceback_device as tbd
 from miniwfa_tpu_torch.ops import wavefront_gaps as wg
 from miniwfa_tpu_torch.ops import wavefront_kernel as wk
 from miniwfa_tpu_torch.ops import wavefront_multi as wm
 from miniwfa_tpu_torch.ops import wavefront_wide as ww
+from miniwfa_tpu_torch.tools import microbench as mb
 
 pytestmark = pytest.mark.cuda
 
@@ -328,3 +330,30 @@ def test_engine_multi_route_on_cuda(goldens, dev, monkeypatch, opt):
     assert wm.wavefront_multi.launches > before
     for r, e in zip(res, goldens["runs"][run]):
         assert r.s == e["s"] and (not opt.cigar or r.cigar_str == e["cigar"])
+
+
+@pytest.mark.parametrize("k", range(61))
+def test_probe_kernel_matches_plain(dev, k):
+    """Each group-P probe kernel (csrc/probes.cu) against its plain
+    version at its tool's shape, loop counts cut to 16 (P5: 128 cycles),
+    one launch counted."""
+    cases = mb.all_cases()
+    assert len(cases) == 61
+    c = cases[k]
+    it = mb.check_iters(c)
+    _, x = mb.inputs(c, k, it, dev)
+    before = c.fn.launches
+    got = c.call(c.fn, dev, x, it)
+    assert c.fn.launches == before + 1
+    torch.cuda.synchronize()
+    want = c.call(c.plain, dev, x, it)
+    assert mb.max_abs_err(got, want) == 0, (c.pid, c.label)
+
+
+def test_probe_wrappers_raise_past_their_shapes(dev):
+    """A shape the kernel does not take raises; it never falls back."""
+    x = torch.zeros((1, 2050), dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError):
+        pb.bench_hbm_row_write(x, 4, 3)      # W % 4 != 0
+    with pytest.raises(ValueError):
+        pb.chunk(184, 10, 2, 16, True, device=dev)   # CR % 4 != 0

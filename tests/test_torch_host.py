@@ -4,6 +4,7 @@ similarity and the driver's bucket sizing.  Plus: the port imports no JAX,
 asks for a CUDA device honestly, and its CLI prints the reference TSV."""
 
 import gzip
+import os
 import subprocess
 import sys
 
@@ -186,7 +187,11 @@ def test_port_imports_no_jax():
             "'miniwfa_tpu_torch.ops.wavefront_gaps', "
             "'miniwfa_tpu_torch.ops.wavefront_kernel', "
             "'miniwfa_tpu_torch.ops.wavefront_wide', "
+            "'miniwfa_tpu_torch.ops.wavefront_multi', "
+            "'miniwfa_tpu_torch.ops.probes', "
+            "'miniwfa_tpu_torch.ops.probes_multi', "
             "'miniwfa_tpu_torch.tools.k1_ab', "
+            "'miniwfa_tpu_torch.tools.microbench', "
             "'miniwfa_tpu_torch.utils.native', "
             "'miniwfa_tpu_torch.utils.spans', 'chip_smoke'):\n"
             "    importlib.import_module(m)\n"
@@ -230,3 +235,71 @@ def test_cli_prints_reference_tsv(goldens, tmp_path, capsys):
         assert rc == 0
         row = capsys.readouterr().out.strip().split("\t")
         assert row[9:] == ["155", cig], flag
+
+
+def test_build_key_tracks_source_headers_flags_and_nvcc(tmp_path,
+                                                       monkeypatch):
+    """ops/build.py rebuilds a library when its source, a shared header,
+    NVCC_FLAGS or the nvcc version changes, and only then (nvcc stubbed
+    by a script that writes its -o file)."""
+    from miniwfa_tpu_torch.ops import build
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text("// v1\n")
+    (csrc / "h.cuh").write_text("// h1\n")
+    ver = tmp_path / "version"
+    ver.write_text("Cuda compilation tools, release 12.8\n")
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        f"#!{sys.executable}\n"
+        "import os, sys\n"
+        "if '--version' in sys.argv:\n"
+        "    print(open(os.environ['STUB_NVCC_VERSION']).read())\n"
+        "    sys.exit(0)\n"
+        "open(sys.argv[sys.argv.index('-o') + 1], 'w').write('lib')\n"
+        "print('ptxas info: compiled')\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("STUB_NVCC_VERSION", str(ver))
+    monkeypatch.setattr(build, "CSRC", str(csrc))
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "out"))
+    monkeypatch.setattr(build, "_nvcc", lambda: str(nvcc))
+
+    def built():
+        return sorted(build.build(["k"]))
+
+    assert built() == ["k"]
+    assert (tmp_path / "out" / "libk.so").read_text() == "lib"
+    assert built() == []
+    os.utime(csrc / "k.cu", (1e10, 1e10))      # newer file, same content
+    assert built() == []
+    (csrc / "k.cu").write_text("// v2\n")
+    assert built() == ["k"]
+    (csrc / "h.cuh").write_text("// h2\n")
+    assert built() == ["k"]
+    monkeypatch.setattr(build, "NVCC_FLAGS", (*build.NVCC_FLAGS, "-lineinfo"))
+    assert built() == ["k"]
+    assert built() == []
+    ver.write_text("Cuda compilation tools, release 12.9\n")
+    assert built() == ["k"]
+    assert built() == []
+
+
+def test_build_without_nvcc_uses_built_libraries(tmp_path, monkeypatch,
+                                                 capsys):
+    """With no nvcc, ops/build.py uses a library built before (with its
+    key) as it is, and raises for one that was never built."""
+    from miniwfa_tpu_torch.ops import build
+    out = tmp_path / "out"
+    out.mkdir()
+    (out / "libk.so").write_text("lib")
+    (out / "libk.key").write_text("0\n")
+    monkeypatch.setattr(build, "BUILD_DIR", str(out))
+
+    def missing():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(build, "_nvcc", missing)
+    assert build.build(["k"]) == {}
+    assert "no nvcc" in capsys.readouterr().err
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build(["k", "j"])
