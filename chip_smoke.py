@@ -28,23 +28,23 @@
    a lane (every output and the snapshot rows);
 3. holds the CIGAR walker (W1) against its plain version on phase 2's
    traceback outputs, K1's and K3's: identical run lists;
-4. drives the main path, ``align_batch`` on 16 pairs of 100 kb at 2%
-   divergence in score, CIGAR and low-mem (step 5000) modes, checks every
-   score and CIGAR digest against tests/data/bench_goldens.json, that each
-   CIGAR re-scores and consumes both sequences, and that each mode's
-   kernels were launched (counts set to 0 just before each run and read
-   just after); score and CIGAR again with ``MWF_ENGINE=multi
-   MWF_KERNEL_G=4`` (K4 at 4 lanes per block, launched and no K1), their
-   walls beside K1's; then the chain (-u -c) and auto (-t -c) modes on
-   the scale fixtures, up to div5m (5 Mb), against
-   tests/data/scale_goldens.json, with the split of div5m auto's wall, and
-   div5m auto on the multi-lane route, its K1 gap fills span beside the K1
-   run's; phase 4e: t3 at o2=40 and o2=100 in exact, -p 16, -u and -t
-   modes, each equal to the JAX package's (s, n_iter, CIGAR); then the
-   wide path: ``align_batch`` in score mode on dissim150k,
-   nbear1m and sv300k and in low-mem mode (step 5000) on those and div5m,
-   against scale_goldens.json, each run with its wall, peak memory, wide
-   calls and kernel time, and pass 1's wall apart from pass 2's;
+4. drives the main path, ``align_batch`` on 16 pairs of 100 kb at 2% divergence
+   in score, CIGAR and low-mem (step 5000) modes, checks every score and CIGAR
+   digest against tests/data/bench_goldens.json, that each CIGAR re-scores and
+   consumes both sequences, and that each mode's kernels were launched (counts
+   set to 0 just before each run and read just after), K1 as a cluster of C > 1
+   CTAs per lane (each mode's C and the card's count of co-resident clusters of
+   C printed); score and CIGAR again with ``MWF_ENGINE=multi MWF_KERNEL_G=4``
+   (K4 at 4 lanes per block, launched and no K1), their walls beside K1's; then
+   the chain (-u -c) and auto (-t -c) modes on the scale fixtures, up to div5m
+   (5 Mb), against tests/data/scale_goldens.json, with the split of div5m
+   auto's wall, and div5m auto on the multi-lane route, its K1 gap fills span
+   beside the K1 run's; phase 4e: t3 at o2=40 and o2=100 in exact, -p 16, -u
+   and -t modes, each equal to the JAX package's (s, n_iter, CIGAR); then the
+   wide path: ``align_batch`` in score mode on dissim150k, nbear1m and sv300k
+   and in low-mem mode (step 5000) on those and div5m, against
+   scale_goldens.json, each run with its wall, peak memory, wide calls and
+   kernel time, and pass 1's wall apart from pass 2's;
 5. times each K1 mode, W1 and the checkpoint chain (W2) at the main
    path's first dispatch shape of that mode (CUDA events); holds each K1
    mode against its plain version at that shape with every lane stopped
@@ -53,7 +53,7 @@
    versions, with the kernels beside them and held equal, at the 8 kb
    benchmark shape; K3 SCORE and TB and the walker on K3's traceback
    against their plain versions at div5m auto's first K3 dispatch;
-   nbear1m's score run in K1 (one block) and in the wide kernel (the whole
+   nbear1m's score run in K1 (one cluster) and in the wide kernel (the whole
    card) at the same window, held equal; the wide kernel against
    wide_plain at the specs of phase 4d's nbear1m score and div5m pass 1
    for their first few thousand cycles; K4 at G=4 at the main path's
@@ -69,12 +69,12 @@ shape: the wavefront entry's SCORE's, the gaps entry's TB's, the wide
 entry's nbear1m score's, the multi entry's SCORE's at G=4; ``plain_ms`` is
 the plain version's at the 8 kb shape (the multi entry's at the 2048 x 1
 kb shape), beside the kernel's own time there, ``plain_shape_kernel_ms``;
-``modes`` holds every mode's launches in the main path's runs and its
-times, the wide entry's PASS1 those of div5m's pass 1, summed over its
-calls; ``launches`` sums the main path's runs, phase 4) and, last, a
-JSON line with ``"ok": true`` and the device.  Exits non-zero without a
-CUDA device, outside a checkout of the repository, or if any check
-fails.
+``modes`` holds every mode's launches in the main path's runs, its
+times and (K1) its C and co-resident cluster count, the wide entry's
+PASS1 those of div5m's pass 1, summed over its calls; ``launches``
+sums the main path's runs, phase 4) and, last, a JSON line with
+``"ok": true`` and the device.  Exits non-zero without a CUDA device,
+outside a checkout of the repository, or if any check fails.
 
 ``bound_ms`` is the least time the card could take for the same work: the
 larger of the bytes the call must move (inputs read once, outputs written
@@ -226,6 +226,7 @@ def _reset_counts():
     from miniwfa_tpu_torch.ops import wavefront_wide as ww
     wk.wavefront.launches = 0
     wk.wavefront.launches_by_mode.clear()
+    wk.wavefront.clusters.clear()
     wm.wavefront_multi.launches = 0
     wm.wavefront_multi.launches_by_mode.clear()
     ww.wide.launches = 0
@@ -243,6 +244,7 @@ def _read_counts() -> dict:
     return {"wavefront": wk.wavefront.launches, "walk": tbd.walk.launches,
             "gaps": wg.gaps.launches,
             "modes": dict(wk.wavefront.launches_by_mode),
+            "clusters": dict(wk.wavefront.clusters),
             "multi": wm.wavefront_multi.launches,
             "multi_modes": dict(wm.wavefront_multi.launches_by_mode),
             "wide": ww.wide.launches,
@@ -948,7 +950,7 @@ def main_path(smoke: Smoke, card: str) -> dict:
     print(f"phase 4: main path, {B_MAIN} pairs x {N_MAIN} bp, 2% divergence",
           flush=True)
     launches = {"wavefront": 0, "walk": 0, "modes": {}, "wavefront_multi": 0,
-                "multi_modes": {}}
+                "multi_modes": {}, "clusters": {}}
     walls = {}
     for mode, opt, kmodes in modes:
         res, counts, walls[mode], _ = _drive(mode, list(zip(ts, qs)), opt,
@@ -962,6 +964,13 @@ def main_path(smoke: Smoke, card: str) -> dict:
             n = counts["modes"].get(k, 0)
             smoke.check(n > 0, f"main {mode} launched wavefront[{k}] {n} "
                         f"times")
+            # K1's cluster: CTAs per lane and co-resident clusters there
+            cl = counts["clusters"].get(k, {"C": 0, "clusters": 0})
+            launches["clusters"][k] = cl
+            smoke.check(cl["C"] > 1, f"main {mode} wavefront[{k}]: "
+                        f"C={cl['C']} CTAs per lane, {cl['clusters']} "
+                        f"co-resident clusters of C on the card, for "
+                        f"{B_MAIN} lanes")
         if opt.cigar:
             smoke.check(counts["walk"] > 0, f"main {mode} launched walk "
                         f"{counts['walk']} times")
@@ -1127,9 +1136,11 @@ def _time_pair(smoke, label, spec, args, segs, card, plain):
     got, ms = _ms(lambda: wk.wavefront(spec, *args, segs))
     mode = wk.launch_mode(spec, segs)
     bound_ms, bound_by = _k1_bound(spec, args, segs, got)
-    res = dict(ms=ms, bound_ms=bound_ms, bound_by=bound_by)
+    cl = wk.wavefront.clusters[mode]
+    res = dict(ms=ms, bound_ms=bound_ms, bound_by=bound_by, **cl)
     line = (f"  wavefront[{mode}] {label} B={len(args[0])} W={spec.W} "
-            f"S_CAP={spec.S_CAP}: kernel_ms={ms:.3f}")
+            f"S_CAP={spec.S_CAP} C={cl['C']} "
+            f"(co-resident clusters {cl['clusters']}): kernel_ms={ms:.3f}")
     if plain:
         want, res["plain_ms"] = _ms(
             lambda: wk.wavefront_plain(spec, *args, segs))
@@ -1388,7 +1399,7 @@ def _lowmem_cut(smoke, card, label, p1, p2, seg_cap):
 
 
 def wide_times(smoke: Smoke, card: str, first) -> dict:
-    """Phase 5, wide: nbear1m's score run in K1 (one block) and in the
+    """Phase 5, wide: nbear1m's score run in K1 (one cluster) and in the
     wide kernel (the whole card) at the spec of align_batch's wide call
     (``first``, phase 4d's): every output equal, and both kernel times
     (CUDA events; the wide kernel's summed over run_chunked's calls)."""
@@ -1413,7 +1424,8 @@ def wide_times(smoke: Smoke, card: str, first) -> dict:
           f"{ww.wide.blocks.get((smoke.dev.index, spec.mode, spec.rings[0]))}"
           f" "
           f"blocks) "
-          f"k1_kernel_ms={k1_ms:.3f} (1 block) cells={wide['cells']} "
+          f"k1_kernel_ms={k1_ms:.3f} "
+          f"(C={wk.wavefront.clusters['SCORE']['C']}) cells={wide['cells']} "
           f"bound_ms={wide['bound_ms']:.6f} ({wide['bound_by']}) "
           f"card={card}", flush=True)
     return dict(wide, k1_ms=k1_ms, W=spec.W)
@@ -1689,6 +1701,7 @@ def main() -> int:
     # its lanes stopped past max_s: both times
     modes = {m: {"launches": launches["modes"].get(m, 0),
                  **timed(times[m], ptimes[m]),
+                 **launches["clusters"].get(m, {}),
                  "main_shape_cut": times[m]["cut"]}
              for m in ("SCORE", "TB", "PASS1", "TB+seg")}
     d5 = winfo["div5m_pass1"]
@@ -1706,6 +1719,7 @@ def main() -> int:
          "launches": launches["wavefront"],
          "max_abs_err": smoke.err["wavefront"],
          **timed(times["SCORE"], ptimes["SCORE"]),
+         "C": launches["clusters"].get("SCORE", {}).get("C"),
          "library_ms": None, "modes": modes},
         {"name": "walk", "route": "cuda",
          "source": "miniwfa_tpu_torch/csrc/walk.cu",

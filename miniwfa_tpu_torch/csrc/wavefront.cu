@@ -1,6 +1,7 @@
 // K1: the fused-cycle WFA wavefront kernel for Hopper (sm_90a), SCORE, TB
-// and PASS1 modes, with the pass-2 checkpoint collapse; and K4, the same
-// kernel with several lanes per block (SCORE, TB and TB+seg).
+// and PASS1 modes, with the pass-2 checkpoint collapse, one lane per
+// thread-block cluster; and K4, the same kernel with several lanes per
+// block (SCORE, TB and TB+seg).
 //
 // Replaces miniwfa_tpu/ops/wavefront_kernel.py::build_kernel (K1) and
 // miniwfa_tpu/ops/wavefront_multi.py::build_kernel (K4, G co-resident
@@ -14,47 +15,78 @@
 // wavefront_common.cuh, shared with the wide kernel (wavefront_wide.cu).
 //
 // Design: one group of threads per lane runs that lane's whole `while s +=
-// 1` loop.  K1 (LPB = 1) is one 512-thread block per lane; K4 (LPB = G in
-// {2, 4, 8}) splits a block into G groups of 512/G threads, group g owning
-// lane blockIdx.x * G + g, with its own band registry and flags in shared
-// memory and its own named barrier (bar.sync 1+g, 512/G), so the lanes of
-// a block advance independently (the TPU kernel's shared cycle loop was a
-// Pallas constraint, not semantics); groups past the last lane exit at
-// once.  Every thread of a group keeps an identical copy of the lane's
-// scalars (score t, committed band wf_lo/wf_hi, top band t_lo/t_hi, flags,
-// n_iter) and updates them from the same shared-memory flags, so no
-// broadcast is needed.  Per cycle, the group's threads stride over the
-// live band's diagonals in these phases, with a group barrier between
-// them (__syncthreads() in K1):
-//   1. LCP extension of the top band (miniwfa.c:400-411), reading the flat
-//      packed word streams straight from global memory: a funnel shift for
-//      unaligned probes and __ffs of the XOR for the first mismatch, capped
-//      at the matrix edge min(tl-1-k, ql-1-(d+k)).
-//   2. termination at d_end; last_state is set only on a zero-extension
-//      termination (TB mode), from the tb byte of the previous row.
-//   3. band growth and window-overflow check.
-//   4. shrink viability of the retired score-t slice + the 5-state
+// 1` loop.  K1 (LPB = 1) spreads a lane over a thread-block cluster of C
+// CTAs of 512 threads (C in {1, 2, 4, 8, 16}, picked by the wrapper from
+// the count of co-resident clusters; C = 1 is a plain launch of one block
+// per lane).  K4 (LPB = G in {2, 4, 8}, C = 1) splits a block into G
+// groups of 512/G threads, group g owning lane blockIdx.x * G + g, with
+// its own band registry and flags in shared memory and its own named
+// barrier (bar.sync 1+g, 512/G), so the lanes of a block advance
+// independently (the TPU kernel's shared cycle loop was a Pallas
+// constraint, not semantics); groups past the last lane exit at once.
+// Every thread of a lane (in every CTA of its cluster) keeps an identical
+// copy of the lane's scalars (score t, committed band wf_lo/wf_hi, top
+// band t_lo/t_hi, flags, n_iter) and updates them from identical flags, so
+// no broadcast of the scalars is needed.  In each pass over a diagonal
+// span, CTA rank r of the cluster takes the r-th contiguous share of the
+// span and strides it with its threads.  A cycle t is:
+//   1. termination at score t, found by the transition that wrote score t
+//      (or the prologue, for score 0): last_state (TB) is that cell's own
+//      tb state on a zero-extension termination, last_ptr (PASS1) its H
+//      pointer.
+//   2. pass-2 checkpoint collapse (miniwfa.c:413-416), a uniform scalar
+//      update, then band growth and the window-overflow check.
+//   3. PASS1 snapshot, on its cycles, then a lane barrier.
+//   4. shrink viability of the retired score-t slice (lastv) + the 5-state
 //      transition into score t+1 over [min(t_lo,lo), max(t_hi,hi)], with
 //      the exact '>=' / '<' tie-breaks of wf_next_tb (miniwfa.c:287-307);
-//      TB mode stores the 7-bit byte at tb[t][d - anc].
-//   5. every 256 cycles, the shrink hull (block-wide atomicMin/atomicMax).
+//      TB mode stores the 7-bit byte at tb[t][d - anc].  The thread that
+//      computes H at diagonal d extends it at once along its match run
+//      (miniwfa.c:400-411: the extension of a diagonal reads nothing of
+//      any other), reading the flat packed word streams straight from
+//      global memory (a funnel shift for unaligned probes and __ffs of the
+//      XOR for the first mismatch, capped at the matrix edge
+//      min(tl-1-k, ql-1-(d+k))), stores the extended value, and reports
+//      score t+1's termination at d_end.  Then the cycle's one lane
+//      barrier.
+//   5. every 256 cycles, the shrink hull (a min/max over the cluster) and
+//      its barrier.
 //   6. accounting (n_iter adds the grown width on transition cycles only)
-//      and the max_s / max_iter stops.
+//      and the max_s / max_iter stops, which end the loop before the
+//      termination found at score t+1 is read: the reference never ran
+//      that extension (miniwfa.c:421-425).
+//
+// Flags (termination with its last_state / last_ptr, the boundary-commit
+// flags, the shrink hull) live in each CTA's shared memory.  A flag's rare
+// writer (the thread of the cell at d_end, lo or hi) sets it in its own
+// CTA; with C > 1, after a block barrier, thread 0 of the CTA that owns
+// the cell stores it into every CTA of the cluster (distributed shared
+// memory), as each CTA's thread 0 does with its share of the shrink hull,
+// so no store to another SM sits in the hot loop; after the cluster
+// barrier every thread reads its own CTA's copy.  Flags carry the cycle (termination: the score) they
+// belong to instead of being cleared, double-buffered by parity: with one
+// barrier a cycle, the set cycle t+2 writes was last read before barrier
+// t+1.  Each CTA keeps its own band registry with the same values, the
+// entry of score t+1 written after the transition that reads none of it.
+//
+// Cross-SM coherence.  Ring planes stay in global memory; a slot may have
+// been written by another SM of the cluster, so with C > 1 every plane
+// read is ld.global.cg (L2, never a stale L1 line) and every plane store
+// st.global.cg, and the barrier is the cluster's (barrier.cluster
+// arrive.release / wait.acquire).  With C = 1 one block owns the lane and
+// __syncthreads orders plain loads, as before.
 //
 // Low-mem stripe mode (reference mwf_wfa_seg, miniwfa.c:551-601).  PASS1
 // keeps a pointer plane beside every value plane, laid out as the value
 // rings one block further on (`poff`), so a source's pointer sits at the
 // same slot offset as its value.  The transition copies the pointer of the
 // source its tb bits chose.  A snapshot (when (t+1) % step == 0, after
-// growth and before the transition) is one block-wide pass over every
-// ring slot's recorded band: copy the pointer into snapshot row c, then
-// reset it to its own flat index plane*W + w; each element is read and
-// rewritten by the same thread, and one barrier fences the pass from the
-// transition's neighbour reads.  Outside a slot's band nothing is written:
-// band-masked reads never look there.  Termination takes last_ptr from the
-// H pointer plane at d_end after the extension barrier.  Pass 2's
-// checkpoint collapse (miniwfa.c:413-416) is a uniform scalar update that
-// every thread applies, after termination and before growth.
+// growth and before the transition) is one pass over every ring slot's
+// recorded band: copy the pointer into snapshot row c, then reset it to
+// its own flat index plane*W + w; each element is read and rewritten by
+// the same thread, and one barrier fences the pass from the transition's
+// neighbour reads.  Outside a slot's band nothing is written: band-masked
+// reads never look there.
 //
 // State lives in global memory: at W=65536 with the default penalties the
 // rings take 27 planes of 256 KB per lane, far past the 227 KB of shared
@@ -66,33 +98,40 @@
 // stale slots, negative source scores and neighbours outside the window
 // read as WF_NEG_INF, so no plane is ever cleared.  The shrink hull uses
 // the good-diagonal test only for the retired slices of scores t-NS+2..t
-// (the stale slice t-NS+1 is excluded) and ">= -1" for the new tops.  One
-// int32 plane `lastv` holds, per slot, one past the last score whose
-// retired slice was viable there (0: never), set during the transition
-// pass over the update span; every slot the shrink reads lies in
-// [wf_lo, wf_hi], inside this cycle's span, so the plane is exact for any
-// NS and no penalty set is bounded by it.  Under edit-distance penalties every age is 1.
-// At cpw=4 the words hold raw bytes, so the compare is case-sensitive like
-// the reference's (the `lower_n` golden).  Empty sequences need no special
-// case: the extension cap min(tl-1-k, ql-1-(d+k)) is 0 at k = -1, and an
-// anchor that leaves d=0 outside the window overflows at the first cycle.
+// (the stale slice t-NS+1 is excluded) and ">= -1" for the new tops (the
+// extension keeps a value >= -1 so).  One int32 plane `lastv` holds, per
+// slot, one past the last score whose retired slice was viable there (0:
+// never), set during the transition pass over the update span; every slot
+// the shrink reads lies in [wf_lo, wf_hi], inside this cycle's span, so
+// the plane is exact for any NS and no penalty set is bounded by it.
+// Under edit-distance penalties every age is 1.  At cpw=4 the words hold
+// raw bytes, so the compare is case-sensitive like the reference's (the
+// `lower_n` golden).  Empty sequences need no special case: the extension
+// cap min(tl-1-k, ql-1-(d+k)) is 0 at k = -1, and an anchor that leaves
+// d=0 outside the window overflows at the first cycle.
 //
-// What bounds it: a cycle is a handful of group barriers plus O(band/512)
-// work per thread, so at 100 kb the per-cycle barrier latency and the L2
-// traffic of the ring planes dominate, with only B of the 132 SMs busy.
-// K4 serves batches of more lanes than SMs with narrow bands (the chain's
-// gap fills): G lanes share an SM's block slots, each with 512/G threads.
-// This is the correctness-first design; making it fast (a cluster or
-// several CTAs per lane, shared-memory rings for narrow bands) is later
-// work.
+// What bounds it: a cycle is one barrier plus O(band / (512 C)) work per
+// thread, each diagonal ≈13 ring loads and ≈6 stores through L2, so the
+// barrier's latency and the L2 traffic of the ring planes set the pace.
+// Clusters put up to 16 SMs on a lane where one block per lane left 116 of
+// the 132 SMs idle on a batch of 16; the fused extension removes a pass
+// over the top band and a barrier from every cycle.  K4 serves batches of
+// more lanes than SMs with narrow bands (the chain's gap fills): G lanes
+// share an SM's block slots, each with 512/G threads.  Shared-memory rings
+// are later work.
+
+#include <cooperative_groups.h>
 
 #include "wavefront_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 using namespace mwf;
 
 constexpr int THREADS = 512;
+constexpr int CMAX = 16;  // largest cluster (non-portable past 8)
 
 struct Params {
   const long long* lanes;     // [B, L_N]
@@ -109,12 +148,13 @@ struct Params {
   int B, W, S_CAP, mode, cpw;
   int x, o1, e1, o2, e2;
   int step, n_snap;
+  int C;                      // CTAs per lane (cluster size)
 };
 
-// The barrier of a lane's threads: the block's in K1, the group's named
-// barrier 1+g in K4 (barrier 0 is __syncthreads').
+// The barrier of this CTA's threads of the lane: the block's in K1, the
+// group's named barrier 1+g in K4 (barrier 0 is __syncthreads').
 template <int LPB>
-__device__ __forceinline__ void lane_sync(int g) {
+__device__ __forceinline__ void cta_sync(int g) {
   if constexpr (LPB == 1) {
     __syncthreads();
   } else {
@@ -123,20 +163,65 @@ __device__ __forceinline__ void lane_sync(int g) {
   }
 }
 
-// One instantiation per mode and lanes per block, so a mode compiles none
-// of the others' code (SCORE computes no tb byte and copies no pointer).
-template <int MODE, int LPB>
+// The barrier of a lane's threads: the cluster's with C > 1 (release /
+// acquire, so global and distributed shared stores before it are seen
+// after it), else the CTA's.
+template <int LPB, bool CL>
+__device__ __forceinline__ void lane_sync(int g) {
+  if constexpr (CL) {
+    cg::this_cluster().sync();
+  } else {
+    cta_sync<LPB>(g);
+  }
+}
+
+template <bool CG>
+__device__ __forceinline__ void stv(int* p, int v) {
+  if constexpr (CG) {
+    __stcg(p, v);
+  } else {
+    *p = v;
+  }
+}
+
+// Store v into flag word f of every CTA of the cluster (CL), or of this
+// CTA only.
+template <bool CL>
+__device__ __forceinline__ void push(int* f, int v, int C) {
+  if constexpr (CL) {
+    cg::cluster_group cl = cg::this_cluster();
+    for (int r = 0; r < C; ++r) *cl.map_shared_rank(f, r) = v;
+  } else {
+    *f = v;
+  }
+}
+
+// The r-th of C contiguous shares [lo, hi] of slots [a, e] (lo > hi:
+// empty).
+__device__ __forceinline__ void share(int a, int e, int r, int C, int& lo,
+                                      int& hi) {
+  const int per = (max(e - a + 1, 0) + C - 1) / C;
+  lo = a + r * per;
+  hi = min(e, lo + per - 1);
+}
+
+// One instantiation per mode, lanes per block and cluster use, so a mode
+// compiles none of the others' code (SCORE computes no tb byte and copies
+// no pointer) and C = 1 keeps plain loads and the block barrier.
+template <int MODE, int LPB, bool CL>
 __global__ void __launch_bounds__(THREADS) wavefront_kernel(Params p) {
-  constexpr int NT = THREADS / LPB;  // threads of one lane
+  constexpr int NT = THREADS / LPB;  // threads of one lane in one CTA
+  constexpr bool CG = CL;            // L2 loads and stores across SMs
+  const int C = CL ? p.C : 1;
   const int g = LPB == 1 ? 0 : (int)threadIdx.x / NT;
   const int tid = LPB == 1 ? (int)threadIdx.x : (int)threadIdx.x % NT;
-  const int b = blockIdx.x * LPB + g;
+  const int rank = CL ? (int)cg::this_cluster().block_rank() : 0;
+  const int b = CL ? (int)blockIdx.x / C : (int)blockIdx.x * LPB + g;
   if constexpr (LPB > 1) {
     if (b >= p.B) return;  // past the last lane: no barrier of its group
   }
   const long long* ln = p.lanes + (size_t)b * L_N;
   const int tl = (int)ln[L_TL], ql = (int)ln[L_QL], anc = (int)ln[L_ANC];
-  const long long max_s = ln[L_MS], max_iter = ln[L_MI];
   const int W = p.W, d_end = ql - tl;
   const size_t Wz = (size_t)W;
   const int ag_x = p.x, ag_o1 = p.o1 + p.e1, ag_o2 = p.o2 + p.e2;
@@ -162,93 +247,81 @@ __global__ void __launch_bounds__(THREADS) wavefront_kernel(Params p) {
   unsigned char* tb = is_tb ? p.tb + (size_t)b * p.S_CAP * Wz : nullptr;
   int* bands = is_tb ? p.bands + (size_t)b * p.S_CAP * 2 : nullptr;
 
-  // the lane's score-band registry (score s at s % RH) and per-cycle
-  // flags.  Flags are double-buffered by cycle parity: cycle t uses set
-  // t&1, and thread 0 clears set (t+1)&1 right after cycle t's first
-  // barrier, when every thread has finished reading it in cycle t-1.
+  // the lane's score-band registry (score s at s % RH) and flags: by
+  // parity, f_term holds the score found terminated (with f_ls / f_lp its
+  // last_state / last_ptr), f_loq / f_hiq the cycle whose lo / hi cell is
+  // viable; f_mn / f_mx each CTA's share of the shrink hull, by rank, and
+  // sp_mn / sp_mx this CTA's partial hull
   extern __shared__ int registry[];
   int* bnd_lo = registry + (size_t)g * 2 * RH;
   int* bnd_hi = bnd_lo + RH;
-  __shared__ int sf_term[LPB][2], sf_zero[LPB][2], sf_loq[LPB][2],
-      sf_hiq[LPB][2], sf_mn[LPB][2], sf_mx[LPB][2];
-  int *f_term = sf_term[g], *f_zero = sf_zero[g], *f_loq = sf_loq[g],
-      *f_hiq = sf_hiq[g], *f_mn = sf_mn[g], *f_mx = sf_mx[g];
+  __shared__ int sf_term[LPB][2], sf_ls[LPB][2], sf_lp[LPB][2],
+      sf_loq[LPB][2], sf_hiq[LPB][2], sf_mn[LPB][CMAX], sf_mx[LPB][CMAX],
+      sp_mn[LPB], sp_mx[LPB];
+  int *f_term = sf_term[g], *f_ls = sf_ls[g], *f_lp = sf_lp[g],
+      *f_loq = sf_loq[g], *f_hiq = sf_hiq[g], *f_mn = sf_mn[g],
+      *f_mx = sf_mx[g];
   for (int j = tid; j < RH; j += NT) {
     bnd_lo[j] = 1;  // empty band until really recorded
     bnd_hi[j] = 0;
   }
-  if (tid < 2) {
-    f_term[tid] = f_zero[tid] = f_loq[tid] = f_hiq[tid] = 0;
-    f_mn[tid] = BIG;
-    f_mx[tid] = -BIG;
+  if (tid < 2) f_term[tid] = f_loq[tid] = f_hiq[tid] = -1;
+  if (tid == 0) {
+    bnd_lo[0] = bnd_hi[0] = 0;  // score 0: d = 0
+    sp_mn[g] = BIG;
+    sp_mx[g] = -BIG;
   }
-  if (tid == 0 && -anc >= 0 && -anc < W) {  // score-0 top: H[d=0] = -1
-    H[-anc] = -1;
-    E1[-anc] = F1[-anc] = E2[-anc] = F2[-anc] = NEG;
+  lane_sync<LPB, CL>(g);  // every CTA's flags are set before any push
+  if (rank == 0 && tid == 0 && -anc >= 0 && -anc < W) {
+    // score-0 top: H[d=0] = -1, extended (always a good diagonal)
+    const int s0 = -anc;
+    const int kn = extend(tw, qw, -1, 0, tl, ql, cpw, logc, bits, logb);
+    stv<CG>(H + s0, kn);
+    stv<CG>(E1 + s0, NEG);
+    stv<CG>(F1 + s0, NEG);
+    stv<CG>(E2 + s0, NEG);
+    stv<CG>(F2 + s0, NEG);
     if (is_p1) {  // the pointer chain's origin
-      const size_t o = poff + (size_t)(-anc);
-      H[o] = -1;
-      E1[o] = F1[o] = E2[o] = F2[o] = NEG;
+      stv<CG>(H + poff + s0, -1);
+      stv<CG>(E1 + poff + s0, NEG);
+      stv<CG>(F1 + poff + s0, NEG);
+      stv<CG>(E2 + poff + s0, NEG);
+      stv<CG>(F2 + poff + s0, NEG);
+    }
+    if (d_end == 0 && kn == tl - 1) {
+      if (is_tb) push<CL>(&f_ls[0], 0, C);
+      if (is_p1) push<CL>(&f_lp[0], -1, C);
+      push<CL>(&f_term[0], 0, C);
     }
   }
-  lane_sync<LPB>(g);
+  lane_sync<LPB, CL>(g);
 
   int t = 0, wf_lo = 0, wf_hi = 0, t_lo = 0, t_hi = 0;
   int final_s = -1, last_state = 0, last_ptr = NEG, snap_cnt = 0, sid = 0;
   bool done = false, stopped = false, ovf = false;
   long long n_iter = 0;
   while (!(done || stopped || ovf) && t < p.S_CAP - 1) {
-    const int par = t & 1;
-    if (tid == 0) {
-      bnd_lo[t % RH] = t_lo;
-      bnd_hi[t % RH] = t_hi;
-    }
-    // --- 1. extension of the top band
-    int* Ht = H + (size_t)(t % RH) * Wz;
-    {
-      const int a = max(t_lo - anc, 0), e = min(t_hi - anc, W - 1);
-      for (int s = a + tid; s <= e; s += NT) {
-        const int d = anc + s, k = Ht[s];
-        if (!(k >= -1 && d + k >= -1 && k < tl && d + k < ql)) continue;
-        const int kn = extend(tw, qw, k, d, tl, ql, cpw, logc, bits, logb);
-        Ht[s] = kn;
-        if (d == d_end && kn == tl - 1) {
-          f_term[par] = 1;
-          if (kn == k) f_zero[par] = 1;
-        }
-      }
-    }
-    lane_sync<LPB>(g);
-    if (tid == 0) {
-      const int q = par ^ 1;
-      f_term[q] = f_zero[q] = f_loq[q] = f_hiq[q] = 0;
-      f_mn[q] = BIG;
-      f_mx[q] = -BIG;
-    }
-
-    // --- 2. termination
-    const bool term = f_term[par] != 0;
-    if (is_tb && term && t > 0 && f_zero[par])
-      last_state = tb[(size_t)(t - 1) * Wz + (d_end - anc)] & 7;
+    const int par = t & 1, npar = par ^ 1;
+    // --- 1. termination at score t
+    const bool term = f_term[par] == t;
     if (term) {
       done = true;
       final_s = t;
-      if (is_p1) last_ptr = Ht[poff + (d_end - anc)];
+      if (is_tb) last_state = f_ls[par];
+      if (is_p1) last_ptr = f_lp[par];
     }
 
-    // --- 2b. pass-2 checkpoint collapse
+    // --- 2. pass-2 checkpoint collapse, growth + window-overflow check
     if (!term && sid < p.seg_cap && segs[2 * sid] == t) {
       wf_lo = wf_hi = (int)segs[2 * sid + 1];
       ++sid;
     }
-
-    // --- 3. growth + window-overflow check
     const int lo = max(wf_lo - 1, -tl), hi = min(wf_hi + 1, ql);
     const bool ovf_now = !term && (lo < anc || hi > anc + W - 1);
     ovf = ovf || ovf_now;
     bool act = !term && !ovf_now;
 
-    // --- 3b. PASS1 snapshot into row c = (t+1)/step - 1; out of rows is a
+    // --- 3. PASS1 snapshot into row c = (t+1)/step - 1; out of rows is a
     // band overflow, as in the JAX kernel
     if (is_p1 && act && (t + 1) % p.step == 0) {
       const int row = (t + 1) / p.step - 1;
@@ -262,22 +335,24 @@ __global__ void __launch_bounds__(THREADS) wavefront_kernel(Params p) {
           plane_slot(pl, RH, RE1, RE2, depth, j);
           const int sj = t - ((t - j) % depth + depth) % depth;
           if (sj < 0) continue;
-          const int a = max(bnd_lo[sj % RH] - anc, 0);
-          const int e = min(bnd_hi[sj % RH] - anc, W - 1);
+          int a, e;
+          share(max(bnd_lo[sj % RH] - anc, 0),
+                min(bnd_hi[sj % RH] - anc, W - 1), rank, C, a, e);
           int* P = H + poff + (size_t)pl * Wz;
           int* S = srow + (size_t)pl * Wz;
           for (int s = a + tid; s <= e; s += NT) {
-            S[s] = P[s];
-            P[s] = pl * W + s;
+            S[s] = ld<CG>(P + s);
+            stv<CG>(P + s, pl * W + s);
           }
         }
         ++snap_cnt;
-        lane_sync<LPB>(g);
+        lane_sync<LPB, CL>(g);
       }
     }
     if (act) {
       // --- 4. viability of the retired slice (lastv) + transition into
-      // t+1
+      // t+1 with its extension
+      const int* Ht = H + (size_t)(t % RH) * Wz;
       const int re1 = t % RE1, re2 = t % RE2;
       const int* E1t = E1 + re1 * Wz;
       const int* F1t = F1 + re1 * Wz;
@@ -306,75 +381,132 @@ __global__ void __launch_bounds__(THREADS) wavefront_kernel(Params p) {
                       mk(H, RH, ag_o2),    mk(E1, RE1, p.e1),
                       mk(F1, RE1, p.e1),   mk(E2, RE2, p.e2),
                       mk(F2, RE2, p.e2)};
-      const int a = max(min(t_lo, lo) - anc, 0);
-      const int e = min(max(t_hi, hi) - anc, W - 1);
+      int a, e;
+      share(max(min(t_lo, lo) - anc, 0), min(max(t_hi, hi) - anc, W - 1),
+            rank, C, a, e);
       for (int s = a + tid; s <= e; s += NT) {
         const int d = anc + s;
         if (d >= t_lo && d <= t_hi &&
-            (good_diag(Ht[s], d, tl, ql) || good_diag(E1t[s], d, tl, ql) ||
-             good_diag(F1t[s], d, tl, ql) || good_diag(E2t[s], d, tl, ql) ||
-             good_diag(F2t[s], d, tl, ql)))
-          lastv[s] = t + 1;
+            (good_diag(ld<CG>(Ht + s), d, tl, ql) ||
+             good_diag(ld<CG>(E1t + s), d, tl, ql) ||
+             good_diag(ld<CG>(F1t + s), d, tl, ql) ||
+             good_diag(ld<CG>(E2t + s), d, tl, ql) ||
+             good_diag(ld<CG>(F2t + s), d, tl, ql)))
+          stv<CG>(lastv + s, t + 1);
         if (d < lo || d > hi) continue;
-        const Cell c = transition<false>(S, s, anc);
-        Hn[s] = c.h;
-        E1n[s] = c.e1;
-        F1n[s] = c.f1;
-        E2n[s] = c.e2;
-        F2n[s] = c.f2;
+        const Cell c = transition<CG>(S, s, anc);
+        int h = c.h;
+        bool term1 = false, zero1 = false;
+        if (good_diag(h, d, tl, ql)) {  // the extension of score t+1
+          const int kn = extend(tw, qw, h, d, tl, ql, cpw, logc, bits, logb);
+          term1 = d == d_end && kn == tl - 1;
+          zero1 = kn == h;
+          h = kn;
+        }
+        stv<CG>(Hn + s, h);
+        stv<CG>(E1n + s, c.e1);
+        stv<CG>(F1n + s, c.f1);
+        stv<CG>(E2n + s, c.e2);
+        stv<CG>(F2n + s, c.f2);
         if (is_tb) tb[(size_t)t * Wz + s] = (unsigned char)c.tb;
+        int ptr_h = 0;
         if (is_p1) {  // copy the chosen source's pointer
-          const Cell q = pointers<false>(S, s, anc, poff, c.tb);
-          Hn[poff + s] = q.h;
-          E1n[poff + s] = q.e1;
-          F1n[poff + s] = q.f1;
-          E2n[poff + s] = q.e2;
-          F2n[poff + s] = q.f2;
+          const Cell q = pointers<CG>(S, s, anc, poff, c.tb);
+          stv<CG>(Hn + poff + s, q.h);
+          stv<CG>(E1n + poff + s, q.e1);
+          stv<CG>(F1n + poff + s, q.f1);
+          stv<CG>(E2n + poff + s, q.e2);
+          stv<CG>(F2n + poff + s, q.f2);
+          ptr_h = q.h;
+        }
+        // this CTA's copy of the flags; with C > 1 its thread 0 forwards
+        // them to the cluster below
+        if (term1) {  // score t+1 ends here: its last_state / last_ptr
+          if (is_tb) f_ls[npar] = zero1 ? (c.tb & 7) : 0;
+          if (is_p1) f_lp[npar] = ptr_h;
+          f_term[npar] = t + 1;
         }
         if (any_viable(c)) {
-          if (d == lo) f_loq[par] = 1;
-          if (d == hi) f_hiq[par] = 1;
+          if (d == lo) f_loq[par] = t;
+          if (d == hi) f_hiq[par] = t;
         }
       }
-      if (is_tb && tid == 0) {
-        bands[2 * t] = lo;
-        bands[2 * t + 1] = hi;
+      if constexpr (CL) cta_sync<LPB>(g);
+      if (tid == 0) {  // no source of this transition is score t+1-RH
+        bnd_lo[(t + 1) % RH] = lo;
+        bnd_hi[(t + 1) % RH] = hi;
+        if (is_tb && rank == 0) {
+          bands[2 * t] = lo;
+          bands[2 * t + 1] = hi;
+        }
+        if constexpr (CL) {  // the flags of the cells this CTA owns
+          const auto own = [&](int dd) {
+            return dd - anc >= a && dd - anc <= e;
+          };
+          if (own(d_end) && f_term[npar] == t + 1) {
+            if (is_tb) push<CL>(&f_ls[npar], f_ls[npar], C);
+            if (is_p1) push<CL>(&f_lp[npar], f_lp[npar], C);
+            push<CL>(&f_term[npar], t + 1, C);
+          }
+          if (own(lo) && f_loq[par] == t) push<CL>(&f_loq[par], t, C);
+          if (own(hi) && f_hiq[par] == t) push<CL>(&f_hiq[par], t, C);
+        }
       }
-      lane_sync<LPB>(g);
-      if (f_loq[par]) wf_lo = lo;  // boundary commit (miniwfa.c:325-326)
-      if (f_hiq[par]) wf_hi = hi;
+      lane_sync<LPB, CL>(g);
+      if (f_loq[par] == t) wf_lo = lo;  // boundary commit (miniwfa.c:325-326)
+      if (f_hiq[par] == t) wf_hi = hi;
       t_lo = lo;
       t_hi = hi;
 
       // --- 5. shrink every 256 cycles (miniwfa.c:420)
       if (((t + 1) & 0xFF) == 0) {
         const int vfloor = viable_floor(t, NS);
-        const int sa = max(wf_lo - anc, 0), se = min(wf_hi - anc, W - 1);
+        int sa, se, mn = BIG, mx = -BIG;
+        share(max(wf_lo - anc, 0), min(wf_hi - anc, W - 1), rank, C, sa, se);
         for (int s = sa + tid; s <= se; s += NT) {
           const int d = anc + s;
           const bool top = d >= lo && d <= hi &&
-                           (Hn[s] >= -1 || E1n[s] >= -1 || F1n[s] >= -1 ||
-                            E2n[s] >= -1 || F2n[s] >= -1);
-          if (top || lastv[s] >= vfloor) {
-            atomicMin(&f_mn[par], d);
-            atomicMax(&f_mx[par], d);
+                           (ld<CG>(Hn + s) >= -1 || ld<CG>(E1n + s) >= -1 ||
+                            ld<CG>(F1n + s) >= -1 || ld<CG>(E2n + s) >= -1 ||
+                            ld<CG>(F2n + s) >= -1);
+          if (top || ld<CG>(lastv + s) >= vfloor) {
+            mn = min(mn, d);
+            mx = max(mx, d);
           }
         }
-        lane_sync<LPB>(g);
-        if (f_mx[par] >= f_mn[par]) {
-          wf_lo = f_mn[par];
-          wf_hi = f_mx[par];
+        if (mn <= mx) {
+          atomicMin(&sp_mn[g], mn);
+          atomicMax(&sp_mx[g], mx);
+        }
+        cta_sync<LPB>(g);
+        if (tid == 0) {  // this CTA's share, into slot `rank` everywhere
+          push<CL>(&f_mn[rank], sp_mn[g], C);
+          push<CL>(&f_mx[rank], sp_mx[g], C);
+          sp_mn[g] = BIG;
+          sp_mx[g] = -BIG;
+        }
+        lane_sync<LPB, CL>(g);
+        mn = BIG;
+        mx = -BIG;
+        for (int r = 0; r < C; ++r) {
+          mn = min(mn, f_mn[r]);
+          mx = max(mx, f_mx[r]);
+        }
+        if (mx >= mn) {
+          wf_lo = mn;
+          wf_hi = mx;
         }
       }
 
       // --- 6. accounting + early stop (miniwfa.c:421-425)
       n_iter += hi - lo + 1;
+      const long long max_s = ln[L_MS], max_iter = ln[L_MI];
       stopped = (max_iter > 0 && n_iter > max_iter) ||
                 (max_s > 0 && t + 1 > max_s);
     }
     ++t;
   }
-  if (tid == 0) {
+  if (rank == 0 && tid == 0) {
     long long* o = p.out + (size_t)b * O_N;
     o[O_S] = final_s;
     o[O_DONE] = done;
@@ -386,25 +518,78 @@ __global__ void __launch_bounds__(THREADS) wavefront_kernel(Params p) {
     o[O_LP] = last_ptr;
     o[O_SNC] = snap_cnt;
   }
+  // no CTA leaves while another of its cluster may still reach its shared
+  // memory
+  if constexpr (CL) cg::this_cluster().sync();
 }
 
-// Launch in p.mode with LPB lanes per block (PASS1 only in K1).
+// K1's kernel in `mode`, with (CL) or without cluster barriers.
+template <bool CL>
+const void* k1_fn(int mode) {
+  if (mode == MODE_TB) return (const void*)wavefront_kernel<MODE_TB, 1, CL>;
+  if (mode == MODE_PASS1)
+    return (const void*)wavefront_kernel<MODE_PASS1, 1, CL>;
+  return (const void*)wavefront_kernel<MODE_SCORE, 1, CL>;
+}
+
+int reg_rh(const Params& p) {
+  return max(p.x, max(p.o1 + p.e1, p.o2 + p.e2)) + 1;
+}
+
+// The cluster kernel of `mode` set up for clusters of C CTAs (16 is a
+// non-portable size) with a registry of RH scores (*smem bytes).
+cudaError_t cluster_setup(int mode, int C, int RH, const void** fn,
+                          int* smem) {
+  *fn = k1_fn<true>(mode);
+  cudaError_t err = registry_smem(*fn, 1, RH, smem);
+  if (err == cudaSuccess && C > 8)
+    err = cudaFuncSetAttribute(
+        *fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return err;
+}
+
+void cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
+                    int blocks, int C, int smem, cudaStream_t st) {
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(blocks);
+  cfg->blockDim = dim3(THREADS);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+}
+
+// Launch in p.mode with LPB lanes per block (PASS1 only in K1) and, in K1,
+// p.C CTAs per lane; a refused launch returns its error.
 template <int LPB>
 int launch(const Params& p, cudaStream_t st) {
-  const void* fn = (const void*)wavefront_kernel<MODE_SCORE, LPB>;
-  if (p.mode == MODE_TB) fn = (const void*)wavefront_kernel<MODE_TB, LPB>;
-  if constexpr (LPB == 1) {
-    if (p.mode == MODE_PASS1)
-      fn = (const void*)wavefront_kernel<MODE_PASS1, 1>;
-  }
-  const int RH = max(p.x, max(p.o1 + p.e1, p.o2 + p.e2)) + 1;
-  int smem;
-  cudaError_t err = registry_smem(fn, LPB, RH, &smem);
-  if (err != cudaSuccess) return (int)err;
+  const int RH = reg_rh(p);
   Params q = p;
   void* args[] = {&q};
-  err = cudaLaunchKernel(fn, dim3((p.B + LPB - 1) / LPB), dim3(THREADS), args,
-                         smem, st);
+  int smem;
+  cudaError_t err;
+  if (LPB == 1 && p.C > 1) {
+    const void* fn;
+    err = cluster_setup(p.mode, p.C, RH, &fn, &smem);
+    if (err != cudaSuccess) return (int)err;
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    cluster_config(&cfg, &attr, p.B * p.C, p.C, smem, st);
+    err = cudaLaunchKernelExC(&cfg, fn, args);
+  } else {
+    const void* fn = (const void*)wavefront_kernel<MODE_SCORE, LPB, false>;
+    if (p.mode == MODE_TB)
+      fn = (const void*)wavefront_kernel<MODE_TB, LPB, false>;
+    if constexpr (LPB == 1) fn = k1_fn<false>(p.mode);
+    err = registry_smem(fn, LPB, RH, &smem);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaLaunchKernel(fn, dim3((p.B + LPB - 1) / LPB), dim3(THREADS),
+                           args, smem, st);
+  }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -417,10 +602,34 @@ extern "C" int mwf_wavefront(const long long* lanes, const unsigned* tw,
                              const long long* segs, int seg_cap, int* snap,
                              int B, int W, int S_CAP, int mode, int cpw,
                              int x, int o1, int e1, int o2, int e2, int step,
-                             int n_snap, void* stream) {
+                             int n_snap, int C, void* stream) {
+  if (C < 1 || C > CMAX || (C & (C - 1)))
+    return (int)cudaErrorInvalidValue;
   Params p{lanes, tw, qw, nw, planes, out, tb, bands, segs, seg_cap, snap,
-           B, W, S_CAP, mode, cpw, x, o1, e1, o2, e2, step, n_snap};
+           B, W, S_CAP, mode, cpw, x, o1, e1, o2, e2, step, n_snap, C};
   return launch<1>(p, (cudaStream_t)stream);
+}
+
+// How many clusters of C > 1 CTAs of K1 in `mode` (with x..e2's band
+// registry in dynamic shared memory) the card holds at once, into *count.
+extern "C" int mwf_wavefront_clusters(int mode, int C, int x, int o1, int e1,
+                                      int o2, int e2, int* count) {
+  if (C < 2 || C > CMAX || (C & (C - 1)))
+    return (int)cudaErrorInvalidValue;
+  Params p{};
+  p.x = x;
+  p.o1 = o1;
+  p.e1 = e1;
+  p.o2 = o2;
+  p.e2 = e2;
+  const void* fn;
+  int smem;
+  cudaError_t err = cluster_setup(mode, C, reg_rh(p), &fn, &smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cluster_config(&cfg, &attr, C, C, smem, nullptr);
+  return (int)cudaOccupancyMaxActiveClusters(count, fn, &cfg);
 }
 
 // K4: G in {2, 4, 8} lanes per block, SCORE and TB (with or without
@@ -435,7 +644,7 @@ extern "C" int mwf_wavefront_multi(const long long* lanes, const unsigned* tw,
                                    int G, void* stream) {
   if (mode != MODE_SCORE && mode != MODE_TB) return (int)cudaErrorInvalidValue;
   Params p{lanes, tw, qw, nw, planes, out, tb, bands, segs, seg_cap, nullptr,
-           B, W, S_CAP, mode, cpw, x, o1, e1, o2, e2, 0, 0};
+           B, W, S_CAP, mode, cpw, x, o1, e1, o2, e2, 0, 0, 1};
   cudaStream_t st = (cudaStream_t)stream;
   switch (G) {
     case 2: return launch<2>(p, st);

@@ -1,14 +1,14 @@
-// Device code shared by the wavefront kernels: K1 (wavefront.cu, one block
-// per lane) and the wide kernel (wavefront_wide.cu, one lane over the whole
-// card).  Both run the same cycle (see the notes in wavefront.cu); what they
-// share here is the per-diagonal work: the extension probe, the good-diagonal
-// test, the band-masked source read, the 5-state transition of one cell with
-// its tb bits, the PASS1 pointer choice, and the snapshot plane -> ring slot
-// map.  The load policy is a template flag: K1 reads its planes with plain
-// loads (one block owns a lane, so __syncthreads orders every access), the
-// wide kernel with ld.global.cg, which skips the SM's L1: another SM may
-// have written the line in the same launch, and L1 is not coherent across
-// SMs.
+// Device code shared by the wavefront kernels: K1 (wavefront.cu, one
+// cluster of blocks per lane) and the wide kernel (wavefront_wide.cu, one
+// lane over the whole card).  Both run the same recurrence (see the notes in
+// wavefront.cu); what they share here is the per-diagonal work: the
+// extension probe, the good-diagonal test, the band-masked source read, the
+// 5-state transition of one cell with its tb bits, the PASS1 pointer choice,
+// and the snapshot plane -> ring slot map.  The load policy is a template
+// flag: K1 at one block per lane (and K4) reads its planes with plain loads
+// (__syncthreads orders every access), K1's clusters and the wide kernel
+// with ld.global.cg, which skips the SM's L1: another SM may have written
+// the line in the same launch, and L1 is not coherent across SMs.
 
 #pragma once
 

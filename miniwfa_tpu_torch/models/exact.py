@@ -15,14 +15,14 @@ each checkpoint score, so its traceback table needs a band of about
 
 Host work (cheap, O(n+s) per pair): sequence packing, capacity bucket
 selection with escalate-and-retry on overflow, checkpoint decoding.
-Device work: the whole wavefront loop of a batch
-(ops/wavefront_kernel.py, one block per lane, or with ``MWF_ENGINE=multi``
-several lanes per block, ops/wavefront_multi.py; past its windows, score
-and pass-1 runs go to the wide engine, ops/wavefront_wide.py, one lane over
-the whole card), the checkpoint chain and, in CIGAR mode, the traceback walk
+Device work: the whole wavefront loop of a batch (ops/wavefront_kernel.py, one
+cluster of blocks per lane, or with ``MWF_ENGINE=multi`` several lanes per
+block, ops/wavefront_multi.py; past its windows, score and pass-1 runs go to
+the wide engine, ops/wavefront_wide.py, one lane over the whole card), the
+checkpoint chain and, in CIGAR mode, the traceback walk
 (ops/traceback_device.py), all on the ``device`` the caller names: a CUDA
-device launches the hand-written kernels, the CPU runs their plain
-PyTorch versions.
+device launches the hand-written kernels, the CPU runs their plain PyTorch
+versions.
 
 Lanes that outgrow the band window (W) or the cycle budget (S_CAP) re-run
 in an escalated bucket; every lane's result is independent of the others
@@ -51,7 +51,7 @@ from . import traceback as tbk
 MODE_SCORE, MODE_TB, MODE_PASS1 = wk.MODE_SCORE, wk.MODE_TB, wk.MODE_PASS1
 Seg = List[Tuple[int, int]]   # (score, diagonal) checkpoints of one pair
 
-# band windows: K1 (one block per lane) serves score runs up to
+# band windows: K1 (one cluster per lane) serves score runs up to
 # WIDE_SCORE_W_MIN diagonals and pass-1 runs up to WIDE_PASS1_W_MIN; wider
 # ones go to the wide engine (the whole card per lane) up to WIDE_W_CAP
 # (models/exact.py:166-194 of the JAX package).  CIGAR mode stays in K1 up

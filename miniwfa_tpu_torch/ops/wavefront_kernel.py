@@ -12,8 +12,10 @@ implementations of one algorithm:
   ``run_cycles``, runs from a ``PlainState`` to a cycle limit over planes
   in the kernels' layout (``new_planes``), so the wide engine's plain
   version (ops/wavefront_wide.py) resumes it across calls.
-* ``csrc/wavefront.cu`` — the hand-written Hopper kernel, one thread
-  block per lane, one instantiation per mode.
+* ``csrc/wavefront.cu`` — the hand-written Hopper kernel, one
+  thread-block cluster of C CTAs per lane (C from ``pick_cluster``, the
+  largest whose clusters all fit on the card at once), one instantiation
+  per mode.
 
 ``wavefront`` dispatches on the device of its inputs: CPU tensors run the
 plain version, CUDA tensors launch the kernel (or raise).
@@ -593,18 +595,69 @@ def launch_mode(spec: KSpec, segs) -> str:
     return name + "+seg" if segs is not None and segs.shape[1] else name
 
 
+CLUSTERS = (16, 8, 4, 2)   # CTAs per lane K1 is launched at, largest first
+
+
+def pick_cluster(B: int, counts) -> int:
+    """CTAs per lane for a K1 launch of B lanes: the largest C of CLUSTERS
+    whose count of co-resident clusters (``counts[C]``, from
+    ``cluster_counts``) is at least B, so every lane starts at once; else 1
+    (one block per lane, as many lanes as the card takes, the rest
+    queued)."""
+    for C in CLUSTERS:
+        if counts.get(C, 0) >= B:
+            return C
+    return 1
+
+
+_COUNTS = {}
+
+
+def cluster_counts(spec: KSpec, device) -> dict:
+    """How many clusters of C CTAs of K1 in ``spec.mode`` the card of
+    ``device`` holds at once, for C in CLUSTERS, from the CUDA occupancy
+    calculator; cached per card, mode and penalties (the registry's shared
+    memory)."""
+    device = torch.device(device)
+    pens = (spec.x, spec.o1, spec.e1, spec.o2, spec.e2)
+    key = (device.index, spec.mode, pens)
+    if key not in _COUNTS:
+        fn = build.load("wavefront", "mwf_wavefront_clusters",
+                        [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        counts = {}
+        with torch.cuda.device(device):
+            for C in CLUSTERS:
+                n = ctypes.c_int(0)
+                rc = fn(spec.mode, C, *pens, ctypes.byref(n))
+                if rc:
+                    raise RuntimeError(
+                        f"wavefront cluster occupancy query failed (C={C}): "
+                        f"CUDA error {rc}")
+                counts[C] = n.value
+        _COUNTS[key] = counts
+    return _COUNTS[key]
+
+
 def launch(spec: KSpec, lanes: torch.Tensor, tw: torch.Tensor,
-           qw: torch.Tensor, segs: Optional[torch.Tensor], G: int = 1):
+           qw: torch.Tensor, segs: Optional[torch.Tensor], G: int = 1,
+           C: int = 1):
     """Launch ``csrc/wavefront.cu`` on CUDA inputs (checked by the
-    caller): K1 (``mwf_wavefront``, one block per lane) when G is 1, else
-    K4 (``mwf_wavefront_multi``, G lanes per block); outputs as
-    ``wavefront_plain``.  Counts nothing: each wrapper counts its own."""
+    caller): K1 (``mwf_wavefront``) at C CTAs per lane (a cluster; one
+    block at C = 1) when G is 1, else K4 (``mwf_wavefront_multi``, G lanes
+    per block, C = 1); outputs as ``wavefront_plain``.  A launch the card
+    refuses raises, with C in the message.  Counts nothing: each wrapper
+    counts its own."""
+    if C not in (1,) + CLUSTERS:
+        raise ValueError(f"C must be one of {(1,) + CLUSTERS}, got {C}")
+    if G != 1 and C != 1:
+        raise ValueError(f"the multi-lane kernel runs at C = 1, got G={G} "
+                         f"C={C}")
     if G == 1:
         fn = build.load("wavefront", "mwf_wavefront",
                         [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
                         + [ctypes.c_void_p] * 4
                         + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-                        + [ctypes.c_int] * 12 + [ctypes.c_void_p])
+                        + [ctypes.c_int] * 13 + [ctypes.c_void_p])
     else:
         fn = build.load("wavefront", "mwf_wavefront_multi",
                         [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
@@ -641,13 +694,13 @@ def launch(spec: KSpec, lanes: torch.Tensor, tw: torch.Tensor,
         if G == 1:
             rc = fn(*ptrs, snap.data_ptr() if snap is not None else None,
                     B, W, spec.S_CAP, spec.mode, spec.cpw, *pens,
-                    spec.step, spec.n_snap, stream)
+                    spec.step, spec.n_snap, C, stream)
         else:
             rc = fn(*ptrs, B, W, spec.S_CAP, spec.mode, spec.cpw, *pens, G,
                     stream)
     if rc:
-        raise RuntimeError(f"wavefront kernel launch failed (G={G}): CUDA "
-                           f"error {rc}")
+        raise RuntimeError(f"wavefront kernel launch failed (G={G}, C={C}): "
+                           f"CUDA error {rc}")
     return out, tb, bands, snap
 
 
@@ -655,19 +708,27 @@ def wavefront(spec: KSpec, lanes: torch.Tensor, tw: torch.Tensor,
               qw: torch.Tensor, segs: Optional[torch.Tensor] = None):
     """Run the wavefront loop for every lane; outputs as
     ``wavefront_plain``.  CPU tensors take the plain version; CUDA tensors
-    launch ``csrc/wavefront.cu`` and count the launch in
-    ``wavefront.launches`` and, by mode, ``wavefront.launches_by_mode``."""
+    launch ``csrc/wavefront.cu`` at ``pick_cluster``'s C CTAs per lane and
+    count the launch in ``wavefront.launches`` and, by mode,
+    ``wavefront.launches_by_mode``; ``wavefront.clusters`` keeps, by mode,
+    the last launch's C and the card's count of co-resident clusters at
+    that C (None at C = 1)."""
     _check_spec(spec)
     _check_inputs(spec, lanes, tw, qw, segs)
     if lanes.device.type == "cpu":
         return wavefront_plain(spec, lanes, tw, qw, segs)
     if lanes.device.type != "cuda":
         raise ValueError(f"unsupported device {lanes.device}")
-    res = launch(spec, lanes, tw, qw, segs)
+    counts = cluster_counts(spec, lanes.device)
+    C = pick_cluster(lanes.shape[0], counts)
+    res = launch(spec, lanes, tw, qw, segs, C=C)
+    mode = launch_mode(spec, segs)
     wavefront.launches += 1
-    wavefront.launches_by_mode[launch_mode(spec, segs)] += 1
+    wavefront.launches_by_mode[mode] += 1
+    wavefront.clusters[mode] = {"C": C, "clusters": counts.get(C)}
     return res
 
 
 wavefront.launches = 0
 wavefront.launches_by_mode = collections.Counter()
+wavefront.clusters = {}

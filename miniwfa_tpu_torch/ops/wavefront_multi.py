@@ -16,10 +16,11 @@ on K1, as in the JAX package.  Two implementations:
 ``wavefront_multi`` dispatches on the device of its inputs: CPU tensors run
 the plain version, CUDA tensors launch the kernel (or raise).
 
-On the card K1 runs one 512-thread block per lane, so a batch of fewer
-lanes than SMs gains nothing from packing; ``pick_g`` packs only batches
-with at least one block of G lanes per SM (the chain's K1 gap fills, in
-chunks of 2048).  The route is opt-in (``MWF_ENGINE=multi``,
+On the card K1 spreads a lane over a cluster of 512-thread blocks (one
+block per lane past the card's co-resident clusters), so a batch of
+fewer lanes than SMs gains nothing from packing; ``pick_g`` packs only
+batches with at least one block of G lanes per SM (the chain's K1 gap
+fills, in chunks of 2048).  The route is opt-in (``MWF_ENGINE=multi``,
 models/exact.py), as in the JAX package.
 """
 

@@ -357,3 +357,164 @@ def test_probe_wrappers_raise_past_their_shapes(dev):
         pb.bench_hbm_row_write(x, 4, 3)      # W % 4 != 0
     with pytest.raises(ValueError):
         pb.chunk(184, 10, 2, 16, True, device=dev)   # CR % 4 != 0
+
+
+# K1 at every cluster size: CTAs per lane, 16 where the card holds one
+# cluster of 16 (a non-portable size)
+K1_CS = (1, 2, 4, 8, 16)
+SHRINK_PAIR, SHRINK_PENS = (b"A" * 63, b"C" * 64), \
+    dict(x=8, o1=8, e1=4, o2=20, e2=2)
+
+
+def _k1_at_every_c(spec, args, segs=None):
+    """K1 at every C of K1_CS against the plain version on the same
+    inputs: every output, traceback byte, band row and snapshot entry.
+    Returns the plain outputs."""
+    want = wk.wavefront_plain(spec, *args, segs)
+    counts = wk.cluster_counts(spec, args[0].device)
+    for C in K1_CS:
+        if C == 16 and counts[16] < 1:
+            continue
+        got = wk.launch(spec, *args, segs, C=C)
+        for g, w in zip(got, want):
+            assert (g is None and w is None) or torch.equal(g, w), C
+    return want
+
+
+def _bench8k():
+    from chip_smoke import make_pairs
+    pairs = make_pairs(8000, 64)[:8]
+    return [t.encode() for t, _ in pairs], [q.encode() for _, q in pairs]
+
+
+def _k1_modes_at_every_c(ts, qs, dev, opt, step, shape=None):
+    """SCORE, TB, PASS1 at ``step`` and TB with the decoded checkpoints of
+    that whole pass 1, each at ``shape`` (W, S_CAP) or else at its first
+    dispatch shape, at every C.  Returns the plain outputs by mode."""
+    def inputs(o, mode, bk):
+        W, S_CAP = shape or (bk.W, bk.S_CAP)
+        spec, lanes, tw, qw = exact.kernel_inputs(o, mode, W, S_CAP, ts, qs)
+        return spec, lanes, [torch.from_numpy(a).to(dev)
+                             for a in (lanes, tw, qw)]
+
+    outs = {}
+    for mode in (wk.MODE_SCORE, wk.MODE_TB):
+        o = opt.replace(cigar=mode == wk.MODE_TB)
+        bk, _ = exact.first_bucket(o, mode, ts, qs, 512, 512, dev)
+        spec, _, args = inputs(o, mode, bk)
+        outs[mode] = _k1_at_every_c(spec, args)[0]
+    o = opt.replace(cigar=True, step=step)
+    bk, _ = exact.first_bucket(o, wk.MODE_PASS1, ts, qs, 512, 512, dev)
+    spec, lanes, args = inputs(o, wk.MODE_PASS1, bk)
+    out, _, _, snap = _k1_at_every_c(spec, args)
+    assert int(out[:, wk.O_DONE].sum()) == len(ts)
+    fin, recs = tbd.chain_ptrs(snap, out[:, wk.O_LP], out[:, wk.O_SNC])
+    o1 = out.cpu().numpy()
+    segs = [tbk.decode_checkpoints_ptrs(recs[:, j], int(fin[j]),
+                                        int(lanes[j, wk.L_ANC]),
+                                        int(o1[j, wk.O_SNC]), spec)
+            for j in range(len(ts))]
+    bk, _ = exact.pass2_bucket(o, [int(v) for v in o1[:, wk.O_S]], ts, qs,
+                               512, 512, dev)
+    tspec, _, args = inputs(o, wk.MODE_TB, bk)
+    sg = torch.from_numpy(exact.seg_input(segs)).to(dev)
+    outs["TB+seg"] = _k1_at_every_c(tspec, args, sg)[0]
+    return outs
+
+
+def test_k1_clusters_match_plain_on_goldens(goldens, dev):
+    ts, qs = _golden_pairs(goldens)
+    outs = _k1_modes_at_every_c(ts, qs, dev, Options(), 16, (8192, 2048))
+    assert [int(v) for v in outs[wk.MODE_SCORE][:, wk.O_S]] == \
+        [e["s"] for e in goldens["runs"]["score"]]
+    assert [int(v) for v in outs["TB+seg"][:, wk.O_S]] == \
+        [e["s"] for e in goldens["runs"]["lowmem_p16"]]
+
+
+def test_k1_clusters_match_plain_on_bench8k(dev):
+    ts, qs = _bench8k()
+    outs = _k1_modes_at_every_c(ts, qs, dev, Options(), 200)
+    assert int(outs[wk.MODE_TB][:, wk.O_DONE].sum()) == len(ts)
+
+
+@pytest.mark.parametrize("o2", [40, 100])
+def test_k1_clusters_match_plain_on_t3_large_gap_open(goldens, dev, o2):
+    case = next(c for c in goldens["cases"] if c["name"] == "t3")
+    ts, qs = [case["t"].encode("latin1")], [case["q"].encode("latin1")]
+    outs = _k1_modes_at_every_c(ts, qs, dev, Options(o2=o2, e2=1), 16,
+                                (8192, 2048))
+    assert int(outs[wk.MODE_SCORE][0, wk.O_S]) == {40: 180, 100: 240}[o2]
+
+
+@pytest.mark.parametrize("mode", [wk.MODE_SCORE, wk.MODE_TB])
+def test_k1_clusters_shrink_pair(dev, mode):
+    """ROADMAP's shrink pair past the 256-cycle shrink: s=294 and
+    n_iter=27254 at every C, as the plain version."""
+    opt = Options(cigar=mode == wk.MODE_TB, **SHRINK_PENS)
+    spec, lanes, tw, qw = exact.kernel_inputs(opt, mode, 1024, 1024,
+                                              [SHRINK_PAIR[0]] * 3,
+                                              [SHRINK_PAIR[1]] * 3)
+    args = [torch.from_numpy(a).to(dev) for a in (lanes, tw, qw)]
+    out = _k1_at_every_c(spec, args)[0]
+    assert out[:, wk.O_S].tolist() == [294] * 3
+    assert out[:, wk.O_NITER].tolist() == [27254] * 3
+
+
+@pytest.mark.parametrize("mode", [wk.MODE_SCORE, wk.MODE_TB, wk.MODE_PASS1])
+def test_k1_clusters_empty_pairs(dev, mode):
+    """Empty sequences beside short ones: termination at score 0 (with
+    PASS1's origin pointer) and overflow-free ends at every C."""
+    ts = [b"", b"", b"AAAA", b"ACGT", b"A"]
+    qs = [b"", b"ACG", b"", b"ACGT", b"G"]
+    opt = Options(cigar=mode != wk.MODE_SCORE,
+                  step=4 if mode == wk.MODE_PASS1 else 0)
+    spec, lanes, tw, qw = exact.kernel_inputs(opt, mode, 512, 256, ts, qs)
+    args = [torch.from_numpy(a).to(dev) for a in (lanes, tw, qw)]
+    out = _k1_at_every_c(spec, args)[0]
+    assert int(out[:, wk.O_DONE].sum()) == len(ts)
+    assert int(out[0, wk.O_S]) == 0
+
+
+def test_k1_clusters_pass1_out_of_snapshot_rows(goldens, dev):
+    """PASS1 with 2 snapshot rows at step 16: every lane past score 47
+    stops as a band overflow (O_OVFB), at every C as in the plain
+    version."""
+    import dataclasses
+    ts, qs = _golden_pairs(goldens)
+    spec, lanes, tw, qw = exact.kernel_inputs(
+        Options(cigar=True, step=16), wk.MODE_PASS1, 8192, 2048, ts, qs)
+    spec = dataclasses.replace(spec, n_snap=2)
+    args = [torch.from_numpy(a).to(dev) for a in (lanes, tw, qw)]
+    out = _k1_at_every_c(spec, args)[0]
+    ovf = out[:, wk.O_OVFB] == 1
+    assert bool(ovf.any()) and bool((out[ovf, wk.O_SNC] == 2).all())
+
+
+@pytest.mark.parametrize("run", ["score", "cigar"])
+def test_multi_kernel_g4_matches_k1_clusters(dev, run):
+    """K4 at G=4 against K1 at its picked C and at C = 1 on the 8 kb
+    pairs: every output, traceback byte and band row."""
+    ts, qs = _bench8k()
+    opt = Options(cigar=run == "cigar")
+    mode = wk.MODE_TB if opt.cigar else wk.MODE_SCORE
+    bk, _ = exact.first_bucket(opt, mode, ts, qs, 512, 512, dev)
+    spec, lanes, tw, qw = exact.kernel_inputs(opt, mode, bk.W, bk.S_CAP,
+                                              ts, qs)
+    args = [torch.from_numpy(a).to(dev) for a in (lanes, tw, qw)]
+    got = wm.wavefront_multi(spec, 4, *args)
+    picked = wk.wavefront(spec, *args)
+    assert wk.wavefront.clusters[wk.launch_mode(spec, None)]["C"] > 1
+    _equal(got, picked)
+    _equal(got, wk.launch(spec, *args, None, C=1))
+
+
+def test_k1_cluster_launch_refused_raises(dev):
+    """A cluster size the wrapper does not take raises before any launch;
+    the card's counts are positive at every cluster size but 16."""
+    spec = wk.KSpec(W=512, S_CAP=64, x=4, o1=4, e1=2, o2=15, e2=1)
+    counts = wk.cluster_counts(spec, dev)
+    assert all(counts[C] > 0 for C in (2, 4, 8))
+    lanes = torch.zeros((1, wk.L_N), dtype=torch.int64, device=dev)
+    w = torch.zeros((1, 4), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        wk.launch(spec, lanes, w, w, None, C=32)
