@@ -27,7 +27,8 @@
    state row, the planes and the snapshot rows) and in calls of 77 cycles
    a lane (every output and the snapshot rows);
 3. holds the CIGAR walker (W1) against its plain version on phase 2's
-   traceback outputs, K1's and K3's: identical run lists;
+   traceback outputs, K1's and K3's: identical run lists; and the
+   checkpoint chain (W2) against its plain version on K1's snapshots;
 4. drives the main path, ``align_batch`` on 16 pairs of 100 kb at 2% divergence
    in score, CIGAR and low-mem (step 5000) modes, checks every score and CIGAR
    digest against tests/data/bench_goldens.json, that each CIGAR re-scores and
@@ -44,15 +45,21 @@
    wide path: ``align_batch`` in score mode on dissim150k, nbear1m and sv300k
    and in low-mem mode (step 5000) on those and div5m, against
    scale_goldens.json, each run with its wall, peak memory, wide calls and
-   kernel time, and pass 1's wall apart from pass 2's;
+   kernel time, and pass 1's wall apart from pass 2's with W1's kernel
+   time in pass 2 (CUDA events around every walk call, as around every
+   wide call); div5m auto's wall split also carries W1's kernel time;
 5. times each K1 mode, W1 and the checkpoint chain (W2) at the main
    path's first dispatch shape of that mode (CUDA events); holds each K1
    mode against its plain version at that shape with every lane stopped
    past score MAIN_CUT (a whole run of the plain K1 there takes minutes),
-   and W1 against walk_plain on the whole traceback; times the plain
-   versions, with the kernels beside them and held equal, at the 8 kb
-   benchmark shape; K3 SCORE and TB and the walker on K3's traceback
-   against their plain versions at div5m auto's first K3 dispatch;
+   W1 in each variant against walk_plain on the whole CIGAR and low-mem
+   pass-2 tracebacks (with its time a step of the longest lane's walk:
+   DP steps plus match words), and W2 against its plain version (the
+   torch.gather chain, timed beside it as its library yardstick); times
+   the plain versions, with the kernels beside them and held equal, at
+   the 8 kb benchmark shape; K3 SCORE and TB and W1 in each variant on
+   K3's traceback against their plain versions at div5m auto's first K3
+   dispatch;
    nbear1m's score run in K1 (one cluster) and in the wide kernel (the whole
    card) at the same window, held equal; the wide kernel against
    wide_plain at the specs of phase 4d's nbear1m score and div5m pass 1
@@ -72,7 +79,10 @@ kb shape), beside the kernel's own time there, ``plain_shape_kernel_ms``;
 ``modes`` holds every mode's launches in the main path's runs, its
 times and (K1) its C and co-resident cluster count, the wide entry's
 PASS1 those of div5m's pass 1, summed over its calls; ``launches``
-sums the main path's runs, phase 4) and, last, a JSON line with
+sums phase 4's runs, ``main_launches`` (W1, W2) the main path's alone;
+the walk entry also carries the variant each shape picked and each
+variant's time, and the chain_ptrs entry's ``library_ms`` is the
+torch.gather chain at the main shape) and, last, a JSON line with
 ``"ok": true`` and the device.  Exits non-zero without a CUDA device,
 outside a checkout of the repository, or if any check fails.
 
@@ -232,6 +242,8 @@ def _reset_counts():
     ww.wide.launches = 0
     ww.wide.launches_by_mode.clear()
     tbd.walk.launches = 0
+    tbd.walk.launches_by_variant.clear()
+    tbd.chain_ptrs.launches = 0
     wg.gaps.launches = 0
 
 
@@ -242,6 +254,8 @@ def _read_counts() -> dict:
     from miniwfa_tpu_torch.ops import wavefront_multi as wm
     from miniwfa_tpu_torch.ops import wavefront_wide as ww
     return {"wavefront": wk.wavefront.launches, "walk": tbd.walk.launches,
+            "walk_variants": dict(tbd.walk.launches_by_variant),
+            "chain_ptrs": tbd.chain_ptrs.launches,
             "gaps": wg.gaps.launches,
             "modes": dict(wk.wavefront.launches_by_mode),
             "clusters": dict(wk.wavefront.clusters),
@@ -335,7 +349,7 @@ class Smoke:
     def __init__(self, dev):
         self.dev = dev
         self.failures = []
-        self.err = {"wavefront": 0, "walk": 0, "gaps": 0,
+        self.err = {"wavefront": 0, "walk": 0, "gaps": 0, "chain_ptrs": 0,
                     "wavefront_wide": 0, "wavefront_multi": 0, "probes": 0}
 
     def check(self, cond: bool, what: str) -> None:
@@ -429,25 +443,34 @@ class Smoke:
         return want, dict(ms=ms, plain_ms=plain_ms)
 
     def checkpoints(self, label, spec, lanes, got, want):
-        """The checkpoint chain (W2) over the kernel's and the plain
-        version's snapshot buffers: identical pointers; returns the
-        kernel's decoded checkpoint lists."""
+        """The checkpoint chain: the W2 kernel over K1's snapshot buffer
+        against chain_ptrs_plain over the same buffer and over the plain
+        version's: identical pointers; returns the kernel's decoded
+        checkpoint lists."""
         from miniwfa_tpu_torch.models import traceback as tbk
         from miniwfa_tpu_torch.ops import traceback_device as tbd
         from miniwfa_tpu_torch.ops import wavefront_kernel as wk
+
+        def err(a, b):
+            return int(max(abs(a[0] - b[0]).max(initial=0),
+                           abs(a[1] - b[1]).max(initial=0)))
+
         o = got[0]
         fin, recs = tbd.chain_ptrs(got[3], o[:, wk.O_LP], o[:, wk.O_SNC])
-        pfin, precs = tbd.chain_ptrs(want[3], want[0][:, wk.O_LP],
-                                     want[0][:, wk.O_SNC])
-        err = int(max(abs(fin - pfin).max(initial=0),
-                      abs(recs - precs).max(initial=0)))
-        self.err["wavefront"] = max(self.err["wavefront"], err)
+        e_w2 = err((fin, recs), tbd.chain_ptrs_plain(
+            got[3], o[:, wk.O_LP], o[:, wk.O_SNC]))
+        e_k1 = err((fin, recs), tbd.chain_ptrs_plain(
+            want[3], want[0][:, wk.O_LP], want[0][:, wk.O_SNC]))
+        self.err["chain_ptrs"] = max(self.err["chain_ptrs"], e_w2)
+        self.err["wavefront"] = max(self.err["wavefront"], e_k1)
         o = o.cpu().numpy()
         segs = [tbk.decode_checkpoints_ptrs(
             recs[:, j], int(fin[j]), int(lanes[j, wk.L_ANC]),
             int(o[j, wk.O_SNC]), spec) for j in range(len(lanes))]
-        self.check(err == 0, f"W2 {label}: {sum(map(len, segs))} checkpoints "
-                   f"decoded, chain pointers max_abs_err={err}")
+        self.check(e_w2 == 0 and e_k1 == 0, f"W2 {label}: "
+                   f"{sum(map(len, segs))} checkpoints decoded, chain "
+                   f"pointers max_abs_err={e_w2} (against the plain chain), "
+                   f"{e_k1} (over the plain K1's snapshots)")
         return segs
 
     def w1_pair(self, label, opt, spec, lanes, got, tw, qw):
@@ -793,6 +816,41 @@ class WideTimer:
         return res
 
 
+class WalkTimer:
+    """While active, a pair of CUDA events around every call of the
+    walker W1 (``traceback_device.walk``), read after the run: its kernel
+    ms and calls, summed over the run."""
+
+    def __enter__(self):
+        import torch
+        from miniwfa_tpu_torch.ops import traceback_device as tbd
+        self.tbd, self.real = tbd, tbd.walk
+        self.events = []
+
+        def timed(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self.real(*args, **kw)
+            end.record()
+            self.events.append((start, end))
+            return out
+
+        # the stand-in shares the real function's launch counters
+        timed.__dict__ = self.real.__dict__
+        tbd.walk = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.tbd.walk = self.real
+
+    def totals(self) -> dict:
+        import torch
+        torch.cuda.synchronize()
+        return {"w1_calls": len(self.events),
+                "w1_kernel_ms": sum(a.elapsed_time(b) for a, b in self.events)}
+
+
 # score and low-mem runs of the scale fixtures whose bands pass K1's
 # windows, so they run in the wide kernel
 WIDE_RUNS = (("score", ("dissim150k", "nbear1m", "sv300k")),
@@ -813,7 +871,8 @@ def wide_path(smoke: Smoke, card: str, fixture, sgold) -> dict:
 
     print("phase 4d: the wide path, score and low-mem (step 5000) on the "
           "scale fixtures", flush=True)
-    launches = {"wavefront_wide": 0, "modes": {}}
+    launches = {"wavefront_wide": 0, "modes": {}, "chain_ptrs": 0}
+    pass2 = {}
     div5m = None
     first = {}
     real_p1 = exact._run_pass1
@@ -835,7 +894,7 @@ def wide_path(smoke: Smoke, card: str, fixture, sgold) -> dict:
 
             exact._run_pass1 = timed_pass1
             try:
-                with WideTimer() as wt:
+                with WideTimer() as wt, WalkTimer() as w1:
                     res, counts, wall, peak = _drive(f"{name} {run}",
                                                      [(t, q)], opt, card)
             finally:
@@ -856,8 +915,17 @@ def wide_path(smoke: Smoke, card: str, fixture, sgold) -> dict:
                             f"wavefront[TB+seg] {n} times")
             w = tot.get(wmode, {"calls": 0, "ms": 0.0, "cells": 0,
                                 "bound_ms": 0.0, "bound_by": "-"})
-            split = (f"pass1_s={sum(p1):.6f} pass2_s={wall - sum(p1):.6f} "
-                     if lowmem else "")
+            split = ""
+            if lowmem:
+                walk = w1.totals()
+                pass2[name] = dict(pass2_s=wall - sum(p1), **walk,
+                                   chain_ptrs=counts["chain_ptrs"])
+                split = (f"pass1_s={sum(p1):.6f} pass2_s={wall - sum(p1):.6f}"
+                         f" pass2 w1_calls={walk['w1_calls']} "
+                         f"w1_kernel_ms={walk['w1_kernel_ms']:.3f} "
+                         f"{counts['walk_variants']} "
+                         f"chain_ptrs={counts['chain_ptrs']} ")
+                launches["chain_ptrs"] += counts["chain_ptrs"]
             print(f"  {name} {run}: {split}wide_calls={w['calls']} "
                   f"wide_kernel_ms={w['ms']:.3f} wide_cells={w['cells']} "
                   f"bound_ms={w['bound_ms']:.6f} ({w['bound_by']}) "
@@ -871,7 +939,8 @@ def wide_path(smoke: Smoke, card: str, fixture, sgold) -> dict:
             if (name, run) in (("nbear1m", "score"),
                                ("div5m", "lowmem_p5000")):
                 first[name] = wt.first
-    return {"launches": launches, "div5m_pass1": div5m, "first": first}
+    return {"launches": launches, "div5m_pass1": div5m, "first": first,
+            "pass2": pass2}
 
 
 # the multi-lane route of phase 4 (K4 at G=4 for every K1 SCORE and TB
@@ -900,7 +969,9 @@ def _drive(label, pairs, opt, card, fn=None, **kw):
           f"launches wavefront={counts['wavefront']} {counts['modes']} "
           f"wavefront_multi={counts['multi']} {counts['multi_modes']} "
           f"wavefront_wide={counts['wide']} {counts['wide_modes']} "
-          f"walk={counts['walk']} gaps={counts['gaps']} card={card}",
+          f"walk={counts['walk']} {counts['walk_variants']} "
+          f"chain_ptrs={counts['chain_ptrs']} gaps={counts['gaps']} "
+          f"card={card}",
           flush=True)
     return res, counts, wall, peak
 
@@ -950,7 +1021,8 @@ def main_path(smoke: Smoke, card: str) -> dict:
     print(f"phase 4: main path, {B_MAIN} pairs x {N_MAIN} bp, 2% divergence",
           flush=True)
     launches = {"wavefront": 0, "walk": 0, "modes": {}, "wavefront_multi": 0,
-                "multi_modes": {}, "clusters": {}}
+                "multi_modes": {}, "clusters": {}, "chain_ptrs": 0,
+                "walk_variants": {}}
     walls = {}
     for mode, opt, kmodes in modes:
         res, counts, walls[mode], _ = _drive(mode, list(zip(ts, qs)), opt,
@@ -973,18 +1045,24 @@ def main_path(smoke: Smoke, card: str) -> dict:
                         f"{B_MAIN} lanes")
         if opt.cigar:
             smoke.check(counts["walk"] > 0, f"main {mode} launched walk "
-                        f"{counts['walk']} times")
+                        f"{counts['walk']} times {counts['walk_variants']}")
+        if opt.step:
+            smoke.check(counts["chain_ptrs"] > 0, f"main {mode} launched "
+                        f"chain_ptrs {counts['chain_ptrs']} times")
         smoke.check(counts["wide"] == 0, f"main {mode} launched "
                     f"wavefront_wide {counts['wide']} times (K1's windows "
                     f"serve it)")
         smoke.check(counts["multi"] == 0, f"main {mode} launched "
                     f"wavefront_multi {counts['multi']} times (the default "
                     f"route is K1)")
-        for k in ("wavefront", "walk"):
+        for k in ("wavefront", "walk", "chain_ptrs"):
             launches[k] += counts[k]
-        for k, n in counts["modes"].items():
-            launches["modes"][k] = launches["modes"].get(k, 0) + n
+        for key, into in (("modes", "modes"),
+                          ("walk_variants", "walk_variants")):
+            for k, n in counts[key].items():
+                launches[into][k] = launches[into].get(k, 0) + n
 
+    launches["walk_main"] = launches["walk"]
     # the multi-lane route: the same runs with K4 at G=4
     for mode, opt, kmodes in modes[:2]:
         with mock.patch.dict(os.environ, MULTI_ENV):
@@ -1031,9 +1109,10 @@ def main_path(smoke: Smoke, card: str) -> dict:
             t, q = fixture(name)
             g = sgold[name][mode]
             spans = Spans()
-            res, counts, wall, _ = _drive(f"{name} {mode}", [(t, q)],
-                                       Options(cigar=True), card,
-                                       fns[mode], spans=spans)
+            with WalkTimer() as w1:
+                res, counts, wall, _ = _drive(f"{name} {mode}", [(t, q)],
+                                              Options(cigar=True), card,
+                                              fns[mode], spans=spans)
             smoke.check(res[0].s == g["s"], f"{name} {mode}: s={res[0].s} "
                         f"equals scale_goldens.json ({g['s']})")
             _check_cigars(smoke, f"{name} {mode}", [t], [q], res,
@@ -1069,8 +1148,12 @@ def main_path(smoke: Smoke, card: str) -> dict:
                 split = " ".join(f"{k}={v:.6f}" for k, v in
                                  sorted(spans.totals.items()))
                 rest = wall - sum(spans.totals.values())
+                walk = w1.totals()
+                launches["div5m_auto_w1"] = walk
                 print(f"  div5m auto wall split (s): {split} "
-                      f"rest={rest:.6f} wall={wall:.6f} card={card}",
+                      f"rest={rest:.6f} wall={wall:.6f}; W1 kernel "
+                      f"{walk['w1_kernel_ms']:.3f} ms in {walk['w1_calls']} "
+                      f"calls {counts['walk_variants']} card={card}",
                       flush=True)
                 _div5m_multi(smoke, card, t, q, g, spans, launches)
     return {"launches": launches, "ts": ts, "qs": qs, "fixture": fixture,
@@ -1254,25 +1337,55 @@ def gap_fill_times(smoke: Smoke, card: str) -> dict:
     return res
 
 
+def _median_ms(fn, n=3):
+    """(result, median milliseconds) of ``n`` calls, each timed with CUDA
+    events."""
+    runs = [_ms(fn) for _ in range(n)]
+    return runs[0][0], sorted(ms for _, ms in runs)[n // 2]
+
+
+def _walk_steps(cigs, cpw):
+    """The longest lane's dependent steps in a walk: its DP steps (one
+    per X, I or D character) plus its match words (cpw characters a
+    word), counted from the CIGAR lists as _walk_bound counts them."""
+    return max((sum((c >> 4) if (c & 0xF) != 7 else -(-(c >> 4) // cpw)
+                    for c in cg) for cg in cigs), default=0)
+
+
 def _time_walk(smoke, label, tb, meta, tw, qw, cpw, pens, card, plain=True):
-    """W1 once on one traceback (CUDA events) and, with ``plain``,
-    walk_plain too, which must agree."""
+    """W1 on one traceback in each variant (median of 3, CUDA events),
+    each held against walk_plain, which is timed too with ``plain`` (else
+    run once, untimed, for the check).  Returns the picked variant's
+    time (``ms``) and each variant's, the bound, and the time a step of
+    the longest lane's walk (``step_ns``)."""
     from miniwfa_tpu_torch.ops import traceback_device as tbd
-    k_runs, ms = _ms(lambda: tbd.walk(tb, meta, tw, qw, cpw, pens))
-    bound_ms, bound_by = _walk_bound(tbd.to_cigars(*k_runs), tw, qw, meta,
-                                     cpw)
-    res = dict(ms=ms, bound_ms=bound_ms, bound_by=bound_by)
-    line = (f"  walk {label} B={tb.shape[0]} S_CAP={tb.shape[1]} "
-            f"W={tb.shape[2]}: kernel_ms={ms:.3f}")
+    picked = tbd.pick_variant(tb.shape[2], tw.shape[1], cpw)
     if plain:
-        p_runs, res["plain_ms"] = _ms(
-            lambda: tbd.walk_plain(tb, meta, tw, qw, cpw, pens))
-        err = max(_max_err(a, b) for a, b in zip(k_runs, p_runs))
-        smoke.err["walk"] = max(smoke.err["walk"], err)
-        line += f" plain_ms={res['plain_ms']:.3f}"
-        smoke.check(err == 0, f"W1 {label}: max_abs_err={err}")
-    print(f"{line} bound_ms={bound_ms:.6f} ({bound_by}) card={card}",
-          flush=True)
+        want, plain_ms = _ms(lambda: tbd.walk_plain(tb, meta, tw, qw, cpw,
+                                                    pens))
+    else:
+        want, plain_ms = tbd.walk_plain(tb, meta, tw, qw, cpw, pens), None
+    by_variant, errs = {}, {}
+    for v in tbd.VARIANTS:
+        runs, by_variant[v] = _median_ms(
+            lambda: tbd.walk(tb, meta, tw, qw, cpw, pens, variant=v))
+        errs[v] = max(_max_err(a, b) for a, b in zip(runs, want))
+    cigs = tbd.to_cigars(*want)
+    bound_ms, bound_by = _walk_bound(cigs, tw, qw, meta, cpw)
+    steps = _walk_steps(cigs, cpw)
+    ms = by_variant[picked]
+    res = dict(ms=ms, variant=picked, by_variant=by_variant,
+               bound_ms=bound_ms, bound_by=bound_by, plain_ms=plain_ms,
+               longest_steps=steps, step_ns=ms * 1e6 / max(steps, 1))
+    smoke.err["walk"] = max(smoke.err["walk"], *errs.values())
+    smoke.check(not any(errs.values()), f"W1 {label}, each variant against "
+                f"walk_plain: max_abs_err={errs}")
+    times = " ".join(f"{v}={t:.3f}" for v, t in by_variant.items())
+    print(f"  walk {label} B={tb.shape[0]} S_CAP={tb.shape[1]} "
+          f"W={tb.shape[2]}: kernel_ms {times} (picked {picked})"
+          + (f" plain_ms={plain_ms:.3f}" if plain else "")
+          + f" longest lane {steps} steps, {res['step_ns']:.1f} ns a step"
+          f" bound_ms={bound_ms:.6f} ({bound_by}) card={card}", flush=True)
     return res
 
 
@@ -1339,17 +1452,27 @@ def kernel_times(smoke: Smoke, card: str, label: str, ts, qs, step: int,
                 f"finished in its first dispatch ({int(ovf.sum())} "
                 f"overflowed)")
     cnt = np.where(ovf, 0, o[:, wk.O_SNC])
-    lp = torch.from_numpy(np.where(ovf, -1, o[:, wk.O_LP]))
-    (fin, recs), w2_ms = _ms(lambda: tbd.chain_ptrs(
-        got[3], lp, torch.from_numpy(cnt)))
+    lp = np.where(ovf, -1, o[:, wk.O_LP])
+    # W2 as exact._run_pass1 calls it (numpy pointers, one copy in and
+    # one out), and its plain version, the torch.gather chain
+    (fin, recs), w2_ms = _median_ms(lambda: tbd.chain_ptrs(got[3], lp, cnt))
+    (pfin, precs), gather_ms = _median_ms(
+        lambda: tbd.chain_ptrs_plain(got[3], lp, cnt))
+    err = int(max(abs(fin - pfin).max(initial=0),
+                  abs(recs - precs).max(initial=0)))
+    smoke.err["chain_ptrs"] = max(smoke.err["chain_ptrs"], err)
+    smoke.check(err == 0, f"W2 chain_ptrs {label} against chain_ptrs_plain:"
+                f" max_abs_err={err}")
     # W2 reads one int32 per snapshot row and lane and writes one int64
     # chain pointer, from two int64 inputs per lane
     rows = got[3].shape[1]
     w2_bound = _bound(rows * len(ts) * (4 + 8) + 2 * 8 * len(ts), 0)
-    times["W2"] = dict(ms=w2_ms, bound_ms=w2_bound[0], bound_by=w2_bound[1])
+    times["W2"] = dict(ms=w2_ms, bound_ms=w2_bound[0], bound_by=w2_bound[1],
+                       plain_ms=gather_ms)
     print(f"  W2 chain_ptrs {label} B={len(ts)} rows={rows}: "
-          f"ms={w2_ms:.3f} bound_ms={w2_bound[0]:.3e} ({w2_bound[1]}) "
-          f"card={card}", flush=True)
+          f"kernel_ms={w2_ms:.3f} (one copy in, one out) plain_ms (the "
+          f"gather chain)={gather_ms:.3f} bound_ms={w2_bound[0]:.3e} "
+          f"({w2_bound[1]}) card={card}", flush=True)
     del got
     segs = [tbk.decode_checkpoints_ptrs(recs[:, j], int(fin[j]),
                                         int(lanes[j, wk.L_ANC]),
@@ -1361,6 +1484,11 @@ def kernel_times(smoke: Smoke, card: str, label: str, ts, qs, step: int,
     sg = torch.from_numpy(exact.seg_input(segs)).to(dev)
     got, times["TB+seg"] = _time_pair(smoke, f"lowmem pass 2 {label}", spec,
                                       args, sg, card, plain)
+    meta = torch.from_numpy(
+        exact.walk_meta(lanes, got[0].cpu().numpy())).to(dev)
+    times["walk_pass2"] = _time_walk(
+        smoke, f"lowmem pass 2 {label}", got[1], meta, args[1], args[2],
+        spec.cpw, (opt.x, opt.o1, opt.e1, opt.o2, opt.e2), card, plain)
     del got
     if cut:
         times["PASS1"]["cut"], times["TB+seg"]["cut"] = _lowmem_cut(
@@ -1726,9 +1854,28 @@ def main() -> int:
          "replaces": "miniwfa_tpu/ops/traceback_device.py:33",
          "launches": launches["walk"], "max_abs_err": smoke.err["walk"],
          **timed(times["walk"], ptimes["walk"]), "library_ms": None,
+         "main_launches": launches["walk_main"],
+         "launches_by_variant": launches["walk_variants"],
          "main_shape_plain_ms": times["walk"]["plain_ms"],
+         **{k: times["walk"][k] for k in ("variant", "by_variant",
+                                          "longest_steps", "step_ns")},
          "on_gaps": {"launches": launches["walk_on_gaps"],
-                     **timed(gtimes["walk"])}},
+                     **timed(gtimes["walk"]),
+                     **{k: gtimes["walk"][k] for k in ("variant",
+                                                       "by_variant")}},
+         "lowmem_pass2": {k: times["walk_pass2"][k] for k in (
+             "ms", "variant", "by_variant", "step_ns", "bound_ms",
+             "bound_by")},
+         "pass2_wide": winfo["pass2"],
+         "div5m_auto": launches.get("div5m_auto_w1")},
+        {"name": "chain_ptrs", "route": "cuda",
+         "source": "miniwfa_tpu_torch/csrc/walk.cu",
+         "replaces": "miniwfa_tpu/ops/traceback_device.py:324",
+         "launches": launches["chain_ptrs"] + wl["chain_ptrs"],
+         "main_launches": launches["chain_ptrs"],
+         "max_abs_err": smoke.err["chain_ptrs"],
+         **timed(times["W2"], ptimes["W2"]),
+         "library_ms": times["W2"]["plain_ms"]},
         {"name": "gaps", "route": "cuda",
          "source": "miniwfa_tpu_torch/csrc/gaps.cu",
          "replaces": "miniwfa_tpu/ops/wavefront_gaps.py:90",

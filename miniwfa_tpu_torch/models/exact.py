@@ -468,9 +468,8 @@ def _run_pass1(opt: Options, ts_list: List[bytes], qs_list: List[bytes],
         ovf = (o[:, wk.O_OVFB] | o[:, wk.O_OVFS]) != 0
         # chase the chains on the device; only one pointer per snapshot
         # row and lane comes back
-        fin, recs = tbd.chain_ptrs(
-            snap, torch.from_numpy(np.where(ovf, -1, o[:, wk.O_LP])),
-            torch.from_numpy(np.where(ovf, 0, o[:, wk.O_SNC])))
+        fin, recs = tbd.chain_ptrs(snap, np.where(ovf, -1, o[:, wk.O_LP]),
+                                   np.where(ovf, 0, o[:, wk.O_SNC]))
         snap = None   # free the snapshots before the next dispatch
         retry = []
         for j, i in enumerate(idx):

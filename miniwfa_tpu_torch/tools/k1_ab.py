@@ -1,18 +1,27 @@
 #!/usr/bin/env python3
-"""K1 (csrc/wavefront.cu) kernel times of two checkouts on one card, in
-turns (a, b, b, a): SCORE, TB, PASS1 and TB+seg at the main path's first
-dispatch shapes (the 16 pairs of 100 kb of each checkout's
+"""Kernel times of two checkouts on one card, in turns (a, b, b, a): K1
+(csrc/wavefront.cu) in SCORE, TB, PASS1 and TB+seg at the main path's
+first dispatch shapes (the 16 pairs of 100 kb of each checkout's
 ``chip_smoke.py``, low-mem step 5000; TB+seg with the checkpoints that
-pass 1 decoded, at pass 2's first shape), three CUDA-event timings each
-after a warm-up launch.  Each turn is a process of its own, started in
-that checkout, that builds its kernel.
+pass 1 decoded, at pass 2's first shape), the walker W1 on TB's
+traceback (``walk``) and the checkpoint chain W2 on PASS1's snapshots
+(``chain_ptrs``, called with host pointers as the low-mem driver calls
+it, its copies included), three CUDA-event timings each after a warm-up
+call.  Each turn is a process of its own, started in that checkout,
+that builds its kernels.
 
-    python3 -m miniwfa_tpu_torch.tools.k1_ab CHECKOUT_A CHECKOUT_B
+    python3 -m miniwfa_tpu_torch.tools.k1_ab CHECKOUT_A CHECKOUT_B [--paths]
 
-Prints one JSON line per turn: the checkout, its times in ms by mode, and
-by mode the CTAs per lane K1 ran at with the card's count of co-resident
-clusters there (``clusters``; empty for a checkout that launches one
-block per lane).
+With ``--paths`` each turn also runs ``chip_smoke.py``'s wide low-mem
+fixtures (step 5000: dissim150k, nbear1m, sv300k, div5m) and div5m in auto
+mode once each, with CUDA events around every W1 call: W1's kernel ms in
+each low-mem run (its pass 2), the run's wall, and div5m auto's
+"W1 with host CIGAR lists" span (``W1``) with its kernel ms.
+
+Prints one JSON line per turn: the checkout, its times in ms by kernel
+and mode, and by mode the CTAs per lane K1 ran at with the card's count
+of co-resident clusters there (``clusters``; empty for a checkout that
+launches one block per lane).
 """
 
 import json
@@ -68,9 +77,27 @@ for name, opt, mode in (("SCORE", Options(), wk.MODE_SCORE),
     bk, _ = exact.first_bucket(opt, mode, ts, qs, 512, 512, dev)
     spec, lanes, args = inputs(opt, mode, bk)
     out = timed(name, spec, args)
+    if name == "TB":
+        meta = torch.from_numpy(
+            exact.walk_meta(lanes, out[0].cpu().numpy())).to(dev)
+        pens = (opt.x, opt.o1, opt.e1, opt.o2, opt.e2)
+
+        def walk():
+            return tbd.walk(out[1], meta, args[1], args[2], spec.cpw, pens)
+
+        walk()
+        res["walk"] = [ms(walk) for _ in range(3)]
 # pass 2 with the checkpoints that the last pass 1 decoded
 o = out[0].cpu().numpy()
-fin, recs = tbd.chain_ptrs(out[3], out[0][:, wk.O_LP], out[0][:, wk.O_SNC])
+lp, cnt = (torch.from_numpy(o[:, c].copy()) for c in (wk.O_LP, wk.O_SNC))
+
+
+def chain():
+    return tbd.chain_ptrs(out[3], lp, cnt)
+
+
+fin, recs = chain()
+res["chain_ptrs"] = [ms(chain) for _ in range(3)]
 segs = [tbk.decode_checkpoints_ptrs(recs[:, j], int(fin[j]),
                                     int(lanes[j, wk.L_ANC]),
                                     int(o[j, wk.O_SNC]), spec)
@@ -85,15 +112,71 @@ res["clusters"] = getattr(wk.wavefront, "clusters", {})
 print(json.dumps(res))
 """
 
+PATHS = r"""
+import json
+import time
+import torch
+from chip_smoke import STEP_MAIN, gen_case
+from miniwfa_tpu_torch import Options
+from miniwfa_tpu_torch.models import exact
+from miniwfa_tpu_torch.models.auto import align_auto_batch
+from miniwfa_tpu_torch.ops import traceback_device as tbd
+from miniwfa_tpu_torch.utils.spans import Spans
+
+real = tbd.walk
+events = []
+
+
+def timed(*args, **kw):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = real(*args, **kw)
+    end.record()
+    events.append((start, end))
+    return out
+
+
+timed.__dict__ = real.__dict__
+tbd.walk = timed
+
+
+def run(fn, pair, opt, **kw):
+    events.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn([pair], opt, device="cuda", **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"wall_s": wall, "w1_calls": len(events),
+            "w1_kernel_ms": sum(a.elapsed_time(b) for a, b in events)}
+
+
+res = {}
+for name in ("dissim150k", "nbear1m", "sv300k", "div5m"):
+    t, q = (x.encode() for x in gen_case(name))
+    res[f"{name} lowmem_p5000"] = run(exact.align_batch, (t, q),
+                                      Options(cigar=True, step=STEP_MAIN))
+spans = Spans()
+res["div5m auto"] = run(align_auto_batch, (t, q), Options(cigar=True),
+                        spans=spans)
+res["div5m auto"]["W1_span_s"] = spans.totals.get("W1")
+print(json.dumps(res))
+"""
+
 
 def main() -> int:
     a, b = sys.argv[1:3]
+    children = [CHILD] + ([PATHS] if "--paths" in sys.argv[3:] else [])
     for root in (a, b, b, a):
-        # ``python -c`` puts its working directory first on sys.path, so
-        # the child imports that checkout's package and chip_smoke.py
-        out = subprocess.run([sys.executable, "-c", CHILD], cwd=root,
-                             capture_output=True, text=True, check=True)
-        times = json.loads(out.stdout.strip().splitlines()[-1])
+        times = {}
+        for child in children:
+            # ``python -c`` puts its working directory first on sys.path,
+            # so the child imports that checkout's package and
+            # chip_smoke.py
+            out = subprocess.run([sys.executable, "-c", child], cwd=root,
+                                 capture_output=True, text=True, check=True)
+            times.update(json.loads(out.stdout.strip().splitlines()[-1]))
         print(json.dumps({"checkout": root, **times}), flush=True)
     return 0
 

@@ -10,8 +10,9 @@ checkout runs in a process of its own, started in that checkout.
 Prints one JSON line per checkout and mode: the traced run's host wall
 (synchronised), the card's busy time (the union of its kernel, copy and
 set intervals) and busy share of the wall, the device time of the
-wavefront kernel K1 (``wavefront_kernel``), of the walker W1 (``walk``)
-and of everything else on the card, and the host rest (wall minus busy).
+wavefront kernel K1 (``wavefront_kernel``), of the walker W1 (``walk``),
+of the checkpoint chain W2 (``chain_kernel``) and of everything else on
+the card, and the host rest (wall minus busy).
 A trace with no device event prints ``busy_s: null`` ("not measured").
 """
 
@@ -40,13 +41,16 @@ for mode, opt in (("score", Options()), ("cigar", Options(cigar=True)),
         exact.align_batch(pairs, opt, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans, by = [], {"K1": 0.0, "W1": 0.0, "other": 0.0}
+    spans, by = [], {"K1": 0.0, "W1": 0.0, "W2": 0.0, "other": 0.0}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
         a, b = e.time_range.start, e.time_range.end
         spans.append((a, b))
+        # W2's kernel lives in csrc/walk.cu, whose name a mangled symbol
+        # may carry: test for it before W1's
         key = ("K1" if "wavefront_kernel" in e.name else
+               "W2" if "chain_kernel" in e.name else
                "W1" if "walk" in e.name else "other")
         by[key] += (b - a) / 1e6
     busy = 0.0

@@ -7,10 +7,11 @@ Every test here needs a CUDA device and skips without one; on the card:
 Tolerance: exact equality (both versions run the same integer algorithm).
 """
 
+import numpy as np
 import pytest
 import torch
 
-from miniwfa_tpu_torch import Options
+from miniwfa_tpu_torch import Options, cigar
 from miniwfa_tpu_torch.models import exact
 from miniwfa_tpu_torch.models import traceback as tbk
 from miniwfa_tpu_torch.ops import probes as pb
@@ -518,3 +519,182 @@ def test_k1_cluster_launch_refused_raises(dev):
     w = torch.zeros((1, 4), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
         wk.launch(spec, lanes, w, w, None, C=32)
+
+
+# W1: each variant against walk_plain, bit for bit in runs and counts
+
+def _walk_variants(tb, meta, tw, qw, cpw, pens):
+    """Each W1 variant equals walk_plain on the same inputs, bit for bit;
+    returns the plain outputs."""
+    want = tbd.walk_plain(tb, meta, tw, qw, cpw, pens)
+    for v in tbd.VARIANTS:
+        before = tbd.walk.launches_by_variant[v]
+        got = tbd.walk(tb, meta, tw, qw, cpw, pens, variant=v)
+        torch.cuda.synchronize()
+        assert tbd.walk.launches_by_variant[v] == before + 1
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), v
+    return want
+
+
+def _k1_walk_inputs(dev, opt, ts, qs, W, S_CAP):
+    """K1's traceback of the pairs and the walker's inputs for it."""
+    spec, lanes, tw, qw = exact.kernel_inputs(opt, wk.MODE_TB, W, S_CAP, ts,
+                                              qs)
+    args = [torch.from_numpy(a).to(dev) for a in (lanes, tw, qw)]
+    out, tb, _, _ = wk.wavefront(spec, *args)
+    meta = torch.from_numpy(exact.walk_meta(lanes, out.cpu().numpy()))
+    return (tb, meta.to(dev), args[1], args[2], spec.cpw,
+            (opt.x, opt.o1, opt.e1, opt.o2, opt.e2))
+
+
+@pytest.mark.parametrize("run,opt", [
+    ("cigar", Options(cigar=True)),
+    ("edit_cigar", Options(cigar=True).as_edit_distance()),
+    ("affine_cigar", Options(cigar=True).as_single_affine())])
+def test_walk_variants_match_plain_on_goldens(goldens, dev, run, opt):
+    """The goldens in one batch (cpw 4: lower_n and the N cases among
+    them), then their ACGT-only cases (cpw 16): every variant equals
+    walk_plain, and the CIGARs equal the goldens'."""
+    ts, qs = _golden_pairs(goldens)
+    inputs = _k1_walk_inputs(dev, opt, ts, qs, 8192, 4096)
+    assert inputs[4] == 4
+    want = _walk_variants(*inputs)
+    assert [cigar.to_string(c) for c in tbd.to_cigars(*want)] == \
+        [e["cigar"] for e in goldens["runs"][run]]
+    acgt = [j for j, (t, q) in enumerate(zip(ts, qs))
+            if not (set(t + q) - set(b"ACGT"))]
+    inputs = _k1_walk_inputs(dev, opt, [ts[j] for j in acgt],
+                             [qs[j] for j in acgt], 8192, 4096)
+    assert inputs[4] == 16
+    _walk_variants(*inputs)
+
+
+@pytest.mark.parametrize("o2", [0, 40, 100])
+def test_walk_variants_match_plain_on_t3(goldens, dev, o2):
+    """t3 (its 128-bp insertion crosses tiles sideways) at the default
+    penalties and at o2=40 and o2=100 (e2=1): one gap step of 101 rows
+    jumps past a 64-row tile."""
+    case = next(c for c in goldens["cases"] if c["name"] == "t3")
+    opt = Options(cigar=True, **({"o2": o2, "e2": 1} if o2 else {}))
+    inputs = _k1_walk_inputs(dev, opt, [case["t"].encode("latin1")] * 3,
+                             [case["q"].encode("latin1")] * 3, 8192, 2048)
+    want = _walk_variants(*inputs)
+    assert {cigar.to_string(c) for c in tbd.to_cigars(*want)} == \
+        {"1X16=1X14=128I4=1X24="}
+
+
+def test_walk_variants_match_plain_on_bench8k(dev):
+    ts, qs = _bench8k()
+    opt = Options(cigar=True)
+    bk, _ = exact.first_bucket(opt, wk.MODE_TB, ts, qs, 512, 512, dev)
+    _walk_variants(*_k1_walk_inputs(dev, opt, ts, qs, bk.W, bk.S_CAP))
+
+
+def test_walk_variants_match_plain_on_empty_and_skipped_lanes(goldens, dev):
+    """Empty pairs beside short ones, and the goldens with every other
+    lane skipped (tl = ql = 0, as walk_meta leaves a stopped lane)."""
+    opt = Options(cigar=True)
+    inputs = _k1_walk_inputs(dev, opt, [b"", b"", b"AAAA", b"ACGT", b"A"],
+                             [b"", b"ACG", b"", b"ACGT", b"G"], 512, 256)
+    want = _walk_variants(*inputs)
+    assert tbd.to_cigars(*want)[:3] == [[], [(3 << 4) | 1], [(4 << 4) | 2]]
+    ts, qs = _golden_pairs(goldens)
+    tb, meta, *rest = _k1_walk_inputs(dev, opt, ts, qs, 8192, 4096)
+    meta[::2, tbd.M_TL:tbd.M_QL + 1] = 0
+    want = _walk_variants(tb, meta, *rest)
+    assert not bool(want[1][::2].any())
+
+
+def test_walk_variants_match_plain_at_the_column_clamp(goldens, dev):
+    """Lanes walked with their anchor moved past the window, so every
+    column clamps to 0 or W-1, and seeded random tb bytes whose walks
+    clamp rows and columns and can overflow the run buffer."""
+    ts, qs = _golden_pairs(goldens)
+    tb, meta, tw, qw, cpw, pens = _k1_walk_inputs(dev, Options(cigar=True),
+                                                  ts, qs, 1024, 512)
+    for shift in (4096, -4096):
+        m = meta.clone()
+        m[:, tbd.M_ANC] += shift
+        _walk_variants(tb, m, tw, qw, cpw, pens)
+    rng = np.random.default_rng(11)
+    rtb = torch.from_numpy(rng.integers(0, 128, tb.shape,
+                                        dtype=np.uint8)).to(dev)
+    m = meta.clone()
+    m[:, tbd.M_S] = torch.from_numpy(rng.integers(0, 600, len(ts))).to(dev)
+    m[:, tbd.M_ANC] = torch.from_numpy(rng.integers(-1024, 1024,
+                                                    len(ts))).to(dev)
+    _walk_variants(rtb, m, tw, qw, cpw, pens)
+
+
+def test_walk_variants_match_plain_on_k3_div100k_gaps(dev):
+    """K3's traceback of div100k's first gaps dispatch (its chain plan's
+    gaps of at most 127 bp, by score bound)."""
+    import chip_smoke
+    from miniwfa_tpu_torch.models import tiny
+    from miniwfa_tpu_torch.ops import pack
+    t, q = (x.encode() for x in chip_smoke.gen_case("div100k"))
+    gaps = chip_smoke.chain_gaps([t], [q], Options())
+    opt = Options(cigar=True)
+    cpw = 16 if all(pack.can_pack2(p) for p in gaps) else 4
+    sb = [tiny._s_bound(opt, len(a), len(b)) for a, b in gaps]
+    sel = sorted(range(len(gaps)), key=lambda g: sb[g])[:tiny.GMAX]
+    spec, lens, tw, qw = tiny.dispatch_inputs(
+        opt, [gaps[g][0] for g in sel], [gaps[g][1] for g in sel], cpw,
+        tiny._scap_bucket(max(sb[g] for g in sel)))
+    args = [torch.from_numpy(a).to(dev) for a in (lens, tw, qw)]
+    out, tb = wg.gaps(spec, *args)[:2]
+    meta = torch.from_numpy(tiny.walk_meta(lens, out.cpu().numpy()))
+    assert tbd.pick_variant(tb.shape[2], tw.shape[1], cpw) == "thread"
+    _walk_variants(tb, meta.to(dev), args[1], args[2], cpw,
+                   (opt.x, opt.o1, opt.e1, opt.o2, opt.e2))
+
+
+def test_walk_bad_variant_and_width_raise(dev):
+    tb = torch.zeros((1, 8, 24), dtype=torch.uint8, device=dev)
+    meta = torch.zeros((1, tbd.M_N), dtype=torch.int64, device=dev)
+    w = torch.zeros((1, 4), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        tbd.walk(tb, meta, w, w, 4, (4, 6, 2, 24, 1), variant="block")
+    with pytest.raises(ValueError):      # W = 24 is no multiple of 16
+        tbd.walk(tb, meta, w, w, 4, (4, 6, 2, 24, 1), variant="warp")
+
+
+# W2: the chain kernel against chain_ptrs_plain
+
+def _chains_equal(snap, lp, cnt):
+    before = tbd.chain_ptrs.launches
+    fin, recs = tbd.chain_ptrs(snap, lp, cnt)
+    assert tbd.chain_ptrs.launches == before + 1
+    pfin, precs = tbd.chain_ptrs_plain(snap, lp, cnt)
+    assert fin.dtype == recs.dtype == np.int64
+    assert (fin == pfin).all() and (recs == precs).all()
+    return fin, recs
+
+
+@pytest.mark.parametrize("step", [16, 100])
+def test_chain_ptrs_matches_plain_on_k1_pass1(goldens, dev, step):
+    """K1 PASS1's snapshots of the goldens, as they come, and with lanes
+    given snapshot count 0 and last pointer -1 (overflowed lanes)."""
+    ts, qs = _golden_pairs(goldens)
+    spec, lanes, tw, qw = exact.kernel_inputs(
+        Options(cigar=True, step=step), wk.MODE_PASS1, 8192, 2048, ts, qs)
+    args = [torch.from_numpy(a).to(dev) for a in (lanes, tw, qw)]
+    out, _, _, snap = wk.wavefront(spec, *args)
+    _chains_equal(snap, out[:, wk.O_LP], out[:, wk.O_SNC])
+    o = out.cpu().numpy()
+    cut = np.arange(len(ts)) % 3 == 0
+    fin, recs = _chains_equal(snap, np.where(cut, -1, o[:, wk.O_LP]),
+                              np.where(cut, 0, o[:, wk.O_SNC]))
+    assert (fin[cut] == -1).all() and (recs[:, cut] == -3).all()
+
+
+def test_chain_ptrs_matches_plain_on_wide_pass1(goldens, dev):
+    """The wide kernel's (K2's) pass-1 snapshots of the goldens at step
+    64."""
+    ts, qs = _golden_pairs(goldens)
+    spec, lanes, tw, qw = exact.kernel_inputs(
+        Options(cigar=True, step=64), wk.MODE_PASS1, 16384, 1100, ts, qs)
+    args = [torch.from_numpy(a).to(dev) for a in (lanes, tw, qw)]
+    out, snap, _ = ww.run_chunked(spec, *args)
+    assert int(out[:, wk.O_SNC].max()) > 0
+    _chains_equal(snap, out[:, wk.O_LP], out[:, wk.O_SNC])

@@ -296,3 +296,29 @@ def test_chip_smoke_dissim150k_matches_generator():
     md5 = [hashlib.md5(s.encode()).hexdigest() for s in got]
     assert md5 == [hashlib.md5(s.encode()).hexdigest() for s in want]
     assert [len(s) for s in got] == [150_000, 150_105]
+
+
+def test_chain_ptrs_plain_matches_jax_chain():
+    """chain_ptrs_plain (and chain_ptrs on CPU tensors, from numpy or
+    tensor pointers) against the JAX package's chain_ptrs_on_device on
+    seeded snapshot buffers: pointers in and out of range, lanes with
+    snapshot count 0 and last pointer -1."""
+    from miniwfa_tpu.ops import traceback_device as jtbd
+    rng = np.random.default_rng(9)
+    B, cap, NP, W = 12, 7, 3, 40
+    snap = rng.integers(-5, NP * W + 5, (B, cap, NP, W)).astype(np.int32)
+    last = rng.integers(0, NP * W, B).astype(np.int32)
+    cnt = rng.integers(0, cap + 1, B).astype(np.int32)
+    last[[1, 4]] = -1
+    cnt[[1, 4, 6]] = 0
+    cnt[2] = cap
+    jfin, jrecs = jtbd.chain_ptrs_on_device(snap, last, cnt)
+    st = torch.from_numpy(snap)
+    for lp, c in ((last, cnt), (torch.from_numpy(last),
+                                torch.from_numpy(cnt))):
+        for fn in (tbd.chain_ptrs_plain, tbd.chain_ptrs):
+            fin, recs = fn(st, lp, c)
+            assert fin.dtype == recs.dtype == np.int64
+            assert recs.shape == (cap, B)
+            assert (fin == jfin).all() and (recs == jrecs).all()
+    assert (recs[:, [1, 4, 6]] == -3).all() and (fin[[1, 4]] == -1).all()
