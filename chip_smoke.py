@@ -241,6 +241,7 @@ def _reset_counts():
     wm.wavefront_multi.launches_by_mode.clear()
     ww.wide.launches = 0
     ww.wide.launches_by_mode.clear()
+    ww.wide.launches_by_variant.clear()
     tbd.walk.launches = 0
     tbd.walk.launches_by_variant.clear()
     tbd.chain_ptrs.launches = 0
@@ -262,7 +263,8 @@ def _read_counts() -> dict:
             "multi": wm.wavefront_multi.launches,
             "multi_modes": dict(wm.wavefront_multi.launches_by_mode),
             "wide": ww.wide.launches,
-            "wide_modes": dict(ww.wide.launches_by_mode)}
+            "wide_modes": dict(ww.wide.launches_by_mode),
+            "wide_variants": dict(ww.wide.launches_by_variant)}
 
 
 def _bound(nbytes: int, ops: int):
@@ -403,44 +405,65 @@ class Smoke:
                    f"{wk.launch_mode(spec, args[3])} G={wm.GS}: "
                    f"max_abs_err={errs}")
 
-    def wide_pair(self, label, spec, args):
+    def wide_pair(self, label, spec, args, plain=None, **forced):
         """The wide kernel against wide_plain in one call (every output,
         the state row, the planes and the snapshot rows), then in
         run_chunked's calls of 77 cycles per live lane (every output and
-        the snapshot rows).  Returns the plain outputs and the one-call
-        times of both versions (CUDA events)."""
+        the snapshot rows), at the chooser's variant and tile or at the
+        ``forced`` ones (``wide``'s tile, batch, variant).  ``plain``: the
+        (outputs, state, ms) of wide_plain's one call on these inputs, if
+        already run.  Returns the plain outputs and the one-call times of
+        both versions (CUDA events) with the kernel's variant, n and k,
+        and the plain (outputs, state, ms)."""
         import torch
         from miniwfa_tpu_torch.ops import wavefront_kernel as wk
         from miniwfa_tpu_torch.ops import wavefront_wide as ww
         B = args[0].shape[0]
         big = torch.full((B,), 1 << 40, dtype=torch.int64, device=self.dev)
-        pst = ww.new_state(spec, args[0])
-        want, plain_ms = _ms(lambda: ww.wide_plain(spec, *args, pst, big))
+        if plain is None:
+            pst = ww.new_state(spec, args[0])
+            want, plain_ms = _ms(lambda: ww.wide_plain(spec, *args, pst,
+                                                       big))
+        else:
+            want, pst, plain_ms = plain
         kst = ww.new_state(spec, args[0])
         before = ww.wide.launches
-        got, ms = _ms(lambda: ww.wide(spec, *args, kst, big))
+        real = ww.wide
+        got, ms = _ms(lambda: real(spec, *args, kst, big, **forced))
+        mode = wk.launch_mode(spec, None)
+        tiles = dict(real.tiles[mode])
         one = [(got, want), (kst.row, pst.row), (kst.planes, pst.planes),
                (kst.snap, pst.snap)]
         del kst
-        single = ww.wide.launches - before
+        single = real.launches - before
         cycles, ww.CYCLES_PER_CALL = ww.CYCLES_PER_CALL, 77 * B
+
+        def chunk(*a):
+            return real(*a, **forced)
+
+        # the counters live on the function the module's name points to
+        chunk.__dict__ = real.__dict__
+        ww.wide = chunk
         try:
             got, snap, _ = ww.run_chunked(spec, *args)
         finally:
             ww.CYCLES_PER_CALL = cycles
+            ww.wide = real
         torch.cuda.synchronize()
-        calls = ww.wide.launches - before - single
-        mode = wk.launch_mode(spec, None)
+        calls = real.launches - before - single
+        how_t = (f"{tiles['variant']} n={tiles['n']} k={tiles['k']}"
+                 + (" forced" if forced else ""))
         for how, pairs in (("one call", one),
                            (f"{calls} calls of 77 cycles a lane",
                             [(got, want[:, :wk.O_N]), (snap, pst.snap)])):
             err = max(_max_err(x, y) for x, y in pairs)
             self.err["wavefront_wide"] = max(self.err["wavefront_wide"], err)
             self.check(err == 0, f"wide {label} mode={mode} cpw={spec.cpw} "
-                       f"B={B} W={spec.W} S_CAP={spec.S_CAP}, {how}: "
-                       f"{int(want[:, wk.O_DONE].sum())} done, "
+                       f"B={B} W={spec.W} S_CAP={spec.S_CAP} {how_t}, "
+                       f"{how}: {int(want[:, wk.O_DONE].sum())} done, "
                        f"max_abs_err={err}")
-        return want, dict(ms=ms, plain_ms=plain_ms)
+        return want, dict(ms=ms, plain_ms=plain_ms, **tiles,
+                          plain=(want, pst, plain_ms))
 
     def checkpoints(self, label, spec, lanes, got, want):
         """The checkpoint chain: the W2 kernel over K1's snapshot buffer
@@ -690,12 +713,18 @@ GAP_EDGE = [(b"ACGT", b"ACGT"), (b"A", b"G"), (b"AAAA", b"AAAAAAAA"),
             (b"", b""), (b"ACGTNNNA", b"ACGTANNA"), (b"A" * 63, b"C" * 64)]
 
 
+# a forced small tile of the wide kernel's tiled variant: 32 output slots,
+# batches of 7 cycles (tests/test_torch_cuda.py sweeps more)
+SMALL_TILE = dict(tile=32, batch=7)
+
+
 def wide_phases(smoke: Smoke, card: str) -> dict:
     """Phase 2+3, wide: the wide kernel against wide_plain on the goldens
-    and on 8 of the 8 kb benchmark pairs, SCORE and PASS1, at W=16384 (the
-    JAX wide kernel's smallest window; the kernel takes any window, and on
-    the main path only bands past K1's reach it).  Returns the one-call
-    times at the 8 kb shape, by mode."""
+    (at the chooser's tile and at SMALL_TILE) and on 8 of the 8 kb
+    benchmark pairs, SCORE and PASS1, at W=16384 (the JAX wide kernel's
+    smallest window; the kernel takes any window, and on the main path
+    only bands past K1's reach it).  Returns the one-call times at the
+    8 kb shape, by mode."""
     import torch
     from miniwfa_tpu_torch import Options
     from miniwfa_tpu_torch.models import exact
@@ -728,11 +757,17 @@ def wide_phases(smoke: Smoke, card: str) -> dict:
             smoke.check([int(v) for v in want[:, wk.O_S]] == want_s,
                         f"wide {label} mode={wk.launch_mode(spec, None)}: "
                         f"scores equal the goldens")
+            if label == "goldens":
+                # many tile boundaries and band edges a batch
+                smoke.wide_pair(label, spec, args, plain=t["plain"],
+                                **SMALL_TILE)
+            del t["plain"]
             if label == "bench8k":
                 name = wk.launch_mode(spec, None)
                 times[name] = t
                 print(f"  wavefront_wide[{name}] bench8k B={len(ts)} "
-                      f"W={spec.W}: kernel_ms={t['ms']:.3f} "
+                      f"W={spec.W} {t['variant']} n={t['n']} k={t['k']}: "
+                      f"kernel_ms={t['ms']:.3f} "
                       f"plain_ms={t['plain_ms']:.3f} card={card}",
                       flush=True)
             del want, args
@@ -751,8 +786,8 @@ def wide_phases(smoke: Smoke, card: str) -> dict:
                     f"wide goldens-small o2={o2}: every lane done")
         del want, args
     from miniwfa_tpu_torch.ops import wavefront_wide as ww
-    print(f"  wide kernel grid (blocks of 512 threads, by device and mode): "
-          f"{ww.wide.blocks}", flush=True)
+    print(f"  wide kernel grid (blocks of 512 threads, by device, variant, "
+          f"mode, penalties, n, k): {ww.wide.blocks}", flush=True)
     return times
 
 
@@ -771,13 +806,16 @@ class WideTimer:
         self.calls, self.first = [], None
 
         def timed(spec, lanes, tw, qw, state, t_lim):
+            t_before = state.row[:, ww.ST_T].clone()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
             out = self.real(spec, lanes, tw, qw, state, t_lim)
             end.record()
             self.first = self.first or (spec, lanes, tw, qw)
-            self.calls.append((spec, start, end, out, _nbytes(lanes, tw, qw)))
+            self.calls.append((spec, start, end, out, _nbytes(lanes, tw, qw),
+                               state.row[:, ww.ST_T] - t_before,
+                               self.real.last_stats.clone()))
             return out
 
         # the stand-in shares the real function's launch counters and grid
@@ -790,20 +828,30 @@ class WideTimer:
         self.ww.wide = self.real
 
     def totals(self) -> dict:
-        """Per mode: calls, kernel ms, cells, and the bound of the whole
-        runs (their cells' operations; their inputs, outputs and snapshot
-        rows taken).  A run's last call is the one that leaves no lane
-        paused, and its outputs hold the run's totals."""
+        """Per mode: calls, kernel ms, cycles and µs a cycle (summed over
+        the lanes), batches and reruns of the tiled variant with block 0's
+        tiles and clock64 cycles by phase (``ww.STATS``), cells, and the
+        bound of the whole runs (their cells' operations; their inputs,
+        outputs and snapshot rows taken).  A run's last call is the one
+        that leaves no lane paused, and its outputs hold the run's
+        totals."""
         import torch
         from miniwfa_tpu_torch.ops import wavefront_kernel as wk
         ww = self.ww
         torch.cuda.synchronize()
         res = {}
-        for spec, start, end, out, in_bytes in self.calls:
+        for spec, start, end, out, in_bytes, cyc, stats in self.calls:
             r = res.setdefault(wk.launch_mode(spec, None),
-                               {"calls": 0, "ms": 0.0, "cells": 0, "bytes": 0})
+                               {"calls": 0, "ms": 0.0, "cells": 0, "bytes": 0,
+                                "cycles": 0, "batches": 0, "reruns": 0,
+                                "block0": dict.fromkeys(ww.STATS[2:], 0)})
             r["calls"] += 1
             r["ms"] += start.elapsed_time(end)
+            r["cycles"] += int(cyc.sum())
+            r["batches"] += int(stats[0])
+            r["reruns"] += int(stats[1])
+            for k, v in zip(ww.STATS[2:], stats[2:].tolist()):
+                r["block0"][k] += v
             if not bool(out[:, ww.OW_PAUSE].any()):
                 r["cells"] += int(out[:, wk.O_NITER].sum())
                 row_b = wk.snapshot_layout(spec)[5] * spec.W * 4
@@ -813,6 +861,8 @@ class WideTimer:
             ops = r["cells"] * (OPS_SCORE
                                 + (OPS_PASS1 if name == "PASS1" else 0))
             r["bound_ms"], r["bound_by"] = _bound(r.pop("bytes"), ops)
+            r["us_per_cycle"] = 1e3 * r["ms"] / max(r["cycles"], 1)
+            r.update(ww.wide.tiles.get(name, {}))
         return res
 
 
@@ -871,7 +921,8 @@ def wide_path(smoke: Smoke, card: str, fixture, sgold) -> dict:
 
     print("phase 4d: the wide path, score and low-mem (step 5000) on the "
           "scale fixtures", flush=True)
-    launches = {"wavefront_wide": 0, "modes": {}, "chain_ptrs": 0}
+    launches = {"wavefront_wide": 0, "modes": {}, "variants": {},
+                "chain_ptrs": 0}
     pass2 = {}
     div5m = None
     first = {}
@@ -914,7 +965,9 @@ def wide_path(smoke: Smoke, card: str, fixture, sgold) -> dict:
                 smoke.check(n > 0, f"{name} {run} pass 2 launched "
                             f"wavefront[TB+seg] {n} times")
             w = tot.get(wmode, {"calls": 0, "ms": 0.0, "cells": 0,
-                                "bound_ms": 0.0, "bound_by": "-"})
+                                "bound_ms": 0.0, "bound_by": "-",
+                                "cycles": 0, "batches": 0, "reruns": 0,
+                                "us_per_cycle": 0.0})
             split = ""
             if lowmem:
                 walk = w1.totals()
@@ -928,12 +981,23 @@ def wide_path(smoke: Smoke, card: str, fixture, sgold) -> dict:
                 launches["chain_ptrs"] += counts["chain_ptrs"]
             print(f"  {name} {run}: {split}wide_calls={w['calls']} "
                   f"wide_kernel_ms={w['ms']:.3f} wide_cells={w['cells']} "
+                  f"wide_cycles={w['cycles']} "
+                  f"us_per_cycle={w['us_per_cycle']:.3f} "
+                  f"variants={counts['wide_variants']} n={w.get('n')} "
+                  f"k={w.get('k')} batches={w['batches']} "
+                  f"reruns={w['reruns']} "
                   f"bound_ms={w['bound_ms']:.6f} ({w['bound_by']}) "
                   f"peak_bytes={peak} wall_s={wall:.6f} card={card}",
                   flush=True)
+            smoke.check(counts["wide_variants"].get("tile", 0)
+                        == counts["wide"],
+                        f"{name} {run}: the wide kernel ran the tiled "
+                        f"variant ({counts['wide_variants']})")
             launches["wavefront_wide"] += counts["wide"]
             for k, v in counts["wide_modes"].items():
                 launches["modes"][k] = launches["modes"].get(k, 0) + v
+            for k, v in counts["wide_variants"].items():
+                launches["variants"][k] = launches["variants"].get(k, 0) + v
             if name == "div5m":
                 div5m = w
             if (name, run) in (("nbear1m", "score"),
@@ -1548,10 +1612,9 @@ def wide_times(smoke: Smoke, card: str, first) -> dict:
                 f"W={spec.W}: s={o[wk.O_S]} n_iter={o[wk.O_NITER]}, every "
                 f"output equal (max_abs_err={err})")
     print(f"  nbear1m score W={spec.W}: wide_kernel_ms={wide['ms']:.3f} "
-          f"({wide['calls']} calls, "
-          f"{ww.wide.blocks.get((smoke.dev.index, spec.mode, spec.rings[0]))}"
-          f" "
-          f"blocks) "
+          f"({wide['calls']} calls, {wide['variant']} n={wide['n']} "
+          f"k={wide['k']}, {wide['blocks']} blocks, {wide['batches']} "
+          f"batches, {wide['us_per_cycle']:.3f} us a cycle) "
           f"k1_kernel_ms={k1_ms:.3f} "
           f"(C={wk.wavefront.clusters['SCORE']['C']}) cells={wide['cells']} "
           f"bound_ms={wide['bound_ms']:.6f} ({wide['bound_by']}) "
@@ -1833,12 +1896,18 @@ def main() -> int:
                  "main_shape_cut": times[m]["cut"]}
              for m in ("SCORE", "TB", "PASS1", "TB+seg")}
     d5 = winfo["div5m_pass1"]
+    def tiled(w):
+        """The wide kernel's variant, tile and batches over a run."""
+        return {k: w.get(k) for k in ("variant", "n", "k", "calls",
+                                      "cycles", "us_per_cycle", "batches",
+                                      "reruns", "block0")}
+
     wmodes = {
         "SCORE": {"launches": wl["modes"].get("SCORE", 0),
                   **timed(wtime, wtimes8["SCORE"]), "k1_ms": wtime["k1_ms"],
-                  "shape": f"nbear1m score W={wtime['W']}"},
+                  **tiled(wtime), "shape": f"nbear1m score W={wtime['W']}"},
         "PASS1": {"launches": wl["modes"].get("PASS1", 0),
-                  **timed(d5, wtimes8["PASS1"]),
+                  **timed(d5, wtimes8["PASS1"]), **tiled(d5),
                   "shape": "div5m low-mem pass 1"}}
     kernels = [
         {"name": "wavefront", "route": "cuda",
@@ -1888,6 +1957,8 @@ def main() -> int:
          "launches": wl["wavefront_wide"],
          "max_abs_err": smoke.err["wavefront_wide"],
          **timed(wtime, wtimes8["SCORE"]), "library_ms": None,
+         **{k: wtime.get(k) for k in ("variant", "n", "k")},
+         "launches_by_variant": wl["variants"],
          "modes": wmodes, "path_spec_checks": wreal},
         {"name": "wavefront_multi", "route": "cuda",
          "source": "miniwfa_tpu_torch/csrc/wavefront.cu",

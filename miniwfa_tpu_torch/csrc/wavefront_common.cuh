@@ -41,13 +41,21 @@ struct Src {
   int lo, hi;
 };
 
+// LDG: read the words through the read-only data path (ld.global.nc).
+template <bool LDG = false>
 __device__ __forceinline__ unsigned chars_at(const unsigned* w, long long pos,
                                              int logc, int bits, int cpw) {
   const long long j = pos >> logc;
-  return __funnelshift_r(w[j], w[j + 1], (int)(pos & (cpw - 1)) * bits);
+  if constexpr (LDG) {
+    return __funnelshift_r(__ldg(w + j), __ldg(w + j + 1),
+                           (int)(pos & (cpw - 1)) * bits);
+  } else {
+    return __funnelshift_r(w[j], w[j + 1], (int)(pos & (cpw - 1)) * bits);
+  }
 }
 
 // k advanced along the diagonal's match run, capped at the matrix edge.
+template <bool LDG = false>
 __device__ __forceinline__ int extend(const unsigned* tw, const unsigned* qw,
                                       int k, int d, int tl, int ql, int cpw,
                                       int logc, int bits, int logb) {
@@ -55,8 +63,8 @@ __device__ __forceinline__ int extend(const unsigned* tw, const unsigned* qw,
   const long long pt = (long long)k + 1, pq = (long long)d + k + 1;
   int adv = 0;
   while (adv < cap) {
-    const unsigned x = chars_at(tw, pt + adv, logc, bits, cpw) ^
-                       chars_at(qw, pq + adv, logc, bits, cpw);
+    const unsigned x = chars_at<LDG>(tw, pt + adv, logc, bits, cpw) ^
+                       chars_at<LDG>(qw, pq + adv, logc, bits, cpw);
     if (x) {
       adv += (__ffs((int)x) - 1) >> logb;
       break;
@@ -81,9 +89,22 @@ __device__ __forceinline__ int rd(const Src& s, int slot, int anc,
 }
 
 // The sources of the transition into score t+1, in the order Hx, Ho1, Ho2,
-// E1, F1, E2, F2 (ages x, o1+e1, o2+e2, e1, e1, e2, e2).
-struct Sources {
-  Src x, h1, h2, e1, f1, e2, f2;
+// E1, F1, E2, F2 (ages x, o1+e1, o2+e2, e1, e1, e2, e2), each a T that a
+// reader turns into the value at a slot.
+template <class T>
+struct SourcesOf {
+  T x, h1, h2, e1, f1, e2, f2;
+};
+using Sources = SourcesOf<Src>;
+
+// The band-masked read of a source in global memory (rd).
+template <bool CG>
+struct GlobalRead {
+  int anc;
+  __device__ __forceinline__ int operator()(const Src& s, int slot,
+                                            size_t off = 0) const {
+    return rd<CG>(s, slot, anc, off);
+  }
 };
 
 // One cell of the transition into score t+1 (miniwfa.c:243-327), with the
@@ -93,13 +114,14 @@ struct Cell {
   int h, e1, f1, e2, f2, tb;
 };
 
-template <bool CG>
-__device__ __forceinline__ Cell transition(const Sources& S, int s, int anc) {
-  const int ho1m = rd<CG>(S.h1, s - 1, anc), ho1p = rd<CG>(S.h1, s + 1, anc);
-  const int ho2m = rd<CG>(S.h2, s - 1, anc), ho2p = rd<CG>(S.h2, s + 1, anc);
-  const int e1m = rd<CG>(S.e1, s - 1, anc), f1p = rd<CG>(S.f1, s + 1, anc);
-  const int e2m = rd<CG>(S.e2, s - 1, anc), f2p = rd<CG>(S.f2, s + 1, anc);
-  const int hx = rd<CG>(S.x, s, anc) + 1;
+template <class R, class T>
+__device__ __forceinline__ Cell transition_by(const R& rd, const SourcesOf<T>& S,
+                                              int s) {
+  const int ho1m = rd(S.h1, s - 1), ho1p = rd(S.h1, s + 1);
+  const int ho2m = rd(S.h2, s - 1), ho2p = rd(S.h2, s + 1);
+  const int e1m = rd(S.e1, s - 1), f1p = rd(S.f1, s + 1);
+  const int e2m = rd(S.e2, s - 1), f2p = rd(S.f2, s + 1);
+  const int hx = rd(S.x, s) + 1;
   const int ne1 = max(ho1m, e1m), ne2 = max(ho2m, e2m);
   const int nf1 = max(ho1p, f1p) + 1, nf2 = max(ho2p, f2p) + 1;
   const int ev = max(ne1, ne2), fv = max(nf1, nf2);
@@ -117,29 +139,36 @@ __device__ __forceinline__ Cell transition(const Sources& S, int s, int anc) {
   return c;
 }
 
+template <bool CG>
+__device__ __forceinline__ Cell transition(const Sources& S, int s, int anc) {
+  return transition_by(GlobalRead<CG>{anc}, S, s);
+}
+
 // PASS1: each state copies the pointer of the source its tb bits chose
 // (reference wf_next_seg, miniwfa.c:495-523); pointer planes sit `poff`
 // after their value planes.
-template <bool CG>
-__device__ __forceinline__ Cell pointers(const Sources& S, int s, int anc,
-                                         size_t poff, int tb) {
+template <class R, class T>
+__device__ __forceinline__ Cell pointers_by(const R& rd, const SourcesOf<T>& S,
+                                            int s, size_t poff, int tb) {
   Cell p;
-  p.e1 = (tb & 0x08) ? rd<CG>(S.e1, s - 1, anc, poff)
-                     : rd<CG>(S.h1, s - 1, anc, poff);
-  p.f1 = (tb & 0x10) ? rd<CG>(S.f1, s + 1, anc, poff)
-                     : rd<CG>(S.h1, s + 1, anc, poff);
-  p.e2 = (tb & 0x20) ? rd<CG>(S.e2, s - 1, anc, poff)
-                     : rd<CG>(S.h2, s - 1, anc, poff);
-  p.f2 = (tb & 0x40) ? rd<CG>(S.f2, s + 1, anc, poff)
-                     : rd<CG>(S.h2, s + 1, anc, poff);
+  p.e1 = (tb & 0x08) ? rd(S.e1, s - 1, poff) : rd(S.h1, s - 1, poff);
+  p.f1 = (tb & 0x10) ? rd(S.f1, s + 1, poff) : rd(S.h1, s + 1, poff);
+  p.e2 = (tb & 0x20) ? rd(S.e2, s - 1, poff) : rd(S.h2, s - 1, poff);
+  p.f2 = (tb & 0x40) ? rd(S.f2, s + 1, poff) : rd(S.h2, s + 1, poff);
   const int z = tb & 7;
-  p.h = z == 0   ? rd<CG>(S.x, s, anc, poff)
+  p.h = z == 0   ? rd(S.x, s, poff)
         : z == 1 ? p.e1
         : z == 2 ? p.f1
         : z == 3 ? p.e2
                  : p.f2;
   p.tb = 0;
   return p;
+}
+
+template <bool CG>
+__device__ __forceinline__ Cell pointers(const Sources& S, int s, int anc,
+                                         size_t poff, int tb) {
+  return pointers_by(GlobalRead<CG>{anc}, S, s, poff, tb);
 }
 
 __device__ __forceinline__ bool any_viable(const Cell& c) {

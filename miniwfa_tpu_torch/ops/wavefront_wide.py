@@ -12,8 +12,17 @@ unchanged.  Two implementations:
 
 * ``wide_plain`` — K1's plain cycle code (``wavefront_kernel.run_cycles``),
   each lane from its state to its cycle limit;
-* ``csrc/wavefront_wide.cu`` — a cooperative launch that spreads one lane
-  over every SM, the lanes one after another.
+* ``csrc/wavefront_wide.cu`` — a persistent cooperative launch over the
+  whole card, lanes one after another, in one of two variants:
+  ``"tile"``, time-blocked tiles of the band in shared memory (each block
+  loads every plane of a tile plus a halo of k slots a side, runs a batch
+  of up to k cycles on it with block barriers only, and writes the tile
+  back; one grid barrier a batch), and ``"cycle"``, the per-cycle body
+  (every SM takes a share of the band each cycle, 2-4 grid barriers a
+  cycle) for penalty sets whose smallest tile does not fit in shared
+  memory.  ``pick_tiles`` chooses the variant and the tile's n (output
+  slots) and k (cycles a batch) from the spec and the card's shared
+  memory; ``wide(..., tile=n, batch=k, variant=...)`` forces them.
 
 ``wide`` dispatches on the device of its inputs: CPU tensors run the plain
 version, CUDA tensors launch the kernel (or raise).
@@ -60,7 +69,22 @@ OW_N = wk.O_N + 1
 # run_chunked's work per call, split over the live lanes
 CYCLES_PER_CALL = 65536
 CELLS_PER_CALL = 1.0e10
-F_N = 5   # flag words per cycle parity (csrc/wavefront_wide.cu F_*)
+F_N = 5   # "cycle": flag words per cycle parity (csrc/wavefront_wide.cu F_*)
+VARIANTS = ("tile", "cycle")
+# the tiled variant's (n, k), largest first: output slots a tile at most
+# (a batch takes the band over the grid's blocks, at least 512 - 2k, up to
+# n), cycles a batch (a batch also ends at each shrink, snapshot and pause)
+TILES = ((960, 32), (448, 32), (192, 32), (96, 16), (32, 1))
+K_MAX = 256         # cycles a batch at most (the shrink period)
+LOG_N = 8 + 2 * K_MAX   # "tile": log words per batch (csrc LG_N), 3 sets
+STATIC_SMEM = 1024      # the tiled kernel's static shared memory, rounded up
+# a tiled launch's stats (csrc SS_*): batches and reruns, then block 0's
+# tiles and its clock64 cycles loading, extending (a cycle's start to the
+# barrier after its extension), in cycles, writing back, at the grid
+# barrier, and summed over the batches the slowest tile's cycles and the
+# most a tile spent extending
+STATS = ("batches", "reruns", "tiles", "clk_load", "clk_ext", "clk_cycles",
+         "clk_write", "clk_wait", "clk_tile_max", "clk_ext_max")
 
 
 def state_width(spec: wk.KSpec) -> int:
@@ -190,66 +214,167 @@ def wide_plain(spec: wk.KSpec, lanes: torch.Tensor, tw: torch.Tensor,
     return _outputs(spec, state.row)
 
 
-def _grid(spec: wk.KSpec) -> int:
-    """Blocks of the wide kernel's cooperative launch for ``spec`` (its
-    mode and its band registry's RH scores of shared memory) on the
-    current card: as many as can be co-resident (occupancy x SMs)."""
+def tile_cap(n: int, k: int) -> int:
+    """Slots a tile of the tiled variant holds: its output slots (at most
+    max(n, 4k): a band's middle that narrow is one tile, and the tiles
+    that hold its edges take 2k each) and a halo of k a side."""
+    return max(n, 4 * k) + 2 * k
+
+
+def tile_smem(spec: wk.KSpec, n: int, k: int) -> int:
+    """Dynamic shared memory of a tiled block (csrc ``smem_of``): the band
+    registry (2 RH ints), the batch's band log (2 (k+1)) and every plane
+    of a tile (``plane_count`` planes of tile_cap + 2 slots)."""
+    return 4 * (2 * spec.rings[0] + 2 * (k + 1)
+                + wk.plane_count(spec) * (tile_cap(n, k) + 2))
+
+
+def pick_tiles(spec: wk.KSpec, smem: int) -> Tuple[str, int, int]:
+    """(variant, n, k) of a launch for ``spec`` on a card whose blocks may
+    take ``smem`` bytes of dynamic shared memory: the first of TILES whose
+    tile fits, else ``"cycle"`` (n = k = 0).  The tiled variant needs every
+    recurrence age at least 1 (x, e1, e2 >= 1), or a cycle's transition
+    would read the score it writes."""
+    if min(spec.x, spec.e1, spec.e2) >= 1:
+        for n, k in TILES:
+            if tile_smem(spec, n, k) <= smem:
+                return "tile", n, k
+    return "cycle", 0, 0
+
+
+def _check_forced(spec: wk.KSpec, tile, batch, variant) -> None:
+    if variant not in (None,) + VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
+    forced = tile is not None or batch is not None
+    if variant == "cycle" and forced:
+        raise ValueError("the cycle variant takes no tile or batch")
+    if tile is not None and (not isinstance(tile, int) or tile < 1):
+        raise ValueError(f"tile must be an int >= 1, got {tile!r}")
+    if batch is not None and (not isinstance(batch, int)
+                              or not 1 <= batch <= K_MAX):
+        raise ValueError(f"batch must be an int in [1, {K_MAX}], got "
+                         f"{batch!r}")
+    if (variant == "tile" or forced) and min(spec.x, spec.e1, spec.e2) < 1:
+        raise ValueError(f"the tiled variant needs x, e1, e2 >= 1, got "
+                         f"x={spec.x} e1={spec.e1} e2={spec.e2}")
+
+
+def _smem_optin(dev) -> int:
+    """The dynamic shared memory a block may opt in to on ``dev``, less the
+    tiled kernel's static shared memory (cached per card)."""
+    if dev.index not in _SMEM:
+        fn = build.load("wavefront_wide", "mwf_wide_smem_optin",
+                        [ctypes.c_void_p])
+        n = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            rc = fn(ctypes.addressof(n))
+        if rc:
+            raise RuntimeError(f"wide kernel shared-memory query failed: "
+                               f"CUDA error {rc}")
+        _SMEM[dev.index] = n.value - STATIC_SMEM
+    return _SMEM[dev.index]
+
+
+_SMEM = {}
+
+
+def _grid(spec: wk.KSpec, variant: str, n: int, k: int) -> int:
+    """Blocks of the wide kernel's cooperative launch (its variant, mode,
+    penalties and tile) on the current card: as many as can be co-resident
+    (occupancy x SMs).  A tile the card cannot hold raises."""
     fn = build.load("wavefront_wide", "mwf_wide_grid",
-                    [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+                    [ctypes.c_int] * 9 + [ctypes.c_void_p])
     blocks = ctypes.c_int(0)
-    rc = fn(spec.mode, spec.rings[0], ctypes.addressof(blocks))
+    rc = fn(VARIANTS.index(variant), spec.mode, spec.x, spec.o1, spec.e1,
+            spec.o2, spec.e2, n, k, ctypes.addressof(blocks))
     if rc:
-        raise RuntimeError(f"wide kernel occupancy query failed: CUDA error "
-                           f"{rc}")
+        raise RuntimeError(f"wide kernel launch refused (variant={variant} "
+                           f"n={n} k={k}, {tile_smem(spec, n, k)} bytes of "
+                           f"shared memory): CUDA error {rc}")
     return blocks.value
 
 
 def wide(spec: wk.KSpec, lanes: torch.Tensor, tw: torch.Tensor,
-         qw: torch.Tensor, state: WideState,
-         t_lim: torch.Tensor) -> torch.Tensor:
+         qw: torch.Tensor, state: WideState, t_lim: torch.Tensor, *,
+         tile: Optional[int] = None, batch: Optional[int] = None,
+         variant: Optional[str] = None) -> torch.Tensor:
     """One call of the wide engine (module docstring); outputs as
     ``wide_plain``.  CPU tensors take the plain version; CUDA tensors
-    launch ``csrc/wavefront_wide.cu`` over the whole card and count the
-    launch in ``wide.launches`` and, by mode, ``wide.launches_by_mode``."""
+    launch ``csrc/wavefront_wide.cu`` over the whole card at
+    ``pick_tiles``' variant, n and k, or at the forced ``variant``, ``tile``
+    (n) and ``batch`` (k); a forced tile or batch implies the tiled variant,
+    and the other one comes from the chooser (or TILES[0]).  A launch the
+    card refuses raises, naming them.  Counts the launch in
+    ``wide.launches``, by mode in ``wide.launches_by_mode`` and by variant
+    in ``wide.launches_by_variant``; ``wide.tiles[mode]`` keeps the last
+    launch's variant, n, k and blocks, and ``wide.last_stats`` its STATS
+    (an int64 tensor on the card; 0 in "cycle")."""
     _check_spec(spec)
     wk._check_inputs(spec, lanes, tw, qw, None)
     _check_state(spec, lanes, state, t_lim)
+    _check_forced(spec, tile, batch, variant)
     if lanes.device.type == "cpu":
         return wide_plain(spec, lanes, tw, qw, state, t_lim)
     if lanes.device.type != "cuda":
         raise ValueError(f"unsupported device {lanes.device}")
-    fn = build.load("wavefront_wide", "mwf_wide",
-                    [ctypes.c_void_p] * 3 + [ctypes.c_longlong,
-                                             ctypes.c_void_p, ctypes.c_int]
-                    + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13
-                    + [ctypes.c_void_p])
     dev = lanes.device
-    B = lanes.shape[0]
-    out = torch.empty((B, OW_N), dtype=torch.int64, device=dev)
-    flags = torch.empty((2 * F_N,), dtype=torch.int32, device=dev)
-    key = (dev.index, spec.mode, spec.rings[0])
     with torch.cuda.device(dev):
+        v, n, k = pick_tiles(spec, _smem_optin(dev))
+        if tile is not None or batch is not None or variant == "tile":
+            n0, k0 = (n, k) if v == "tile" else TILES[0]
+            v, n, k = "tile", tile or n0, batch or k0
+        elif variant == "cycle":
+            v, n, k = "cycle", 0, 0
+        key = (dev.index, v, spec.mode, spec.x, spec.o1, spec.e1, spec.o2,
+               spec.e2, n, k)
         if key not in wide.blocks:
-            wide.blocks[key] = _grid(spec)
+            wide.blocks[key] = _grid(spec, v, n, k)
+        fn = build.load("wavefront_wide", "mwf_wide",
+                        [ctypes.c_void_p] * 3 + [ctypes.c_longlong,
+                                                 ctypes.c_void_p, ctypes.c_int]
+                        + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 16
+                        + [ctypes.c_void_p])
+        B = lanes.shape[0]
+        out = torch.empty((B, OW_N), dtype=torch.int64, device=dev)
+        stats = torch.zeros((len(STATS),), dtype=torch.int64, device=dev)
+        if v == "tile":
+            flags = torch.empty((3 * LOG_N,), dtype=torch.int32, device=dev)
+            scratch = torch.empty((wk.plane_count(spec), spec.W),
+                                  dtype=torch.int32, device=dev)
+        else:
+            flags = torch.empty((2 * F_N,), dtype=torch.int32, device=dev)
+            scratch = None
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(lanes.data_ptr(), tw.data_ptr(), qw.data_ptr(), tw.shape[1],
                 state.row.data_ptr(), state.row.shape[1], t_lim.data_ptr(),
                 state.planes.data_ptr(),
                 state.snap.data_ptr() if state.snap is not None else None,
                 out.data_ptr(), flags.data_ptr(),
-                B, spec.W, spec.S_CAP, spec.mode, spec.cpw,
+                scratch.data_ptr() if scratch is not None else None,
+                stats.data_ptr(), B, spec.W, spec.S_CAP, spec.mode, spec.cpw,
                 spec.x, spec.o1, spec.e1, spec.o2, spec.e2,
-                spec.step, spec.n_snap, wide.blocks[key], stream)
+                spec.step, spec.n_snap, VARIANTS.index(v), n, k,
+                wide.blocks[key], stream)
     if rc:
-        raise RuntimeError(f"wide kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"wide kernel launch refused (variant={v} n={n} "
+                           f"k={k}): CUDA error {rc}")
+    mode = wk.launch_mode(spec, None)
     wide.launches += 1
-    wide.launches_by_mode[wk.launch_mode(spec, None)] += 1
+    wide.launches_by_mode[mode] += 1
+    wide.launches_by_variant[v] += 1
+    wide.tiles[mode] = {"variant": v, "n": n, "k": k,
+                        "blocks": wide.blocks[key]}
+    wide.last_stats = stats
     return out
 
 
 wide.launches = 0
 wide.launches_by_mode = collections.Counter()
-wide.blocks = {}   # cooperative grid size per (CUDA device, mode, RH)
+wide.launches_by_variant = collections.Counter()
+wide.tiles = {}
+wide.last_stats = None
+# cooperative grid size per (CUDA device, variant, mode, penalties, n, k)
+wide.blocks = {}
 
 
 def _grow_snap(spec: wk.KSpec, state: WideState, n2: int) -> wk.KSpec:

@@ -10,13 +10,24 @@ it, its copies included), three CUDA-event timings each after a warm-up
 call.  Each turn is a process of its own, started in that checkout,
 that builds its kernels.
 
-    python3 -m miniwfa_tpu_torch.tools.k1_ab CHECKOUT_A CHECKOUT_B [--paths]
+    python3 -m miniwfa_tpu_torch.tools.k1_ab CHECKOUT_A CHECKOUT_B \
+        [--paths] [--wide]
 
 With ``--paths`` each turn also runs ``chip_smoke.py``'s wide low-mem
 fixtures (step 5000: dissim150k, nbear1m, sv300k, div5m) and div5m in auto
 mode once each, with CUDA events around every W1 call: W1's kernel ms in
 each low-mem run (its pass 2), the run's wall, and div5m auto's
 "W1 with host CIGAR lists" span (``W1``) with its kernel ms.
+
+With ``--wide`` each turn also runs ``chip_smoke.py``'s phase-4d wide
+runs (score on dissim150k, nbear1m and sv300k; ``-p 5000`` on those and
+div5m) through ``align_batch``, with CUDA events around every call of
+the wide kernel K2 (``wavefront_wide.wide``, each call of
+``run_chunked``): per run its wall, pass 1's wall, K2's calls, kernel
+ms, cycles and µs a cycle, its score, and (where the checkout has them)
+the variant, n and k and the tiled launches' stats summed over the run
+(``wavefront_wide.STATS``: batches, reruns, and block 0's tiles and
+clock64 cycles by phase).
 
 Prints one JSON line per turn: the checkout, its times in ms by kernel
 and mode, and by mode the CTAs per lane K1 ran at with the card's count
@@ -165,9 +176,76 @@ print(json.dumps(res))
 """
 
 
+WIDE = r"""
+import json
+import time
+import torch
+from chip_smoke import STEP_MAIN, WIDE_RUNS, gen_case
+from miniwfa_tpu_torch import Options
+from miniwfa_tpu_torch.models import exact
+from miniwfa_tpu_torch.ops import build
+from miniwfa_tpu_torch.ops import wavefront_wide as ww
+
+build.build()   # no nvcc inside the first run's CUDA events
+real, real_p1 = ww.wide, exact._run_pass1
+calls, p1 = [], []
+
+
+def timed(spec, lanes, tw, qw, state, t_lim):
+    t_before = state.row[:, ww.ST_T].clone()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = real(spec, lanes, tw, qw, state, t_lim)
+    end.record()
+    stats = getattr(real, "last_stats", None)
+    calls.append((start, end, int((state.row[:, ww.ST_T] - t_before).sum()),
+                  None if stats is None else stats.clone()))
+    return out
+
+
+def timed_pass1(*a, **kw):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = real_p1(*a, **kw)
+    torch.cuda.synchronize()
+    p1.append(time.perf_counter() - t0)
+    return r
+
+
+timed.__dict__ = real.__dict__
+ww.wide, exact._run_pass1 = timed, timed_pass1
+res = {}
+for run, names in WIDE_RUNS:
+    opt = Options(cigar=True, step=STEP_MAIN) if run != "score" else Options()
+    for name in names:
+        pair = tuple(x.encode() for x in gen_case(name))
+        calls.clear()
+        p1.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = exact.align_batch([pair], opt, device="cuda")[0]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ms = sum(a.elapsed_time(b) for a, b, _, _ in calls)
+        cycles = sum(c for _, _, c, _ in calls)
+        stats = [s.tolist() for _, _, _, s in calls if s is not None]
+        res[f"{name} {run}"] = {
+            "s": r.s, "wall_s": wall, "pass1_s": sum(p1),
+            "wide_calls": len(calls), "wide_kernel_ms": ms,
+            "wide_cycles": cycles, "us_per_cycle": 1e3 * ms / max(cycles, 1),
+            "tiles": dict(getattr(real, "tiles", {})),
+            "stats": (dict(zip(ww.STATS, map(sum, zip(*stats))))
+                      if stats else None)}
+print(json.dumps(res))
+"""
+
+
 def main() -> int:
     a, b = sys.argv[1:3]
-    children = [CHILD] + ([PATHS] if "--paths" in sys.argv[3:] else [])
+    flags = sys.argv[3:]
+    children = ([CHILD] + ([PATHS] if "--paths" in flags else [])
+                + ([WIDE] if "--wide" in flags else []))
     for root in (a, b, b, a):
         times = {}
         for child in children:

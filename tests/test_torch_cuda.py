@@ -698,3 +698,209 @@ def test_chain_ptrs_matches_plain_on_wide_pass1(goldens, dev):
     out, snap, _ = ww.run_chunked(spec, *args)
     assert int(out[:, wk.O_SNC].max()) > 0
     _chains_equal(snap, out[:, wk.O_LP], out[:, wk.O_SNC])
+
+
+# K2's tiled variant against wide_plain, bit for bit: every output, the
+# state row, the planes and the snapshot rows, at forced small tiles (many
+# tile boundaries and edges on the goldens and the 8 kb pairs) and at the
+# chooser's
+
+WIDE_TILES = [(32, 1), (32, 7), (64, 7), (64, 32)]
+_WIDE_WANT = {}
+
+
+def _wide_inputs(dev, ts, qs, opt, W=16384, S_CAP=1100, lane=None):
+    """The wide engine's spec and card inputs; ``lane`` sets lane columns
+    (L_MS, L_MI) of every lane."""
+    mode = wk.MODE_PASS1 if opt.step else wk.MODE_SCORE
+    spec, lanes, tw, qw = exact.kernel_inputs(opt, mode, W, S_CAP, ts, qs)
+    for col, v in (lane or {}).items():
+        lanes[:, col] = v
+    return spec, [torch.from_numpy(a).to(dev) for a in (lanes, tw, qw)]
+
+
+def _wide_vs_plain(spec, args, lims=(), key=None, **kw):
+    """wide_plain in one call against the kernel in calls ending at each of
+    ``lims`` and at the end, with ``kw`` forced; returns the plain outputs
+    and the kernel's launches by variant over the run."""
+    B, dev = args[0].shape[0], args[0].device
+    big = torch.full((B,), 1 << 40, dtype=torch.int64, device=dev)
+    if key is None or key not in _WIDE_WANT:
+        _WIDE_WANT.clear()   # one run's plain state at a time
+        pst = ww.new_state(spec, args[0])
+        want = ww.wide_plain(spec, *args, pst, big)
+        if key is not None:
+            _WIDE_WANT[key] = (want, pst)
+    else:
+        want, pst = _WIDE_WANT[key]
+    kst = ww.new_state(spec, args[0])
+    before = ww.wide.launches_by_variant.copy()
+    for lim in (*lims, 1 << 40):
+        got = ww.wide(spec, *args, kst,
+                      torch.full((B,), lim, dtype=torch.int64, device=dev),
+                      **kw)
+    assert torch.equal(got, want)
+    assert torch.equal(kst.row, pst.row)
+    assert torch.equal(kst.planes, pst.planes)
+    assert (kst.snap is None) == (pst.snap is None)
+    assert kst.snap is None or torch.equal(kst.snap, pst.snap)
+    return want, ww.wide.launches_by_variant - before
+
+
+@pytest.mark.parametrize("tile,batch", WIDE_TILES)
+@pytest.mark.parametrize("step", [0, 16, 64, 100])
+def test_wide_tiles_match_plain_on_goldens(goldens, dev, step, tile, batch):
+    ts, qs = _golden_pairs(goldens)
+    spec, args = _wide_inputs(dev, ts, qs, Options(cigar=bool(step),
+                                                   step=step))
+    want, used = _wide_vs_plain(spec, args, key=("goldens", step),
+                                tile=tile, batch=batch)
+    assert int(want[:, wk.O_DONE].sum()) == len(ts)
+    assert used == {"tile": 1}
+
+
+@pytest.mark.parametrize("step", [0, 64])
+@pytest.mark.parametrize("kw", [dict(), dict(tile=64, batch=7)])
+def test_wide_tiles_match_plain_on_bench8k(dev, step, kw):
+    ts, qs = _bench8k()
+    spec, args = _wide_inputs(dev, ts, qs, Options(cigar=bool(step),
+                                                   step=step), S_CAP=2048)
+    want, used = _wide_vs_plain(spec, args, key=("bench8k", step), **kw)
+    assert int(want[:, wk.O_DONE].sum()) == len(ts)
+    assert used == {"tile": 1}
+
+
+@pytest.mark.parametrize("chunk", [77, 16])
+@pytest.mark.parametrize("kw", [dict(), dict(tile=32, batch=7)])
+@pytest.mark.parametrize("step", [0, 16])
+def test_wide_tiles_chunked_match_plain(goldens, dev, monkeypatch, step, kw,
+                                        chunk):
+    """run_chunked's calls of ``chunk`` cycles a lane (pauses on every
+    kind of cycle) with the tiled variant: outputs and snapshot rows."""
+    ts, qs = _golden_pairs(goldens)
+    spec, args = _wide_inputs(dev, ts, qs, Options(cigar=bool(step),
+                                                   step=step))
+    want, _ = _wide_vs_plain(spec, args, key=("goldens", step))
+    real = ww.wide
+
+    def forced(*a):
+        return real(*a, **kw)
+
+    # the counters live on the function the module's name points to
+    forced.__dict__ = real.__dict__
+    monkeypatch.setattr(ww, "wide", forced)
+    monkeypatch.setattr(ww, "CYCLES_PER_CALL", chunk * len(ts))
+    before = real.launches_by_variant["tile"]
+    out, snap, _ = ww.run_chunked(spec, *args)
+    assert real.launches_by_variant["tile"] - before >= 3
+    assert torch.equal(out, want[:, :wk.O_N])
+    assert step == 0 or torch.equal(snap, _WIDE_WANT[("goldens", step)][1]
+                                    .snap)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(tile=64, batch=32),
+                                dict(tile=32, batch=7)])
+@pytest.mark.parametrize("step", [0, 16, 64])
+def test_wide_tiles_pause_on_snapshot_shrink_and_mid_batch(goldens, dev,
+                                                           step, kw):
+    """Pauses on snapshot cycles (15, 63), right after them (16, 64), on
+    the shrink cycle (255), right after it (256), and inside a batch."""
+    ts, qs = _golden_pairs(goldens)
+    spec, args = _wide_inputs(dev, ts, qs, Options(cigar=bool(step),
+                                                   step=step))
+    _wide_vs_plain(spec, args, lims=(5, 15, 16, 40, 63, 64, 101, 255, 256,
+                                      257, 300, 777),
+                   key=("goldens", step), **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(tile=32, batch=1),
+                                dict(tile=32, batch=32)])
+@pytest.mark.parametrize("step", [0, 100])
+def test_wide_tiles_shrink_pair(dev, step, kw):
+    """ROADMAP's shrink pair past the 256-cycle shrink: s=294 and
+    n_iter=27254, as the plain version."""
+    opt = Options(cigar=bool(step), step=step, **SHRINK_PENS)
+    spec, args = _wide_inputs(dev, [SHRINK_PAIR[0]] * 3,
+                              [SHRINK_PAIR[1]] * 3, opt, W=1024, S_CAP=1024)
+    want, _ = _wide_vs_plain(spec, args, lims=(255, 256), **kw)
+    assert want[:, wk.O_S].tolist() == [294] * 3
+    assert want[:, wk.O_NITER].tolist() == [27254] * 3
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(tile=32, batch=7)])
+@pytest.mark.parametrize("step", [0, 16])
+@pytest.mark.parametrize("o2", [40, 100])
+def test_wide_tiles_large_gap_open(goldens, dev, o2, step, kw):
+    """o2 = 40 and 100 (max_pen 41 and 101) on the goldens of at most
+    256 bp, SCORE and PASS1 at step 16, at W=1024 (their bands stay
+    narrower; PASS1's snapshot rows at W=16384 would take 36 GB)."""
+    small = [c for c in goldens["cases"]
+             if max(len(c["t"]), len(c["q"])) <= 256]
+    opt = Options(o2=o2, e2=1, cigar=bool(step), step=step)
+    spec, args = _wide_inputs(dev, [c["t"].encode("latin1") for c in small],
+                              [c["q"].encode("latin1") for c in small], opt,
+                              W=1024, S_CAP=512)
+    want, used = _wide_vs_plain(spec, args, lims=(100,), **kw)
+    assert int(want[:, wk.O_DONE].sum()) == len(small)
+    assert used == {"tile": 2}
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(tile=32, batch=7)])
+@pytest.mark.parametrize("step,stop", [
+    (0, "max_s"), (0, "max_iter"), (0, "window"), (16, "max_s"),
+    (16, "max_iter"), (16, "window"), (16, "rows")])
+def test_wide_tiles_stops_inside_a_batch(goldens, dev, step, stop, kw):
+    """A max_s stop (score 45), a max_iter stop (3000 cells), a window
+    overflow (W = 200) and, in PASS1, running out of snapshot rows (2 rows)
+    that fall inside a batch end the lane at that cycle, as the plain
+    version."""
+    import dataclasses
+    ts, qs = _golden_pairs(goldens)
+    opt = Options(cigar=bool(step), step=step)
+    lane = {"max_s": {wk.L_MS: 45}, "max_iter": {wk.L_MI: 3000}}.get(stop,
+                                                                     {})
+    spec, args = _wide_inputs(dev, ts, qs, opt,
+                              W=200 if stop == "window" else 16384,
+                              lane=lane)
+    if stop == "rows":
+        spec = dataclasses.replace(spec, n_snap=2)
+    want, _ = _wide_vs_plain(spec, args, **kw)
+    col = {"max_s": wk.O_STOP, "max_iter": wk.O_STOP}.get(stop, wk.O_OVFB)
+    assert bool(want[:, col].any())
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(tile=32, batch=7)])
+@pytest.mark.parametrize("step", [0, 4])
+def test_wide_tiles_empty_lanes(dev, step, kw):
+    ts = [b"", b"", b"AAAA", b"ACGT", b"A"]
+    qs = [b"", b"ACG", b"", b"ACGT", b"G"]
+    spec, args = _wide_inputs(dev, ts, qs, Options(cigar=bool(step),
+                                                   step=step), W=512,
+                              S_CAP=256)
+    want, _ = _wide_vs_plain(spec, args, **kw)
+    assert int(want[:, wk.O_DONE].sum()) == len(ts)
+
+
+@pytest.mark.parametrize("step", [0, 16])
+def test_wide_cycle_variant_on_goldens(goldens, dev, step):
+    """The forced "cycle" variant (the per-cycle body) on the goldens."""
+    ts, qs = _golden_pairs(goldens)
+    spec, args = _wide_inputs(dev, ts, qs, Options(cigar=bool(step),
+                                                   step=step))
+    _, used = _wide_vs_plain(spec, args, lims=(256,), key=("goldens", step),
+                             variant="cycle")
+    assert used == {"cycle": 2}
+
+
+def test_wide_tile_refused_launch_raises(goldens, dev):
+    """A forced tile past the card's shared memory is refused and raises,
+    naming n, k and the variant; nothing is counted."""
+    ts, qs = _golden_pairs(goldens)
+    spec, args = _wide_inputs(dev, ts[:2], qs[:2], Options())
+    st = ww.new_state(spec, args[0])
+    before = ww.wide.launches
+    with pytest.raises(RuntimeError, match="variant=tile n=4096 k=256"):
+        ww.wide(spec, *args, st,
+                torch.full((2,), 100, dtype=torch.int64, device=dev),
+                tile=4096, batch=256)
+    assert ww.wide.launches == before
