@@ -25,7 +25,9 @@
    (step 16) and the 8 kb pairs (step 200), and SCORE on the goldens of at
    most 256 bp at the large gap-open costs, in one call (every output, the
    state row, the planes and the snapshot rows) and in calls of 77 cycles
-   a lane (every output and the snapshot rows);
+   a lane (every output and the snapshot rows), at the chooser's variant
+   and tile, and on the goldens also at a forced small tile and in the
+   forced "cycle" variant;
 3. holds the CIGAR walker (W1) against its plain version on phase 2's
    traceback outputs, K1's and K3's: identical run lists; and the
    checkpoint chain (W2) against its plain version on K1's snapshots;
@@ -76,8 +78,11 @@ shape: the wavefront entry's SCORE's, the gaps entry's TB's, the wide
 entry's nbear1m score's, the multi entry's SCORE's at G=4; ``plain_ms`` is
 the plain version's at the 8 kb shape (the multi entry's at the 2048 x 1
 kb shape), beside the kernel's own time there, ``plain_shape_kernel_ms``;
-``modes`` holds every mode's launches in the main path's runs, its
-times and (K1) its C and co-resident cluster count, the wide entry's
+the wide entry's ``launches_by_variant`` counts phase 4d's launches of
+each variant, ``checks_by_variant`` those of phase 2+3's comparisons
+with wide_plain; ``modes`` holds every mode's launches in the main path's
+runs, its times and (K1) its C and co-resident cluster count, the wide
+entry's
 PASS1 those of div5m's pass 1, summed over its calls; ``launches``
 sums phase 4's runs, ``main_launches`` (W1, W2) the main path's alone;
 the walk entry also carries the variant each shape picked and each
@@ -720,15 +725,17 @@ SMALL_TILE = dict(tile=32, batch=7)
 
 def wide_phases(smoke: Smoke, card: str) -> dict:
     """Phase 2+3, wide: the wide kernel against wide_plain on the goldens
-    (at the chooser's tile and at SMALL_TILE) and on 8 of the 8 kb
-    benchmark pairs, SCORE and PASS1, at W=16384 (the JAX wide kernel's
-    smallest window; the kernel takes any window, and on the main path
-    only bands past K1's reach it).  Returns the one-call times at the
-    8 kb shape, by mode."""
+    (at the chooser's tile, at SMALL_TILE and in the "cycle" variant) and
+    on 8 of the 8 kb benchmark pairs, SCORE and PASS1, at W=16384 (the JAX
+    wide kernel's smallest window; the kernel takes any window, and on the
+    main path only bands past K1's reach it).  Returns the one-call times
+    at the 8 kb shape, by mode, and under "checks" the launches these
+    comparisons made, by variant."""
     import torch
     from miniwfa_tpu_torch import Options
     from miniwfa_tpu_torch.models import exact
     from miniwfa_tpu_torch.ops import wavefront_kernel as wk
+    from miniwfa_tpu_torch.ops import wavefront_wide as ww
 
     print("phase 2+3, wide: the wide kernel against wide_plain", flush=True)
     with open(os.path.join(ROOT, "tests", "data", "goldens.json")) as f:
@@ -744,6 +751,7 @@ def wide_phases(smoke: Smoke, card: str) -> dict:
              [q.encode() for _, q in pairs], 2048, 200,
              [g["s"] for g in bgold[:8]]))
     times = {}
+    before = ww.wide.launches_by_variant.copy()
     for label, ts, qs, s_cap, step, want_s in runs:
         for mode in (wk.MODE_SCORE, wk.MODE_PASS1):
             p1 = mode == wk.MODE_PASS1
@@ -761,6 +769,10 @@ def wide_phases(smoke: Smoke, card: str) -> dict:
                 # many tile boundaries and band edges a batch
                 smoke.wide_pair(label, spec, args, plain=t["plain"],
                                 **SMALL_TILE)
+                # the per-cycle body, which the chooser keeps for penalty
+                # sets whose smallest tile does not fit
+                smoke.wide_pair(label, spec, args, plain=t["plain"],
+                                variant="cycle")
             del t["plain"]
             if label == "bench8k":
                 name = wk.launch_mode(spec, None)
@@ -785,7 +797,10 @@ def wide_phases(smoke: Smoke, card: str) -> dict:
         smoke.check(int(want[:, wk.O_DONE].sum()) == len(small),
                     f"wide goldens-small o2={o2}: every lane done")
         del want, args
-    from miniwfa_tpu_torch.ops import wavefront_wide as ww
+    times["checks"] = {v: ww.wide.launches_by_variant[v] - before[v]
+                       for v in ww.VARIANTS}
+    smoke.check(times["checks"]["cycle"] > 0, f"wide: the cycle variant "
+                f"held against wide_plain ({times['checks']})")
     print(f"  wide kernel grid (blocks of 512 threads, by device, variant, "
           f"mode, penalties, n, k): {ww.wide.blocks}", flush=True)
     return times
@@ -1958,7 +1973,9 @@ def main() -> int:
          "max_abs_err": smoke.err["wavefront_wide"],
          **timed(wtime, wtimes8["SCORE"]), "library_ms": None,
          **{k: wtime.get(k) for k in ("variant", "n", "k")},
-         "launches_by_variant": wl["variants"],
+         "launches_by_variant": {v: wl["variants"].get(v, 0)
+                                 for v in ("tile", "cycle")},
+         "checks_by_variant": wtimes8["checks"],
          "modes": wmodes, "path_spec_checks": wreal},
         {"name": "wavefront_multi", "route": "cuda",
          "source": "miniwfa_tpu_torch/csrc/wavefront.cu",

@@ -61,7 +61,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bulk.cuh"
+
 namespace {
+
+using namespace mwf;
 
 enum { M_ANC, M_TL, M_QL, M_S, M_LS, M_N };
 enum { OP_I = 1, OP_D = 2, OP_EQ = 7, OP_X = 8 };
@@ -186,55 +190,6 @@ __global__ void walk_thread_kernel(Params p) {
 }
 
 // -------------------------------------------------------------------- warp
-
-__device__ __forceinline__ unsigned smem_u32(const void* ptr) {
-  return (unsigned)__cvta_generic_to_shared(ptr);
-}
-
-__device__ __forceinline__ void bar_init(unsigned long long* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-// One arrival that also expects `bytes` of bulk copies on the barrier.
-__device__ __forceinline__ void bar_expect(unsigned long long* bar,
-                                           unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Wait for the completion of the barrier's phase of parity `parity`.  A
-// copy that has not landed after 2^22 tries (seconds, against the
-// microseconds a tile takes) is a fault: trap rather than hang the card.
-__device__ __forceinline__ void bar_wait(unsigned long long* bar,
-                                         unsigned parity) {
-  unsigned done;
-  for (int tries = 0;; ++tries) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (tries == (1 << 22)) __trap();
-  }
-}
-
-// `bytes` (a multiple of 16, both ends 16-byte aligned) from global to
-// shared memory, completing on `bar`.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          unsigned bytes,
-                                          unsigned long long* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
 
 // One box of the tensor map (the tb viewed as [B*S_CAP rows, W] bytes) at
 // (col, row) into shared memory (128-byte aligned), completing on `bar`.

@@ -39,6 +39,12 @@
 //     lies inside the band of every score of the batch (the band only
 //     grows between two shrinks) or outside all its new bands, so it needs
 //     no scalar but the start's.  A narrow band in one tile is its own;
+//   * a tile's load: one cp.async.bulk a plane row on an mbarrier, from
+//     the 16-byte slot at or below its first slot to the one at or past
+//     its last (W % 4 == 0; ops/wavefront_wide.py::pick_tiles), a NEG pad
+//     written either side after; a proxy fence before every load orders
+//     the block's use of the tile and the grid's plane writes before the
+//     last grid barrier ahead of the copies;
 //   * one grid barrier, then every block updates the lane's scalars, the
 //     band registry and n_iter from the log.  A termination at cycle j
 //     inside the batch (the tile that holds the end diagonal logs it) runs
@@ -51,8 +57,9 @@
 // cells included.  The first batch of a lane carries the whole window.
 //
 // "cycle" (wide_cycle): the per-cycle body, for penalty sets whose
-// smallest tile does not fit in shared memory (max_pen past ~1500), or
-// forced.  A cooperative launch puts as many blocks on the card as can be
+// smallest tile does not fit in shared memory (max_pen past ~1145 in
+// SCORE, ~580 in PASS1), a zero age or a window that is no multiple of 4,
+// or forced.  A cooperative launch puts as many blocks on the card as can be
 // co-resident, and every block takes a contiguous share of the live band
 // in each phase of a cycle; grid.sync() stands where K1 has a block
 // barrier: after the extension, after the PASS1 snapshot, after the
@@ -81,7 +88,7 @@
 // block barrier, then the transition's shared-memory reads (its sources
 // described once a cycle by thread 0 ahead of the barrier), unchecked in
 // a cycle whose source bands all cover the tile.  Per batch come the
-// tiles' loads and write-backs, 2 x (NP+1) words a slot in SCORE and
+// tiles' bulk loads and write-backs, 2 x (NP+1) words a slot in SCORE and
 // 2 x (2NP+1) in PASS1 (plus the halos, 2k a tile), against ~90-130
 // bytes a diagonal a cycle of L2/HBM traffic and 2-4 grid barriers a
 // cycle in "cycle"; and, when the band fills less than a wave of tiles,
@@ -91,6 +98,7 @@
 
 #include <cooperative_groups.h>
 
+#include "bulk.cuh"
 #include "wavefront_common.cuh"
 
 namespace cg = cooperative_groups;
@@ -137,6 +145,19 @@ struct Params {
 // one tile) and a halo of k a side.  ops/wavefront_wide.py::tile_smem.
 __host__ __device__ constexpr int tile_cap(int n, int k) {
   return (n > 4 * k ? n : 4 * k) + 2 * k;
+}
+
+// Ints a tile plane takes in shared memory: a row is copied from its
+// 16-byte aligned slot la & ~3 up to lb | 3 (at most 3 slots more a side)
+// into offset 4, a pad slot either side of [la, lb], 16-byte rows.
+__host__ __device__ constexpr int tile_stride(int n, int k) {
+  return (tile_cap(n, k) + 11 + 3) & ~3;
+}
+
+// Ints before the first tile plane: the band registry and the batch's
+// band log, rounded up to 16 bytes.
+__host__ __device__ constexpr int tile_head(int RH, int k) {
+  return (2 * RH + 2 * (k + 1) + 3) & ~3;
 }
 
 // This block's contiguous share [lo, hi] of slots [a, e].
@@ -614,17 +635,18 @@ __global__ void __launch_bounds__(THREADS) wide_tiled(Params p) {
   const int cpw = p.cpw, bits = 32 / cpw;
   const int logc = cpw == 16 ? 4 : 2, logb = cpw == 16 ? 1 : 3;
   const int n = p.n, K = p.k;
-  const int STR = tile_cap(n, K) + 2;  // a tile plane: pad, cells, pad
+  const int STR = tile_stride(n, K);
   const int poff = IS_P1 ? NP * STR : 0;
   const long long gth = (long long)gridDim.x * THREADS;
   const long long gid = (long long)blockIdx.x * THREADS + tid;
 
-  extern __shared__ int sm[];
+  extern __shared__ __align__(16) int sm[];
   int* bnd_lo = sm;
   int* bnd_hi = sm + RH;
   int* blo = sm + 2 * RH;  // bands of the batch's scores t0+1 ..
   int* bhi = blo + K + 1;
-  int* tile = bhi + K + 1;
+  int* tile = sm + tile_head(RH, K);
+  __shared__ __align__(8) unsigned long long s_bar;  // the tile's copies
   __shared__ Lane L;
   __shared__ Plan P;
   __shared__ int s_flag[3], s_term, s_tile;
@@ -637,6 +659,13 @@ __global__ void __launch_bounds__(THREADS) wide_tiled(Params p) {
       for (long long s = lo + gid; s <= hi; s += gth)
         __stcg(dst + pl * Wz + s, __ldcg(src + pl * Wz + s));
   };
+
+  if (tid == 0) {
+    bar_init(&s_bar);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  unsigned phase = 0;  // parity of s_bar's current phase
 
   long long n_batch = 0, n_rerun = 0;
   long long ss[SS_N] = {};  // block 0's counters (its thread 0)
@@ -797,6 +826,9 @@ __global__ void __launch_bounds__(THREADS) wide_tiled(Params p) {
         // --- the tiles, from an atomic queue
         for (;;) {
           if (tid == 0) s_tile = atomicAdd(lg + LG_Q, 1);
+          // the block's generic accesses of the tile (and the grid's plane
+          // writes before the last grid barrier) before the bulk copies
+          asm volatile("fence.proxy.async;" ::: "memory");
           __syncthreads();
           const int jt = s_tile;
           if (jt >= P.ntiles) break;
@@ -804,24 +836,21 @@ __global__ void __launch_bounds__(THREADS) wide_tiled(Params p) {
           tile_range(P, P.n, jt, a, e);
           if (clk) c0 = clock64();
           const int la = max(a - P.kp, 0), lb = min(e + P.kp, W - 1);
-          const int len = lb - la + 1;
-          // eight planes' loads in flight before their shared stores
-          for (int c = tid; c < len; c += THREADS) {
-            const int* src = Pc + la + c;
-            int* dst = tile + 1 + c;
-            int pl = 0;
-            for (; pl + 8 <= NPL; pl += 8) {
-              int v[8];
-#pragma unroll
-              for (int u = 0; u < 8; ++u) v[u] = __ldcg(src + (pl + u) * Wz);
-#pragma unroll
-              for (int u = 0; u < 8; ++u) dst[(size_t)(pl + u) * STR] = v[u];
-            }
-            for (; pl < NPL; ++pl) dst[(size_t)pl * STR] = __ldcg(src + pl * Wz);
-          }
+          // plane pl of the tile at tile[at(pl) + slot]
+          const int la4 = la & ~3;
+          auto at = [&](int pl) { return pl * STR + 4 - la4; };
+          // one bulk copy a plane of slots [la & ~3, lb | 3] (W % 4 == 0),
+          // then NEG pads at la - 1 and lb + 1
+          const unsigned row_b = (unsigned)((lb | 3) - la4 + 1) * 4u;
+          if (tid == 0) bar_expect(&s_bar, row_b * NPL);
+          for (int pl = tid; pl < NPL; pl += THREADS)
+            bulk_copy(tile + (size_t)pl * STR + 4, Pc + pl * Wz + la4, row_b,
+                      &s_bar);
+          bar_wait(&s_bar, phase);
+          phase ^= 1;
           for (int pl = tid; pl < NPL; pl += THREADS) {
-            tile[(size_t)pl * STR] = NEG;
-            tile[(size_t)pl * STR + len + 1] = NEG;
+            tile[at(pl) + la - 1] = NEG;
+            tile[at(pl) + lb + 1] = NEG;
           }
           if (tid == 0) s_term = s_flag[0] = s_flag[1] = s_flag[2] = 0;
           __syncthreads();
@@ -835,8 +864,6 @@ __global__ void __launch_bounds__(THREADS) wide_tiled(Params p) {
             uext = 0;
           }
 
-          // plane pl of the tile at tile[at(pl) + slot]
-          auto at = [&](int pl) { return pl * STR + 1 - la; };
           const int oLv = at(NPL - 1);
           const int A = anc + a, Bd = anc + e;  // output diagonals
           const int t0 = P.t0;
@@ -1081,7 +1108,7 @@ __global__ void __launch_bounds__(THREADS) wide_tiled(Params p) {
           }
           // --- write-back of the output cells, every plane
           for (int pl = 0; pl < NPL; ++pl) {
-            const int* src = tile + (size_t)pl * STR + 1 + (a - la);
+            const int* src = tile + at(pl) + a;
             int* dst = Pn + pl * Wz + a;
             for (int c = tid; c <= e - a; c += THREADS) __stcg(dst + c, src[c]);
           }
@@ -1210,10 +1237,18 @@ const void* kernel_of(int variant, int mode) {
 long long smem_of(int variant, int mode, int RH, int NP, int n, int k) {
   long long ints = 2LL * RH;
   if (variant == V_TILE)
-    ints += 2LL * (k + 1) +
-            (long long)(NP * (mode == MODE_PASS1 ? 2 : 1) + 1) *
-                (tile_cap(n, k) + 2);
+    ints = tile_head(RH, k) +
+           (long long)(NP * (mode == MODE_PASS1 ? 2 : 1) + 1) *
+               tile_stride(n, k);
   return ints * (long long)sizeof(int);
+}
+
+// smem_of at these penalties (RH ring slots of H, NP planes).
+long long launch_smem(int variant, int mode, int x, int o1, int e1, int o2,
+                      int e2, int n, int k) {
+  const int RH = max(x, max(o1 + e1, o2 + e2)) + 1;
+  const int NP = RH + 2 * (max(e1, 1) + 1) + 2 * (max(e2, 1) + 1);
+  return smem_of(variant, mode, RH, NP, n, k);
 }
 
 cudaError_t prepare(int variant, int mode, int x, int o1, int e1, int o2,
@@ -1221,9 +1256,7 @@ cudaError_t prepare(int variant, int mode, int x, int o1, int e1, int o2,
   if (variant != V_TILE && variant != V_CYCLE) return cudaErrorInvalidValue;
   if (variant == V_TILE && (n < 1 || k < 1 || k > K_MAX))
     return cudaErrorInvalidValue;
-  const int RH = max(x, max(o1 + e1, o2 + e2)) + 1;
-  const int NP = RH + 2 * (max(e1, 1) + 1) + 2 * (max(e2, 1) + 1);
-  const long long bytes = smem_of(variant, mode, RH, NP, n, k);
+  const long long bytes = launch_smem(variant, mode, x, o1, e1, o2, e2, n, k);
   if (bytes > (1 << 30)) return cudaErrorInvalidValue;
   *smem = (int)bytes;
   if (*smem <= SMEM_DEFAULT) return cudaSuccess;
@@ -1234,13 +1267,29 @@ cudaError_t prepare(int variant, int mode, int x, int o1, int e1, int o2,
 
 }  // namespace
 
-// The dynamic shared memory a block may opt in to on the current card.
-extern "C" int mwf_wide_smem_optin(int* bytes) {
-  int dev;
+// The dynamic shared memory a tiled block in `mode` may opt in to on the
+// current card: the card's opt-in limit less the kernel's static shared
+// memory, as the runtime reports both.
+extern "C" int mwf_wide_smem_optin(int mode, int* bytes) {
+  int dev, optin;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaDeviceGetAttribute(
-      bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  err = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, kernel_of(V_TILE, mode));
+  if (err != cudaSuccess) return (int)err;
+  *bytes = optin - (int)fa.sharedSizeBytes;
+  return 0;
+}
+
+// The dynamic shared memory a launch of `variant` in `mode` at these
+// penalties and tile asks for (ops/wavefront_wide.py::tile_smem).
+extern "C" int mwf_wide_smem(int variant, int mode, int x, int o1, int e1,
+                             int o2, int e2, int n, int k, long long* bytes) {
+  *bytes = launch_smem(variant, mode, x, o1, e1, o2, e2, n, k);
+  return 0;
 }
 
 // Blocks of one cooperative launch of `variant` in `mode` at these

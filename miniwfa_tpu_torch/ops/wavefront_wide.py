@@ -20,9 +20,13 @@ unchanged.  Two implementations:
   back; one grid barrier a batch), and ``"cycle"``, the per-cycle body
   (every SM takes a share of the band each cycle, 2-4 grid barriers a
   cycle) for penalty sets whose smallest tile does not fit in shared
-  memory.  ``pick_tiles`` chooses the variant and the tile's n (output
-  slots) and k (cycles a batch) from the spec and the card's shared
-  memory; ``wide(..., tile=n, batch=k, variant=...)`` forces them.
+  memory, a zero recurrence age, or a window that is no multiple of 4
+  (the tiles load each plane row by one 16-byte aligned bulk copy).
+  ``pick_tiles`` chooses the variant and the tile's n (output slots) and
+  k (cycles a batch) from the spec and the card's shared memory (its
+  opt-in limit less the tiled kernel's static shared memory, both as the
+  card reports them); ``wide(..., tile=n, batch=k, variant=...)`` forces
+  them.
 
 ``wide`` dispatches on the device of its inputs: CPU tensors run the plain
 version, CUDA tensors launch the kernel (or raise).
@@ -77,7 +81,6 @@ VARIANTS = ("tile", "cycle")
 TILES = ((960, 32), (448, 32), (192, 32), (96, 16), (32, 1))
 K_MAX = 256         # cycles a batch at most (the shrink period)
 LOG_N = 8 + 2 * K_MAX   # "tile": log words per batch (csrc LG_N), 3 sets
-STATIC_SMEM = 1024      # the tiled kernel's static shared memory, rounded up
 # a tiled launch's stats (csrc SS_*): batches and reruns, then block 0's
 # tiles and its clock64 cycles loading, extending (a cycle's start to the
 # barrier after its extension), in cycles, writing back, at the grid
@@ -223,10 +226,15 @@ def tile_cap(n: int, k: int) -> int:
 
 def tile_smem(spec: wk.KSpec, n: int, k: int) -> int:
     """Dynamic shared memory of a tiled block (csrc ``smem_of``): the band
-    registry (2 RH ints), the batch's band log (2 (k+1)) and every plane
-    of a tile (``plane_count`` planes of tile_cap + 2 slots)."""
-    return 4 * (2 * spec.rings[0] + 2 * (k + 1)
-                + wk.plane_count(spec) * (tile_cap(n, k) + 2))
+    registry (2 RH ints) and the batch's band log (2 (k+1)), rounded up to
+    16 bytes, then every plane of a tile (``plane_count`` rows of
+    tile_cap + 11 ints rounded up to 16 bytes: the bulk copy of a row
+    starts and ends on 16-byte slot boundaries, up to 3 slots past the
+    tile a side, with a pad slot either side)."""
+    def up4(v):
+        return (v + 3) // 4 * 4
+    return 4 * (up4(2 * spec.rings[0] + 2 * (k + 1))
+                + wk.plane_count(spec) * up4(tile_cap(n, k) + 11))
 
 
 def pick_tiles(spec: wk.KSpec, smem: int) -> Tuple[str, int, int]:
@@ -234,12 +242,17 @@ def pick_tiles(spec: wk.KSpec, smem: int) -> Tuple[str, int, int]:
     take ``smem`` bytes of dynamic shared memory: the first of TILES whose
     tile fits, else ``"cycle"`` (n = k = 0).  The tiled variant needs every
     recurrence age at least 1 (x, e1, e2 >= 1), or a cycle's transition
-    would read the score it writes."""
-    if min(spec.x, spec.e1, spec.e2) >= 1:
+    would read the score it writes, and a window of whole 16-byte words
+    (W % 4 == 0) for its bulk copies."""
+    if _tiles_apply(spec):
         for n, k in TILES:
             if tile_smem(spec, n, k) <= smem:
                 return "tile", n, k
     return "cycle", 0, 0
+
+
+def _tiles_apply(spec: wk.KSpec) -> bool:
+    return min(spec.x, spec.e1, spec.e2) >= 1 and spec.W % 4 == 0
 
 
 def _check_forced(spec: wk.KSpec, tile, batch, variant) -> None:
@@ -254,25 +267,27 @@ def _check_forced(spec: wk.KSpec, tile, batch, variant) -> None:
                               or not 1 <= batch <= K_MAX):
         raise ValueError(f"batch must be an int in [1, {K_MAX}], got "
                          f"{batch!r}")
-    if (variant == "tile" or forced) and min(spec.x, spec.e1, spec.e2) < 1:
-        raise ValueError(f"the tiled variant needs x, e1, e2 >= 1, got "
-                         f"x={spec.x} e1={spec.e1} e2={spec.e2}")
+    if (variant == "tile" or forced) and not _tiles_apply(spec):
+        raise ValueError(f"the tiled variant needs x, e1, e2 >= 1 and "
+                         f"W % 4 == 0, got x={spec.x} e1={spec.e1} "
+                         f"e2={spec.e2} W={spec.W}")
 
 
-def _smem_optin(dev) -> int:
-    """The dynamic shared memory a block may opt in to on ``dev``, less the
-    tiled kernel's static shared memory (cached per card)."""
-    if dev.index not in _SMEM:
+def _smem_optin(dev, mode: int) -> int:
+    """The dynamic shared memory a tiled block in ``mode`` may opt in to on
+    ``dev``: the card's opt-in limit less the kernel's static shared
+    memory, as the card reports them (cached per card and mode)."""
+    if (dev.index, mode) not in _SMEM:
         fn = build.load("wavefront_wide", "mwf_wide_smem_optin",
-                        [ctypes.c_void_p])
+                        [ctypes.c_int, ctypes.c_void_p])
         n = ctypes.c_int(0)
         with torch.cuda.device(dev):
-            rc = fn(ctypes.addressof(n))
+            rc = fn(mode, ctypes.addressof(n))
         if rc:
             raise RuntimeError(f"wide kernel shared-memory query failed: "
                                f"CUDA error {rc}")
-        _SMEM[dev.index] = n.value - STATIC_SMEM
-    return _SMEM[dev.index]
+        _SMEM[dev.index, mode] = n.value
+    return _SMEM[dev.index, mode]
 
 
 _SMEM = {}
@@ -319,12 +334,15 @@ def wide(spec: wk.KSpec, lanes: torch.Tensor, tw: torch.Tensor,
         raise ValueError(f"unsupported device {lanes.device}")
     dev = lanes.device
     with torch.cuda.device(dev):
-        v, n, k = pick_tiles(spec, _smem_optin(dev))
+        v, n, k = pick_tiles(spec, _smem_optin(dev, spec.mode))
         if tile is not None or batch is not None or variant == "tile":
             n0, k0 = (n, k) if v == "tile" else TILES[0]
             v, n, k = "tile", tile or n0, batch or k0
         elif variant == "cycle":
             v, n, k = "cycle", 0, 0
+        if v == "tile" and state.planes.data_ptr() % 16:
+            raise ValueError("the tiled variant copies plane rows in 16-byte "
+                             "words: the planes must start on 16 bytes")
         key = (dev.index, v, spec.mode, spec.x, spec.o1, spec.e1, spec.o2,
                spec.e2, n, k)
         if key not in wide.blocks:

@@ -7,6 +7,8 @@ Every test here needs a CUDA device and skips without one; on the card:
 Tolerance: exact equality (both versions run the same integer algorithm).
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -14,6 +16,7 @@ import torch
 from miniwfa_tpu_torch import Options, cigar
 from miniwfa_tpu_torch.models import exact
 from miniwfa_tpu_torch.models import traceback as tbk
+from miniwfa_tpu_torch.ops import build
 from miniwfa_tpu_torch.ops import probes as pb
 from miniwfa_tpu_torch.ops import traceback_device as tbd
 from miniwfa_tpu_torch.ops import wavefront_gaps as wg
@@ -904,3 +907,27 @@ def test_wide_tile_refused_launch_raises(goldens, dev):
                 torch.full((2,), 100, dtype=torch.int64, device=dev),
                 tile=4096, batch=256)
     assert ww.wide.launches == before
+
+
+@pytest.mark.parametrize("mode", [wk.MODE_SCORE, wk.MODE_PASS1])
+def test_wide_tile_smem_matches_the_kernel(dev, mode):
+    """The chooser's shared-memory count (tile_smem) equals what the kernel
+    asks for at launch (csrc smem_of), at every tile of TILES and the forced
+    small ones, at the default, o2 = 40 and o2 = 100 penalties; the budget
+    the chooser reads (the opt-in limit less the static shared memory)
+    holds the default penalties' largest tile."""
+    fn = build.load("wavefront_wide", "mwf_wide_smem",
+                    [ctypes.c_int] * 9 + [ctypes.c_void_p])
+    got = ctypes.c_longlong(0)
+    specs = [wk.KSpec(W=1 << 20, S_CAP=1 << 16, mode=mode, x=4, o1=4, e1=2,
+                      o2=o2, e2=1, step=5000 if mode == wk.MODE_PASS1 else 0,
+                      n_snap=8 if mode == wk.MODE_PASS1 else 0)
+             for o2 in (15, 40, 100)]
+    for spec in specs:
+        for n, k in ww.TILES + tuple(WIDE_TILES):
+            assert fn(ww.VARIANTS.index("tile"), mode, spec.x, spec.o1,
+                      spec.e1, spec.o2, spec.e2, n, k,
+                      ctypes.addressof(got)) == 0
+            assert got.value == ww.tile_smem(spec, n, k), (spec.o2, n, k)
+    budget = ww._smem_optin(dev, mode)
+    assert ww.tile_smem(specs[0], *ww.TILES[0]) <= budget < 232448

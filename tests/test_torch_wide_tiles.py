@@ -7,6 +7,8 @@ marked ``cuda``); on the CPU every variant runs ``wide_plain``.  Shared
 memory is counted in bytes, exactly.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -18,9 +20,10 @@ from miniwfa_tpu_torch.ops import wavefront_wide as ww
 
 torch.set_num_threads(1)   # as in test_torch_chain.py
 
-# an H100's opt-in shared memory a block (232,448 bytes) less the tiled
-# kernel's static shared memory, as ww._smem_optin reports it there
-H100_SMEM = 232448 - ww.STATIC_SMEM
+# an H100's opt-in shared memory a block (232,448 bytes) less 1 KB, more
+# than the tiled kernel's static shared memory, which ww._smem_optin
+# subtracts on the card
+H100_SMEM = 232448 - 1024
 PENS = dict(x=4, o1=4, e1=2, o2=15, e2=1)
 
 
@@ -46,14 +49,15 @@ def test_pick_tiles_fits_the_budget(mode, o2):
 
 def test_pick_tiles_default_tiles():
     """The default penalties (NP = 27 planes): up to 960 output slots and
-    32 cycles a batch in both modes, 112 and 220 bytes a slot."""
+    32 cycles a batch in both modes, 112 and 220 bytes a slot; a plane's
+    row of 1,024 slots takes 1,036 (16-byte aligned copies and pads), the
+    head (2 x 17 registry entries, 2 x 33 log entries) 100."""
     for mode, per_slot in ((wk.MODE_SCORE, 112), (wk.MODE_PASS1, 220)):
         spec = _spec(mode)
         assert ww.pick_tiles(spec, H100_SMEM) == ("tile", 960, 32)
         cap = ww.tile_cap(960, 32)
-        assert cap == 1024
-        assert ww.tile_smem(spec, 960, 32) == \
-            per_slot * (cap + 2) + 4 * (2 * spec.rings[0] + 2 * 33)
+        assert cap == 1024 and spec.rings[0] == 17
+        assert ww.tile_smem(spec, 960, 32) == per_slot * 1036 + 4 * 100
 
 
 @pytest.mark.parametrize("mode", [wk.MODE_SCORE, wk.MODE_PASS1])
@@ -64,7 +68,7 @@ def test_pick_tiles_cycle_exactly_when_the_smallest_tile_does_not_fit(mode):
     fits = [o2 for o2 in range(15, 4000, 5)
             if ww.tile_smem(_spec(mode, o2=o2), *smallest) <= H100_SMEM]
     edge = max(fits)
-    assert 500 < edge < 2000   # PASS1 near 765, SCORE near 1530
+    assert 500 < edge < 2000   # PASS1 near 580, SCORE near 1145
     for o2 in (edge - 5, edge, edge + 5, edge + 500):
         spec = _spec(mode, o2=o2)
         v = ww.pick_tiles(spec, H100_SMEM)[0]
@@ -76,6 +80,17 @@ def test_pick_tiles_cycle_exactly_when_the_smallest_tile_does_not_fit(mode):
 def test_pick_tiles_cycle_at_a_zero_age(pens):
     """A recurrence age of 0 (x, e1 or e2 = 0) takes the cycle variant."""
     assert ww.pick_tiles(_spec(**pens), H100_SMEM) == ("cycle", 0, 0)
+
+
+@pytest.mark.parametrize("W", [1022, 1025, 16383])
+def test_pick_tiles_cycle_at_a_window_of_partial_words(W):
+    """The tiles copy plane rows in 16-byte words: a window that is no
+    multiple of 4 slots takes the cycle variant, a multiple of 4 tiles."""
+    spec = _spec()
+    assert ww.pick_tiles(dataclasses.replace(spec, W=W),
+                         H100_SMEM) == ("cycle", 0, 0)
+    assert ww.pick_tiles(dataclasses.replace(spec, W=W + 4 - W % 4),
+                         H100_SMEM)[0] == "tile"
 
 
 def test_tile_cap_holds_both_edges():
@@ -114,6 +129,19 @@ def test_wide_rejects_tiles_at_a_zero_age(kw):
     st = ww.new_state(spec, args[0])
     with pytest.raises(ValueError):
         ww.wide(spec, *args, st, torch.full((2,), 100, dtype=torch.int64),
+                **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(variant="tile"), dict(tile=32),
+                                dict(batch=7)])
+def test_wide_rejects_tiles_at_a_window_of_partial_words(kw):
+    opt = Options(**PENS)
+    spec, lanes, tw, qw = exact.kernel_inputs(
+        opt, wk.MODE_SCORE, 510, 256, [b"ACGTACGTAAAC"], [b"ACGTTCGTAAC"])
+    args = [torch.from_numpy(a) for a in (lanes, tw, qw)]
+    st = ww.new_state(spec, args[0])
+    with pytest.raises(ValueError, match="W % 4"):
+        ww.wide(spec, *args, st, torch.full((1,), 100, dtype=torch.int64),
                 **kw)
 
 
