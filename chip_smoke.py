@@ -50,6 +50,14 @@
    kernel time, and pass 1's wall apart from pass 2's with W1's kernel
    time in pass 2 (CUDA events around every walk call, as around every
    wide call); div5m auto's wall split also carries W1's kernel time;
+   phase 4f, the sharded path (miniwfa_tpu_torch/parallel/) on the one
+   card: the main path through ``align_batch_sharded`` on 4 mesh entries
+   of cuda:0 in all three modes, each (s, n_iter, CIGAR) equal to phase
+   4's and to the goldens, its walls beside phase 4's; dissim150k and
+   sv300k in score mode on 2 entries (the wide kernel) against
+   scale_goldens.json; ``dryrun_multichip(4)``; and a 2-rank gloo job of
+   miniwfa_tpu_torch/tools/mp_worker.py on cuda:0, each rank printing
+   MP_OK;
 5. times each K1 mode, W1 and the checkpoint chain (W2) at the main
    path's first dispatch shape of that mode (CUDA events); holds each K1
    mode against its plain version at that shape with every lane stopped
@@ -85,6 +93,7 @@ runs, its times and (K1) its C and co-resident cluster count, the wide
 entry's
 PASS1 those of div5m's pass 1, summed over its calls; ``launches``
 sums phase 4's runs, ``main_launches`` (W1, W2) the main path's alone;
+every entry's ``sharded_launches`` counts phase 4f's launches apart;
 the walk entry also carries the variant each shape picked and each
 variant's time, and the chain_ptrs entry's ``library_ms`` is the
 torch.gather chain at the main shape) and, last, a JSON line with
@@ -1102,10 +1111,11 @@ def main_path(smoke: Smoke, card: str) -> dict:
     launches = {"wavefront": 0, "walk": 0, "modes": {}, "wavefront_multi": 0,
                 "multi_modes": {}, "clusters": {}, "chain_ptrs": 0,
                 "walk_variants": {}}
-    walls = {}
+    walls, results = {}, {}
     for mode, opt, kmodes in modes:
         res, counts, walls[mode], _ = _drive(mode, list(zip(ts, qs)), opt,
                                              card)
+        results[mode] = [(r.s, r.n_iter, r.cigar_str) for r in res]
         smoke.check([r.s for r in res] == [g["s"] for g in gold],
                     f"main {mode}: {B_MAIN} scores equal bench_goldens.json")
         if opt.cigar:
@@ -1236,7 +1246,8 @@ def main_path(smoke: Smoke, card: str) -> dict:
                       flush=True)
                 _div5m_multi(smoke, card, t, q, g, spans, launches)
     return {"launches": launches, "ts": ts, "qs": qs, "fixture": fixture,
-            "sgold": sgold}
+            "sgold": sgold, "gold": gold, "walls": walls, "results": results,
+            "modes": modes}
 
 
 def _div5m_multi(smoke, card, t, q, g, k1_spans, launches) -> None:
@@ -1288,6 +1299,136 @@ def penalty_runs(smoke: Smoke, card: str) -> None:
             want = T3_PENALTIES[o2][mode]
             smoke.check(got == want, f"t3 o2={o2} e2=1 {mode}: (s, n_iter, "
                         f"CIGAR) = {got}, the JAX package's {want}")
+
+
+# phase 4f's mesh sizes (entries of one card) and its gloo job's ranks
+SHARD_MAIN, SHARD_WIDE, MP_RANKS = 4, 2, 2
+MP_TIMEOUT = 300
+# the scale fixtures phase 4f runs together on the wide engine, score mode
+SHARD_WIDE_RUNS = ("dissim150k", "sv300k")
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def sharded_path(smoke: Smoke, card: str, info) -> dict:
+    """Phase 4f: the sharded path (miniwfa_tpu_torch/parallel/) on one
+    card.  The main path through ``align_batch_sharded`` on a mesh of
+    SHARD_MAIN entries of cuda:0 in score, CIGAR and low-mem mode, each
+    result (s, n_iter, CIGAR) equal to phase 4's ``align_batch``, the
+    scores and CIGAR digests to bench_goldens.json, its wall beside phase
+    4's; dissim150k and sv300k in score mode on SHARD_WIDE entries, one
+    pair a block, through the wide kernel, against scale_goldens.json; the
+    port's ``dryrun_multichip(4)``; and a gloo job of MP_RANKS processes of
+    tools/mp_worker.py on cuda:0 (after ``build.build()``), each of which
+    must print MP_OK.  Returns the phase's launches by kernel (the
+    workers' launches are their own)."""
+    from miniwfa_tpu_torch import Options
+    from miniwfa_tpu_torch.ops import build
+    from miniwfa_tpu_torch.parallel.batch import align_batch_sharded
+    from miniwfa_tpu_torch.parallel.dryrun import dryrun_multichip
+    from miniwfa_tpu_torch.parallel.mesh import make_mesh
+    from miniwfa_tpu_torch.tools import microbench as mb
+
+    print(f"phase 4f: the sharded path on one card ({SHARD_MAIN} and "
+          f"{SHARD_WIDE} mesh entries of cuda:0, a {MP_RANKS}-rank gloo "
+          f"job)", flush=True)
+    launches = {"wavefront": 0, "walk": 0, "chain_ptrs": 0, "gaps": 0,
+                "multi": 0, "wide": 0, "probes": 0}
+
+    def add(counts):
+        for k in launches:
+            if k != "probes":
+                launches[k] += counts[k]
+
+    def on(mesh):
+        return lambda p, o, device: align_batch_sharded(p, o, mesh)
+
+    probes0 = sum(f.launches for f in mb.wrappers())
+    gold = info["gold"]
+    pairs = list(zip(info["ts"], info["qs"]))
+    mesh = make_mesh(["cuda:0"] * SHARD_MAIN)
+    for mode, opt, kmodes in info["modes"]:
+        res, counts, wall, _ = _drive(f"sharded {mode}", pairs, opt, card,
+                                      on(mesh))
+        add(counts)
+        smoke.check([(r.s, r.n_iter, r.cigar_str) for r in res]
+                    == info["results"][mode], f"sharded {mode}: "
+                    f"{B_MAIN} (s, n_iter, CIGAR) equal phase 4's align_batch")
+        smoke.check([r.s for r in res] == [g["s"] for g in gold],
+                    f"sharded {mode}: {B_MAIN} scores equal "
+                    f"bench_goldens.json")
+        if opt.cigar:
+            _check_cigars(smoke, f"sharded {mode}", info["ts"], info["qs"],
+                          res, [g["cigar_md5"] for g in gold])
+        n = {k: counts["modes"].get(k, 0) for k in kmodes}
+        if opt.cigar:
+            n["walk"] = counts["walk"]
+        if opt.step:
+            n["chain_ptrs"] = counts["chain_ptrs"]
+        smoke.check(all(n.values()), f"sharded {mode} launched {n}")
+        print(f"  main {mode}: wall_s align_batch={info['walls'][mode]:.6f}"
+              f" sharded({SHARD_MAIN} x cuda:0)={wall:.6f} card={card}",
+              flush=True)
+
+    names = SHARD_WIDE_RUNS
+    ts, qs = zip(*(info["fixture"](name) for name in names))
+    res, counts, wall, _ = _drive(f"sharded score {'+'.join(names)}",
+                                  list(zip(ts, qs)), Options(), card,
+                                  on(make_mesh(["cuda:0"] * SHARD_WIDE)))
+    add(counts)
+    for name, r in zip(names, res):
+        want = info["sgold"][name]["score"]["s"]
+        smoke.check(r.s == want, f"sharded {name} score: s={r.s} equals "
+                    f"scale_goldens.json ({want})")
+    n = counts["wide_modes"].get("SCORE", 0)
+    smoke.check(n > 0, f"sharded {'+'.join(names)} score launched "
+                f"wavefront_wide[SCORE] {n} times")
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        dryrun_multichip(4, device="cuda")
+        ok = ""
+    except AssertionError as e:
+        ok = f": {e!r}"
+    add(_read_counts())
+    smoke.check(not ok, f"dryrun_multichip(4, device='cuda') in "
+                f"{time.perf_counter() - t0:.1f} s{ok}")
+    launches["probes"] = sum(f.launches for f in mb.wrappers()) - probes0
+
+    build.build()
+    addr = f"127.0.0.1:{_free_port()}"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "miniwfa_tpu_torch.tools.mp_worker", addr,
+         str(MP_RANKS), str(rank), "--device", "cuda:0"], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank in range(MP_RANKS)]
+    outs = []
+    try:
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=MP_TIMEOUT)[0])
+            except subprocess.TimeoutExpired:
+                outs.append(f"no end within {MP_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        ok = p.returncode == 0 and f"MP_OK pid={rank}" in out
+        smoke.check(ok, f"gloo rank {rank} of {MP_RANKS} on cuda:0: exit "
+                    f"{p.returncode}, MP_OK pid={rank} printed"
+                    + ("" if ok else f"; its output ends:\n{out[-2000:]}"))
+    print(f"  gloo job: {MP_RANKS} ranks in {time.perf_counter() - t0:.1f} s"
+          f" card={card}", flush=True)
+    return launches
 
 
 def _time_pair(smoke, label, spec, args, segs, card, plain):
@@ -1872,6 +2013,8 @@ def main() -> int:
     info = main_path(smoke, card)
     penalty_runs(smoke, card)
     winfo = wide_path(smoke, card, info["fixture"], info["sgold"])
+    t_sh = time.perf_counter()
+    sharded = sharded_path(smoke, card, info)
     t2 = time.perf_counter()
     print("phase 5: kernel timings at the main path's dispatch shapes, "
           "each K1 mode held against its plain version there with its lanes "
@@ -1888,8 +2031,8 @@ def main() -> int:
     wtime = wide_times(smoke, card, winfo["first"]["nbear1m"])
     wreal = wide_real_shapes(smoke, card, winfo["first"])
     print(f"phase seconds: kernels {tp - t0:.1f}, probes {t1 - tp:.1f}, "
-          f"main path {t2 - t1:.1f}, timings {time.perf_counter() - t2:.1f}",
-          flush=True)
+          f"main path {t_sh - t1:.1f}, sharded {t2 - t_sh:.1f}, "
+          f"timings {time.perf_counter() - t2:.1f}", flush=True)
     launches = info["launches"]
     wl = winfo["launches"]
 
@@ -1929,6 +2072,7 @@ def main() -> int:
          "source": "miniwfa_tpu_torch/csrc/wavefront.cu",
          "replaces": "miniwfa_tpu/ops/wavefront_kernel.py:226",
          "launches": launches["wavefront"],
+         "sharded_launches": sharded["wavefront"],
          "max_abs_err": smoke.err["wavefront"],
          **timed(times["SCORE"], ptimes["SCORE"]),
          "C": launches["clusters"].get("SCORE", {}).get("C"),
@@ -1937,6 +2081,7 @@ def main() -> int:
          "source": "miniwfa_tpu_torch/csrc/walk.cu",
          "replaces": "miniwfa_tpu/ops/traceback_device.py:33",
          "launches": launches["walk"], "max_abs_err": smoke.err["walk"],
+         "sharded_launches": sharded["walk"],
          **timed(times["walk"], ptimes["walk"]), "library_ms": None,
          "main_launches": launches["walk_main"],
          "launches_by_variant": launches["walk_variants"],
@@ -1957,6 +2102,7 @@ def main() -> int:
          "replaces": "miniwfa_tpu/ops/traceback_device.py:324",
          "launches": launches["chain_ptrs"] + wl["chain_ptrs"],
          "main_launches": launches["chain_ptrs"],
+         "sharded_launches": sharded["chain_ptrs"],
          "max_abs_err": smoke.err["chain_ptrs"],
          **timed(times["W2"], ptimes["W2"]),
          "library_ms": times["W2"]["plain_ms"]},
@@ -1964,12 +2110,14 @@ def main() -> int:
          "source": "miniwfa_tpu_torch/csrc/gaps.cu",
          "replaces": "miniwfa_tpu/ops/wavefront_gaps.py:90",
          "launches": launches["gaps"], "max_abs_err": smoke.err["gaps"],
+         "sharded_launches": sharded["gaps"],
          **timed(gtimes["TB"]), "library_ms": None,
          "modes": {m: timed(gtimes[m]) for m in ("SCORE", "TB")}},
         {"name": "wavefront_wide", "route": "cuda",
          "source": "miniwfa_tpu_torch/csrc/wavefront_wide.cu",
          "replaces": "miniwfa_tpu/ops/wavefront_wide.py:158",
          "launches": wl["wavefront_wide"],
+         "sharded_launches": sharded["wide"],
          "max_abs_err": smoke.err["wavefront_wide"],
          **timed(wtime, wtimes8["SCORE"]), "library_ms": None,
          **{k: wtime.get(k) for k in ("variant", "n", "k")},
@@ -1981,6 +2129,7 @@ def main() -> int:
          "source": "miniwfa_tpu_torch/csrc/wavefront.cu",
          "replaces": "miniwfa_tpu/ops/wavefront_multi.py:138",
          "launches": launches["wavefront_multi"],
+         "sharded_launches": sharded["multi"],
          "max_abs_err": smoke.err["wavefront_multi"],
          **{k: times["SCORE"]["multi"][k] for k in ("ms", "bound_ms",
                                                     "bound_by")},
@@ -1992,7 +2141,7 @@ def main() -> int:
                                 f"W={ftimes['W']}",
                        "cells": ftimes["cells"],
                        "by_G": {str(g): ftimes[g] for g in (1, 2, 4, 8)}}},
-        probes]
+        {**probes, "sharded_launches": sharded["probes"]}]
     print(json.dumps({"kernels": kernels}), flush=True)
     if smoke.failures:
         print(f"chip_smoke: {len(smoke.failures)} check(s) failed:",

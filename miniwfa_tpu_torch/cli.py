@@ -21,6 +21,7 @@ from . import cigar as C
 from .models.auto import align_auto_batch
 from .models.chain import align_chain_batch
 from .models.exact import align_batch
+from .ops import build
 from .utils.io import read_fastx
 
 USAGE = """Usage: python -m miniwfa_tpu_torch.cli [options] <in1.fa> <in2.fa>
@@ -38,6 +39,9 @@ Options:
   -K       (accepted for compatibility; no allocator to disable)
   -d       debug logging
   --device DEV  torch device to run on [cuda]
+  --prewarm  build every CUDA kernel (ops/build.py) before aligning, so
+           that the first alignment does not wait for nvcc; a failed
+           build fails the run
 """
 
 
@@ -45,7 +49,7 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     try:
         opts, args = getopt.gnu_getopt(argv, "cKdeTp:autl:f:B:",
-                                       ["device="])
+                                       ["device=", "prewarm"])
     except getopt.GetoptError as e:
         print(f"ERROR: {e}", file=sys.stderr)
         return 1
@@ -54,6 +58,7 @@ def main(argv=None) -> int:
     per_pair = False
     debug = False
     device = "cuda"
+    prewarm = False
     align = align_batch
     for o, a in opts:
         if o == "-c":
@@ -76,6 +81,8 @@ def main(argv=None) -> int:
             debug = True
         elif o == "--device":
             device = a
+        elif o == "--prewarm":
+            prewarm = True
         elif o == "-u":
             align = align_chain_batch
         elif o == "-t":
@@ -85,6 +92,15 @@ def main(argv=None) -> int:
     if len(args) < 2:
         print(USAGE, file=sys.stderr)
         return 1
+    if prewarm:
+        t0 = time.perf_counter()
+        try:
+            build.build()
+        except RuntimeError as e:
+            print(f"ERROR: --prewarm: {e}", file=sys.stderr)
+            return 1
+        print(f"P\tprewarmed {len(build.SOURCES)} specs in "
+              f"{time.perf_counter() - t0:.1f}s", file=sys.stderr)
 
     def flush(pending):
         if not pending:

@@ -231,8 +231,7 @@ def walk(tb: torch.Tensor, meta: torch.Tensor, tw: torch.Tensor,
     if rc:
         raise RuntimeError(f"walk kernel ({variant}) launch failed: CUDA "
                            f"error {rc}")
-    walk.launches += 1
-    walk.launches_by_variant[variant] += 1
+    build.count_launch(walk, variant=variant)
     return runs, counts
 
 
@@ -302,7 +301,7 @@ def chain_ptrs(snap: torch.Tensor, last_ptr, snap_cnt) -> tuple:
         if rc:
             raise RuntimeError(f"chain_ptrs kernel launch failed: CUDA "
                                f"error {rc}")
-        chain_ptrs.launches += 1
+        build.count_launch(chain_ptrs)
     host = out.cpu().numpy()
     return host[0], host[1:]
 

@@ -303,7 +303,7 @@ def gaps(spec: GSpec, lens: torch.Tensor, tw: torch.Tensor,
                 stream)
     if rc:
         raise RuntimeError(f"gaps kernel launch failed: CUDA error {rc}")
-    gaps.launches += 1
+    build.count_launch(gaps)
     return out, tb
 
 

@@ -723,8 +723,7 @@ def wavefront(spec: KSpec, lanes: torch.Tensor, tw: torch.Tensor,
     C = pick_cluster(lanes.shape[0], counts)
     res = launch(spec, lanes, tw, qw, segs, C=C)
     mode = launch_mode(spec, segs)
-    wavefront.launches += 1
-    wavefront.launches_by_mode[mode] += 1
+    build.count_launch(wavefront, mode=mode)
     wavefront.clusters[mode] = {"C": C, "clusters": counts.get(C)}
     return res
 

@@ -32,6 +32,7 @@ from typing import Optional
 
 import torch
 
+from . import build
 from . import wavefront_kernel as wk
 
 GS = (8, 4, 2)   # lanes per block the kernel is built for
@@ -78,8 +79,7 @@ def wavefront_multi(spec: wk.KSpec, G: int, lanes: torch.Tensor,
     if lanes.device.type != "cuda":
         raise ValueError(f"unsupported device {lanes.device}")
     res = wk.launch(spec, lanes, tw, qw, segs, G)
-    wavefront_multi.launches += 1
-    wavefront_multi.launches_by_mode[wk.launch_mode(spec, segs)] += 1
+    build.count_launch(wavefront_multi, mode=wk.launch_mode(spec, segs))
     return res
 
 

@@ -377,9 +377,7 @@ def wide(spec: wk.KSpec, lanes: torch.Tensor, tw: torch.Tensor,
         raise RuntimeError(f"wide kernel launch refused (variant={v} n={n} "
                            f"k={k}): CUDA error {rc}")
     mode = wk.launch_mode(spec, None)
-    wide.launches += 1
-    wide.launches_by_mode[mode] += 1
-    wide.launches_by_variant[v] += 1
+    build.count_launch(wide, mode=mode, variant=v)
     wide.tiles[mode] = {"variant": v, "n": n, "k": k,
                         "blocks": wide.blocks[key]}
     wide.last_stats = stats

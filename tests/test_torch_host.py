@@ -5,6 +5,7 @@ asks for a CUDA device honestly, and its CLI prints the reference TSV."""
 
 import gzip
 import os
+import re
 import subprocess
 import sys
 
@@ -192,6 +193,11 @@ def test_port_imports_no_jax():
             "'miniwfa_tpu_torch.ops.probes_multi', "
             "'miniwfa_tpu_torch.tools.k1_ab', "
             "'miniwfa_tpu_torch.tools.microbench', "
+            "'miniwfa_tpu_torch.tools.mp_worker', "
+            "'miniwfa_tpu_torch.parallel.batch', "
+            "'miniwfa_tpu_torch.parallel.distributed', "
+            "'miniwfa_tpu_torch.parallel.dryrun', "
+            "'miniwfa_tpu_torch.parallel.mesh', "
             "'miniwfa_tpu_torch.utils.native', "
             "'miniwfa_tpu_torch.utils.spans', 'chip_smoke'):\n"
             "    importlib.import_module(m)\n"
@@ -237,6 +243,38 @@ def test_cli_prints_reference_tsv(goldens, tmp_path, capsys):
         assert row[9:] == ["155", cig], flag
 
 
+def test_cli_prewarm(goldens, tmp_path, monkeypatch, capsys):
+    """--prewarm builds every source before aligning: with no nvcc and no
+    library built before, the run fails with build's error and prints no
+    row; with every library built, it prints the P line, then the TSV."""
+    from miniwfa_tpu_torch import cli
+    from miniwfa_tpu_torch.ops import build
+    c = next(c for c in goldens["cases"] if c["name"] == "t3")
+    (tmp_path / "t.fa").write_text(f">t3\n{c['t']}\n")
+    (tmp_path / "q.fa").write_text(f">q3\n{c['q']}\n")
+    argv = ["--prewarm", "-c", "--device", "cpu", str(tmp_path / "t.fa"),
+            str(tmp_path / "q.fa")]
+    out = tmp_path / "out"
+    monkeypatch.setattr(build, "BUILD_DIR", str(out))
+
+    def missing():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(build, "_nvcc", missing)
+    assert cli.main(argv) == 1
+    got = capsys.readouterr()
+    assert got.out == "" and "nvcc not found" in got.err
+    for name in build.SOURCES:
+        (out / f"lib{name}.so").write_text("lib")
+        (out / f"lib{name}.key").write_text("0\n")
+    assert cli.main(argv) == 0
+    got = capsys.readouterr()
+    assert re.search(rf"^P\tprewarmed {len(build.SOURCES)} specs in "
+                     rf"[0-9.]+s$", got.err, re.M)
+    assert got.out.strip().split("\t")[9:] == ["155",
+                                               "1X16=1X14=128I4=1X24="]
+
+
 def test_build_key_tracks_source_headers_flags_and_nvcc(tmp_path,
                                                        monkeypatch):
     """ops/build.py rebuilds a library when its source, a shared header,
@@ -269,6 +307,7 @@ def test_build_key_tracks_source_headers_flags_and_nvcc(tmp_path,
 
     assert built() == ["k"]
     assert (tmp_path / "out" / "libk.so").read_text() == "lib"
+    assert sorted(os.listdir(tmp_path / "out")) == ["libk.key", "libk.so"]
     assert built() == []
     os.utime(csrc / "k.cu", (1e10, 1e10))      # newer file, same content
     assert built() == []
