@@ -273,7 +273,7 @@ def _read_counts() -> dict:
             "chain_ptrs": tbd.chain_ptrs.launches,
             "gaps": wg.gaps.launches,
             "modes": dict(wk.wavefront.launches_by_mode),
-            "clusters": dict(wk.wavefront.clusters),
+            "clusters": dict(wk.wavefront.clusters.get(0, {})),
             "multi": wm.wavefront_multi.launches,
             "multi_modes": dict(wm.wavefront_multi.launches_by_mode),
             "wide": ww.wide.launches,
@@ -445,7 +445,7 @@ class Smoke:
         real = ww.wide
         got, ms = _ms(lambda: real(spec, *args, kst, big, **forced))
         mode = wk.launch_mode(spec, None)
-        tiles = dict(real.tiles[mode])
+        tiles = dict(real.tiles[args[0].device.index][mode])
         one = [(got, want), (kst.row, pst.row), (kst.planes, pst.planes),
                (kst.snap, pst.snap)]
         del kst
@@ -839,7 +839,7 @@ class WideTimer:
             self.first = self.first or (spec, lanes, tw, qw)
             self.calls.append((spec, start, end, out, _nbytes(lanes, tw, qw),
                                state.row[:, ww.ST_T] - t_before,
-                               self.real.last_stats.clone()))
+                               self.real.last_stats[lanes.device.index].clone()))
             return out
 
         # the stand-in shares the real function's launch counters and grid
@@ -886,7 +886,7 @@ class WideTimer:
                                 + (OPS_PASS1 if name == "PASS1" else 0))
             r["bound_ms"], r["bound_by"] = _bound(r.pop("bytes"), ops)
             r["us_per_cycle"] = 1e3 * r["ms"] / max(r["cycles"], 1)
-            r.update(ww.wide.tiles.get(name, {}))
+            r.update(ww.wide.tiles.get(0, {}).get(name, {}))
         return res
 
 
@@ -1439,7 +1439,7 @@ def _time_pair(smoke, label, spec, args, segs, card, plain):
     got, ms = _ms(lambda: wk.wavefront(spec, *args, segs))
     mode = wk.launch_mode(spec, segs)
     bound_ms, bound_by = _k1_bound(spec, args, segs, got)
-    cl = wk.wavefront.clusters[mode]
+    cl = wk.wavefront.clusters[args[0].device.index][mode]
     res = dict(ms=ms, bound_ms=bound_ms, bound_by=bound_by, **cl)
     line = (f"  wavefront[{mode}] {label} B={len(args[0])} W={spec.W} "
             f"S_CAP={spec.S_CAP} C={cl['C']} "
@@ -1772,7 +1772,7 @@ def wide_times(smoke: Smoke, card: str, first) -> dict:
           f"k={wide['k']}, {wide['blocks']} blocks, {wide['batches']} "
           f"batches, {wide['us_per_cycle']:.3f} us a cycle) "
           f"k1_kernel_ms={k1_ms:.3f} "
-          f"(C={wk.wavefront.clusters['SCORE']['C']}) cells={wide['cells']} "
+          f"(C={wk.wavefront.clusters[0]['SCORE']['C']}) cells={wide['cells']} "
           f"bound_ms={wide['bound_ms']:.6f} ({wide['bound_by']}) "
           f"card={card}", flush=True)
     return dict(wide, k1_ms=k1_ms, W=spec.W)

@@ -31,7 +31,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _LOCK = threading.Lock()
-_COUNT_LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -125,13 +124,3 @@ def load(name: str, fn: str, argtypes: Sequence) -> ctypes._CFuncPtr:
     f.restype = ctypes.c_int
     f.argtypes = list(argtypes)
     return f
-
-
-def count_launch(fn, **by) -> None:
-    """Add one to ``fn.launches`` and to ``fn.launches_by_<name>[value]``
-    for each keyword, under one lock: the sharded path launches from one
-    thread per card, and ``+=`` is no atomic update."""
-    with _COUNT_LOCK:
-        fn.launches += 1
-        for name, value in by.items():
-            getattr(fn, "launches_by_" + name)[value] += 1

@@ -37,6 +37,7 @@ from typing import List
 
 import torch
 
+from ..utils.launches import count_launch
 from . import build
 
 OP_I, OP_D, OP_EQ, OP_X = 1, 2, 7, 8
@@ -231,7 +232,7 @@ def walk(tb: torch.Tensor, meta: torch.Tensor, tw: torch.Tensor,
     if rc:
         raise RuntimeError(f"walk kernel ({variant}) launch failed: CUDA "
                            f"error {rc}")
-    build.count_launch(walk, variant=variant)
+    count_launch(walk, variant=variant)
     return runs, counts
 
 
@@ -301,7 +302,7 @@ def chain_ptrs(snap: torch.Tensor, last_ptr, snap_cnt) -> tuple:
         if rc:
             raise RuntimeError(f"chain_ptrs kernel launch failed: CUDA "
                                f"error {rc}")
-        build.count_launch(chain_ptrs)
+        count_launch(chain_ptrs)
     host = out.cpu().numpy()
     return host[0], host[1:]
 

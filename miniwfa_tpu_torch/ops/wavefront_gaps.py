@@ -44,6 +44,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils.launches import count_launch
 from . import build
 from . import pack
 from . import wavefront_kernel as wk
@@ -303,7 +304,7 @@ def gaps(spec: GSpec, lens: torch.Tensor, tw: torch.Tensor,
                 stream)
     if rc:
         raise RuntimeError(f"gaps kernel launch failed: CUDA error {rc}")
-    build.count_launch(gaps)
+    count_launch(gaps)
     return out, tb
 
 

@@ -73,6 +73,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils.launches import count_launch
 from . import build
 
 WF_NEG_INF = -0x40000000  # reference sentinel (miniwfa.c:67)
@@ -710,9 +711,9 @@ def wavefront(spec: KSpec, lanes: torch.Tensor, tw: torch.Tensor,
     ``wavefront_plain``.  CPU tensors take the plain version; CUDA tensors
     launch ``csrc/wavefront.cu`` at ``pick_cluster``'s C CTAs per lane and
     count the launch in ``wavefront.launches`` and, by mode,
-    ``wavefront.launches_by_mode``; ``wavefront.clusters`` keeps, by mode,
-    the last launch's C and the card's count of co-resident clusters at
-    that C (None at C = 1)."""
+    ``wavefront.launches_by_mode``; ``wavefront.clusters[card][mode]``
+    keeps, by card index and mode, the card's last launch's C and its
+    count of co-resident clusters at that C (None at C = 1)."""
     _check_spec(spec)
     _check_inputs(spec, lanes, tw, qw, segs)
     if lanes.device.type == "cpu":
@@ -723,8 +724,10 @@ def wavefront(spec: KSpec, lanes: torch.Tensor, tw: torch.Tensor,
     C = pick_cluster(lanes.shape[0], counts)
     res = launch(spec, lanes, tw, qw, segs, C=C)
     mode = launch_mode(spec, segs)
-    build.count_launch(wavefront, mode=mode)
-    wavefront.clusters[mode] = {"C": C, "clusters": counts.get(C)}
+    count_launch(wavefront, mode=mode)
+    # keyed by card: the sharded path launches from one thread per card
+    wavefront.clusters.setdefault(lanes.device.index, {})[mode] = {
+        "C": C, "clusters": counts.get(C)}
     return res
 
 

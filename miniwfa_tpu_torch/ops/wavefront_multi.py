@@ -32,6 +32,7 @@ from typing import Optional
 
 import torch
 
+from ..utils.launches import count_launch
 from . import build
 from . import wavefront_kernel as wk
 
@@ -79,7 +80,7 @@ def wavefront_multi(spec: wk.KSpec, G: int, lanes: torch.Tensor,
     if lanes.device.type != "cuda":
         raise ValueError(f"unsupported device {lanes.device}")
     res = wk.launch(spec, lanes, tw, qw, segs, G)
-    build.count_launch(wavefront_multi, mode=wk.launch_mode(spec, segs))
+    count_launch(wavefront_multi, mode=wk.launch_mode(spec, segs))
     return res
 
 

@@ -61,6 +61,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.launches import count_launch
 from . import build
 from . import wavefront_kernel as wk
 
@@ -321,9 +322,10 @@ def wide(spec: wk.KSpec, lanes: torch.Tensor, tw: torch.Tensor,
     and the other one comes from the chooser (or TILES[0]).  A launch the
     card refuses raises, naming them.  Counts the launch in
     ``wide.launches``, by mode in ``wide.launches_by_mode`` and by variant
-    in ``wide.launches_by_variant``; ``wide.tiles[mode]`` keeps the last
-    launch's variant, n, k and blocks, and ``wide.last_stats`` its STATS
-    (an int64 tensor on the card; 0 in "cycle")."""
+    in ``wide.launches_by_variant``; by card index, ``wide.tiles[card][mode]``
+    keeps the card's last launch's variant, n, k and blocks, and
+    ``wide.last_stats[card]`` its STATS (an int64 tensor on the card; 0 in
+    "cycle")."""
     _check_spec(spec)
     wk._check_inputs(spec, lanes, tw, qw, None)
     _check_state(spec, lanes, state, t_lim)
@@ -377,10 +379,11 @@ def wide(spec: wk.KSpec, lanes: torch.Tensor, tw: torch.Tensor,
         raise RuntimeError(f"wide kernel launch refused (variant={v} n={n} "
                            f"k={k}): CUDA error {rc}")
     mode = wk.launch_mode(spec, None)
-    build.count_launch(wide, mode=mode, variant=v)
-    wide.tiles[mode] = {"variant": v, "n": n, "k": k,
-                        "blocks": wide.blocks[key]}
-    wide.last_stats = stats
+    count_launch(wide, mode=mode, variant=v)
+    # keyed by card: the sharded path launches from one thread per card
+    wide.tiles.setdefault(dev.index, {})[mode] = {
+        "variant": v, "n": n, "k": k, "blocks": wide.blocks[key]}
+    wide.last_stats[dev.index] = stats
     return out
 
 
@@ -388,7 +391,7 @@ wide.launches = 0
 wide.launches_by_mode = collections.Counter()
 wide.launches_by_variant = collections.Counter()
 wide.tiles = {}
-wide.last_stats = None
+wide.last_stats = {}
 # cooperative grid size per (CUDA device, variant, mode, penalties, n, k)
 wide.blocks = {}
 

@@ -54,22 +54,15 @@ def lane_blocks(n: int, ndev: int) -> List[range]:
 
 def align_batch_sharded(pairs: Sequence[Tuple[object, object]], opt: Options,
                         mesh: Optional[Mesh] = None, *, w0: int = 512,
-                        s0: int = 512, axis: str = "data"
-                        ) -> List[Result]:
+                        s0: int = 512) -> List[Result]:
     """Batch alignment over ``mesh`` (default: every visible card) in
     score, CIGAR or low-mem mode.  Scores and n_iter come back for every
     pair on every process, CIGARs for the pairs this process ran (None
     otherwise)."""
     if mesh is None:
-        mesh = make_mesh(axis=axis)
-    if mesh.axis != axis:
-        raise ValueError(f"the mesh's axis is {mesh.axis!r}, not {axis!r}")
+        mesh = make_mesh()
     if not pairs:
         return []
-    if mesh.size == 1 and process_count() == 1:
-        # one device: nothing to split
-        return exact.align_batch(pairs, opt, w0=w0, s0=s0,
-                                 device=mesh.entries[0][1])
     return _dispatch(pairs, opt, mesh, w0, s0)
 
 
@@ -93,7 +86,7 @@ def _all_gather(t: torch.Tensor) -> torch.Tensor:
 
 def _dispatch(pairs, opt: Options, mesh: Mesh, w0: int, s0: int
               ) -> List[Result]:
-    """The general path: one ``align_batch`` per device of this process,
+    """One ``align_batch`` per device of this process,
     each in its own thread, then (across processes) the all-gather of the
     scores and n_iter."""
     n = len(pairs)

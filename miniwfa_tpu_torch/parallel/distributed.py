@@ -50,14 +50,14 @@ def process_count() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
-def global_mesh(axis: str = "data", devices: Optional[Sequence] = None):
+def global_mesh(devices: Optional[Sequence] = None):
     """The 1-D mesh over every device of the job: each process's
     ``devices`` (default: its visible CUDA devices), gathered in rank
     order."""
     from .mesh import Mesh, make_mesh
-    local = make_mesh(devices, axis)
+    local = make_mesh(devices)
     if process_count() == 1:
         return local
     every = [None] * process_count()
     dist.all_gather_object(every, list(local.entries))
-    return Mesh(tuple(e for entries in every for e in entries), axis)
+    return Mesh(tuple(e for entries in every for e in entries))

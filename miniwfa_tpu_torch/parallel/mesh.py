@@ -22,10 +22,9 @@ from .distributed import process_index
 @dataclass(frozen=True)
 class Mesh:
     """A 1-D mesh: ``entries`` are (rank of the owning process, device),
-    in lane-block order; ``axis`` names the one axis."""
+    in lane-block order."""
 
     entries: Tuple[Tuple[int, torch.device], ...]
-    axis: str = "data"
 
     @property
     def size(self) -> int:
@@ -47,7 +46,7 @@ def _physical(device) -> torch.device:
     return torch.device("cuda", index)
 
 
-def make_mesh(devices: Optional[Sequence] = None, axis: str = "data") -> Mesh:
+def make_mesh(devices: Optional[Sequence] = None) -> Mesh:
     """A 1-D mesh over this process's ``devices`` (default: every visible
     CUDA device; with no card that raises).  A list is taken as given,
     repeats included: ``["cpu"] * 8`` or ``["cuda:0"] * 4``."""
@@ -58,4 +57,4 @@ def make_mesh(devices: Optional[Sequence] = None, axis: str = "data") -> Mesh:
     if not devices:
         raise ValueError("a mesh needs at least one device")
     rank = process_index()
-    return Mesh(tuple((rank, _physical(d)) for d in devices), axis)
+    return Mesh(tuple((rank, _physical(d)) for d in devices))

@@ -198,7 +198,7 @@ def timed(spec, lanes, tw, qw, state, t_lim):
     start.record()
     out = real(spec, lanes, tw, qw, state, t_lim)
     end.record()
-    stats = getattr(real, "last_stats", None)
+    stats = getattr(real, "last_stats", {}).get(lanes.device.index)
     calls.append((start, end, int((state.row[:, ww.ST_T] - t_before).sum()),
                   None if stats is None else stats.clone()))
     return out

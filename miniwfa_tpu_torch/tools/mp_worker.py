@@ -5,7 +5,7 @@
 
 Run from the root of the repository, one process per rank.  Each rank
 joins the job (``parallel/distributed.py``), adds two entries of ``DEV``
-(default ``cpu``) to the global mesh and runs ``align_batch_sharded`` on
+(default ``cuda``, the current card; the tests pass ``cpu``) to the global mesh and runs ``align_batch_sharded`` on
 the small golden cases in score, CIGAR and low-mem (step 16) mode.  It
 checks that every pair's score equals the goldens and that (s, n_iter)
 equal this rank's own ``align_batch``, and that CIGARs come back for the
@@ -43,7 +43,7 @@ def main(argv=None) -> None:
     ap.add_argument("coordinator")
     ap.add_argument("nproc", type=int)
     ap.add_argument("rank", type=int)
-    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--device", default="cuda")
     ap.add_argument("--fail-rank", type=int, default=None)
     a = ap.parse_args(argv)
     torch.set_num_threads(1)

@@ -1,0 +1,27 @@
+"""Launch counters of the kernels' wrappers.
+
+Each wrapper that launches a kernel on the card counts it here, where it
+launches and nowhere else.  The counters are attributes of the wrapper
+function: ``launches`` (every wrapper), plus ``launches_by_mode`` (a
+``Counter``: ``wavefront``, ``wavefront_multi``, ``wide``) and
+``launches_by_variant`` (a ``Counter``: ``walk``, ``wide``) where it
+counts by those.  The sharded path launches from one thread per card, and
+``+=`` is no atomic update, so every count goes through one lock.
+"""
+
+from __future__ import annotations
+
+import threading
+
+_LOCK = threading.Lock()
+
+
+def count_launch(fn, *, mode=None, variant=None) -> None:
+    """Add one to ``fn.launches``, and to ``fn.launches_by_mode[mode]`` and
+    ``fn.launches_by_variant[variant]`` where they are given."""
+    with _LOCK:
+        fn.launches += 1
+        if mode is not None:
+            fn.launches_by_mode[mode] += 1
+        if variant is not None:
+            fn.launches_by_variant[variant] += 1

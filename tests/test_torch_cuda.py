@@ -507,7 +507,8 @@ def test_multi_kernel_g4_matches_k1_clusters(dev, run):
     args = [torch.from_numpy(a).to(dev) for a in (lanes, tw, qw)]
     got = wm.wavefront_multi(spec, 4, *args)
     picked = wk.wavefront(spec, *args)
-    assert wk.wavefront.clusters[wk.launch_mode(spec, None)]["C"] > 1
+    card = args[0].device.index
+    assert wk.wavefront.clusters[card][wk.launch_mode(spec, None)]["C"] > 1
     _equal(got, picked)
     _equal(got, wk.launch(spec, *args, None, C=1))
 

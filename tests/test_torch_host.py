@@ -198,6 +198,7 @@ def test_port_imports_no_jax():
             "'miniwfa_tpu_torch.parallel.distributed', "
             "'miniwfa_tpu_torch.parallel.dryrun', "
             "'miniwfa_tpu_torch.parallel.mesh', "
+            "'miniwfa_tpu_torch.utils.launches', "
             "'miniwfa_tpu_torch.utils.native', "
             "'miniwfa_tpu_torch.utils.spans', 'chip_smoke'):\n"
             "    importlib.import_module(m)\n"

@@ -30,7 +30,7 @@ def _job(*extra):
     addr = f"127.0.0.1:{_free_port()}"
     procs = [subprocess.Popen(
         [sys.executable, "-m", "miniwfa_tpu_torch.tools.mp_worker", addr,
-         "2", str(rank), *extra], cwd=ROOT, stdout=subprocess.PIPE,
+         "2", str(rank), "--device", "cpu", *extra], cwd=ROOT, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for rank in (0, 1)]
     outs = []
     try:

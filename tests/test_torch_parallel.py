@@ -20,12 +20,12 @@ import torch
 from miniwfa_tpu_torch import Options
 from miniwfa_tpu_torch.models import exact
 from miniwfa_tpu_torch.models.exact import align_batch
-from miniwfa_tpu_torch.ops import build
 from miniwfa_tpu_torch.ops import wavefront_kernel as wk
 from miniwfa_tpu_torch.ops import wavefront_wide as ww
 from miniwfa_tpu_torch.parallel import batch as pb
 from miniwfa_tpu_torch.parallel.batch import align_batch_sharded, lane_blocks
 from miniwfa_tpu_torch.parallel.mesh import Mesh, make_mesh
+from miniwfa_tpu_torch.utils.launches import count_launch
 
 torch.set_num_threads(1)   # as in test_torch_chain.py
 
@@ -60,12 +60,15 @@ def test_lane_blocks_match_named_sharding(n, ndev):
     assert lane_blocks(n, ndev) == want
 
 
+@pytest.mark.parametrize("devices", [CPU8, ["cpu"]], ids=["8", "1"])
 @pytest.mark.parametrize("run", list(RUNS))
-def test_sharded_matches_single(goldens, run):
+def test_sharded_matches_single(goldens, run, devices):
     pairs = [(c["t"], c["q"]) for _, c in _small(goldens)[:24]]
-    sharded = align_batch_sharded(pairs, RUNS[run], make_mesh(CPU8))
+    mesh = make_mesh(devices)
+    sharded = align_batch_sharded(pairs, RUNS[run], mesh)
     single = align_batch(pairs, RUNS[run], device="cpu")
     assert [_row(r) for r in sharded] == [_row(r) for r in single]
+    assert align_batch_sharded([], RUNS[run], mesh) == []
 
 
 @pytest.mark.parametrize("run", list(RUNS))
@@ -156,19 +159,6 @@ def test_init_of_one_process_is_a_no_op(monkeypatch):
         distributed.init("127.0.0.1:1", 2)
 
 
-def test_single_entry_shortcut_equals_general_path(goldens, monkeypatch):
-    pairs = [(c["t"], c["q"]) for _, c in _small(goldens)[:12]]
-    opt = Options(cigar=True)
-    mesh = make_mesh(["cpu"])
-    general = pb._dispatch(pairs, opt, mesh, 512, 512)
-    monkeypatch.setattr(pb, "_dispatch", None)   # the shortcut takes no other
-    shortcut = align_batch_sharded(pairs, opt, mesh)
-    assert [_row(r) for r in shortcut] == [_row(r) for r in general]
-    assert align_batch_sharded([], opt, mesh) == []
-    with pytest.raises(ValueError, match="axis"):
-        align_batch_sharded(pairs, opt, mesh, axis="model")
-
-
 def test_one_call_per_device_one_thread_each(goldens, monkeypatch):
     """Entries on one device are merged into one align_batch call over the
     union of their blocks, each device in its own thread; a mesh with
@@ -196,17 +186,18 @@ def test_one_call_per_device_one_thread_each(goldens, monkeypatch):
 
 
 def test_launch_counts_survive_threads():
-    """The kernels' launch counters take one lock (build.count_launch):
+    """The kernels' launch counters take one lock (utils/launches.py):
     16 threads with a short switch interval lose no update."""
     def fn():
         pass
 
     fn.launches = 0
     fn.launches_by_mode = collections.Counter()
+    fn.launches_by_variant = collections.Counter()
 
     def bump():
         for k in range(2000):
-            build.count_launch(fn, mode=k % 3)
+            count_launch(fn, mode=k % 3, variant=k % 2)
 
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
@@ -220,4 +211,5 @@ def test_launch_counts_survive_threads():
         sys.setswitchinterval(old)
     assert not any(t.is_alive() for t in threads)
     assert fn.launches == 32000
-    assert sum(fn.launches_by_mode.values()) == 32000
+    assert fn.launches_by_mode == {0: 10672, 1: 10672, 2: 10656}
+    assert fn.launches_by_variant == {0: 16000, 1: 16000}
