@@ -35,7 +35,10 @@
    in score, CIGAR and low-mem (step 5000) modes, checks every score and CIGAR
    digest against tests/data/bench_goldens.json, that each CIGAR re-scores and
    consumes both sequences, and that each mode's kernels were launched (counts
-   set to 0 just before each run and read just after), K1 as a cluster of C > 1
+   set to 0 just before each run and read just after; so is the peak-memory
+   meter, utils/hbm.py, whose peak dispatch and tag each run prints beside
+   its peak_bytes, and which must lie above 0 and at most at
+   peak_bytes), K1 as a cluster of C > 1
    CTAs per lane (each mode's C and the card's count of co-resident clusters of
    C printed); score and CIGAR again with ``MWF_ENGINE=multi MWF_KERNEL_G=4``
    (K4 at 4 lanes per block, launched and no K1), their walls beside K1's; then
@@ -77,7 +80,11 @@
    SCORE and TB shapes, held equal to K1 there, whole and with its lanes
    stopped past MAIN_CUT; and K1 against K4 at 2, 4 and 8 lanes per block
    on 2048 pairs of 1 kb (the chain's K1 gap fills come in chunks of
-   2048), each against the plain version.
+   2048), each against the plain version;
+6. runs the port's benchmarks, each in its own process: ``bench_cuda.py``
+   at its defaults (its one JSON line, parity included) and
+   ``python -m miniwfa_tpu_torch.tools.scaling_bench``; a non-zero exit
+   fails the run.
 
 The tolerance of every comparison is exact equality: both versions run
 the same integer algorithm.  Prints a ``kernels`` JSON line (each entry's
@@ -123,6 +130,8 @@ import sys
 import time
 from unittest import mock
 
+from miniwfa_tpu_torch.tools.pairs import make_pairs, mutate, rand_seq
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_MAIN, B_MAIN = 100_000, 16
 STEP_MAIN = 5000
@@ -158,87 +167,49 @@ SCALE_RUNS = (("chain", ("div100k", "sv300k", "rep200k", "dissim150k",
                         "div5m")))
 
 
-def _mutate(rng, seq, sub, ind, max_indel=8):
-    """Substitutions and short indels (tools/bench_kernel.py::mutate and
-    bench.py::mutate, restated here: those modules belong to the JAX
-    package's side)."""
-    out = []
-    bases = "ACGT"
-    i, n = 0, len(seq)
-    while i < n:
-        if rng.random() < ind:
-            if rng.random() < 0.5:
-                i += rng.randint(1, max_indel)
-                continue
-            out.append("".join(rng.choice(bases)
-                               for _ in range(rng.randint(1, max_indel))))
-        c = seq[i]
-        if rng.random() < sub:
-            c = rng.choice([b for b in bases if b != c])
-        out.append(c)
-        i += 1
-    return "".join(out)
-
-
-def _rand(rng, n):
-    return "".join(rng.choice("ACGT") for _ in range(n))
-
-
-def make_pairs(n, b, seed=7):
-    """The benchmark pairs (bench.py::make_pairs, restated): b pairs of
-    n bp, 2% substitutions and 0.2% indels."""
-    import random
-    rng = random.Random(seed)
-    pairs = []
-    for _ in range(b):
-        t = _rand(rng, n)
-        pairs.append((t, _mutate(rng, t, sub=0.02, ind=0.002)))
-    return pairs
-
-
 def gen_case(name):
     """The scale fixtures of tests/data/scale_goldens.json
     (tools/make_scale_goldens.py::gen_case, restated without JAX)."""
     import random
     if name == "del50k":         # one 5 kb deletion
         rng = random.Random(501)
-        t = _rand(rng, 50_000)
+        t = rand_seq(rng, 50_000)
         return t, t[:20_000] + t[25_000:]
     if name == "div100k":        # 2% substitutions, 0.2% indels
         rng = random.Random(1001)
-        t = _rand(rng, 100_000)
-        return t, _mutate(rng, t, sub=0.02, ind=0.002)
+        t = rand_seq(rng, 100_000)
+        return t, mutate(rng, t, sub=0.02, ind=0.002)
     if name == "div5m":          # the reference's headline 5 Mb pair
         rng = random.Random(5001)
-        t = _rand(rng, 5_000_000)
-        return t, _mutate(rng, t, sub=0.008, ind=0.002)
+        t = rand_seq(rng, 5_000_000)
+        return t, mutate(rng, t, sub=0.008, ind=0.002)
     if name == "sv300k":         # multi-kb deletions and insertions
         rng = random.Random(3001)
-        t = _rand(rng, 300_000)
-        ins15, ins2 = _rand(rng, 15_000), _rand(rng, 2_000)
+        t = rand_seq(rng, 300_000)
+        ins15, ins2 = rand_seq(rng, 15_000), rand_seq(rng, 2_000)
         q = (t[:50_000] + t[70_000:150_000] + ins15 + t[150_000:200_000]
              + t[203_000:250_000] + ins2 + t[250_000:])
-        return t, _mutate(rng, q, sub=0.01, ind=0.0005)
+        return t, mutate(rng, q, sub=0.01, ind=0.0005)
     if name == "rep200k":        # tandem repeats, copy-number changes
         rng = random.Random(2002)
-        u1, u2 = _rand(rng, 67), _rand(rng, 171)
-        fill = [_rand(rng, n) for n in (60_000, 50_000, 70_000)]
+        u1, u2 = rand_seq(rng, 67), rand_seq(rng, 171)
+        fill = [rand_seq(rng, n) for n in (60_000, 50_000, 70_000)]
         t = fill[0] + u1 * 150 + fill[1] + u2 * 60 + fill[2]
         q = fill[0] + u1 * 138 + fill[1] + u2 * 66 + fill[2]
-        return t, _mutate(rng, q, sub=0.01, ind=0.0005)
+        return t, mutate(rng, q, sub=0.01, ind=0.0005)
     if name == "nbear1m":        # N runs and soft-masked stretches
         rng = random.Random(1101)
-        t = _rand(rng, 1_000_000)
+        t = rand_seq(rng, 1_000_000)
         t = (t[:200_000] + "N" * 5_000 + t[200_000:500_000]
              + "N" * 10_000 + t[500_000:700_000].lower()
              + t[700_000:900_000] + "N" * 2_000 + t[900_000:])
-        return t, _mutate(rng, t, sub=0.01, ind=0.0005)
+        return t, mutate(rng, t, sub=0.01, ind=0.0005)
     if name == "dissim150k":     # a 12 kb unrelated region in the query
         rng = random.Random(1501)
-        t = _rand(rng, 150_000)
-        novel = _rand(rng, 12_000)
+        t = rand_seq(rng, 150_000)
+        novel = rand_seq(rng, 12_000)
         q = t[:60_000] + novel + t[72_000:]
-        return t, _mutate(rng, q, sub=0.015, ind=0.001)
+        return t, mutate(rng, q, sub=0.015, ind=0.001)
     raise KeyError(name)
 
 
@@ -703,7 +674,7 @@ def random_gaps(seed, n, maxn=60):
     rng = random.Random(seed)
     out = []
     for _ in range(n):
-        t = _rand(rng, rng.randint(1, maxn))
+        t = rand_seq(rng, rng.randint(1, maxn))
         q = []
         for c in t:
             r = rng.random()
@@ -970,7 +941,7 @@ def wide_path(smoke: Smoke, card: str, fixture, sgold) -> dict:
             exact._run_pass1 = timed_pass1
             try:
                 with WideTimer() as wt, WalkTimer() as w1:
-                    res, counts, wall, peak = _drive(f"{name} {run}",
+                    res, counts, wall, peak = _drive(smoke, f"{name} {run}",
                                                      [(t, q)], opt, card)
             finally:
                 exact._run_pass1 = real_p1
@@ -1036,13 +1007,16 @@ def wide_path(smoke: Smoke, card: str, fixture, sgold) -> dict:
 MULTI_ENV = {"MWF_ENGINE": "multi", "MWF_KERNEL_G": "4"}
 
 
-def _drive(label, pairs, opt, card, fn=None, **kw):
+def _drive(smoke, label, pairs, opt, card, fn=None, **kw):
     """One run of ``fn`` (default ``align_batch``) on the card with the
-    launch counts set to 0 just before it and read just after; returns
-    (results, counts, wall seconds)."""
+    launch counts and the peak-memory meter set to 0 just before it and
+    read just after; the meter's peak dispatch must be above 0 and at most
+    the allocator's peak of the run (each buffer it counts exists during
+    its launch).  Returns (results, counts, wall seconds, peak bytes)."""
     import torch
     from miniwfa_tpu_torch.models import exact
-    torch.cuda.reset_peak_memory_stats()
+    from miniwfa_tpu_torch.utils import hbm
+    hbm.reset()
     torch.cuda.synchronize()
     _reset_counts()
     t0 = time.perf_counter()
@@ -1051,9 +1025,11 @@ def _drive(label, pairs, opt, card, fn=None, **kw):
     wall = time.perf_counter() - t0
     counts = _read_counts()
     peak = torch.cuda.max_memory_allocated()
+    meter, tag = hbm.peak()
     cells = sum(r.n_iter for r in res)
     print(f"  {label}: wall_s={wall:.6f} cells={cells} "
           f"cells_per_s={cells / wall:.6e} peak_bytes={peak} "
+          f"meter_bytes={meter} meter_tag='{tag}' "
           f"launches wavefront={counts['wavefront']} {counts['modes']} "
           f"wavefront_multi={counts['multi']} {counts['multi_modes']} "
           f"wavefront_wide={counts['wide']} {counts['wide_modes']} "
@@ -1061,6 +1037,8 @@ def _drive(label, pairs, opt, card, fn=None, **kw):
           f"chain_ptrs={counts['chain_ptrs']} gaps={counts['gaps']} "
           f"card={card}",
           flush=True)
+    smoke.check(0 < meter <= peak, f"{label}: the meter's peak dispatch "
+                f"{meter} bytes is above 0 and at most peak_bytes {peak}")
     return res, counts, wall, peak
 
 
@@ -1113,8 +1091,8 @@ def main_path(smoke: Smoke, card: str) -> dict:
                 "walk_variants": {}}
     walls, results = {}, {}
     for mode, opt, kmodes in modes:
-        res, counts, walls[mode], _ = _drive(mode, list(zip(ts, qs)), opt,
-                                             card)
+        res, counts, walls[mode], _ = _drive(smoke, mode, list(zip(ts, qs)),
+                                             opt, card)
         results[mode] = [(r.s, r.n_iter, r.cigar_str) for r in res]
         smoke.check([r.s for r in res] == [g["s"] for g in gold],
                     f"main {mode}: {B_MAIN} scores equal bench_goldens.json")
@@ -1155,7 +1133,8 @@ def main_path(smoke: Smoke, card: str) -> dict:
     # the multi-lane route: the same runs with K4 at G=4
     for mode, opt, kmodes in modes[:2]:
         with mock.patch.dict(os.environ, MULTI_ENV):
-            res, counts, wall, _ = _drive(f"{mode} MWF_ENGINE=multi G=4",
+            res, counts, wall, _ = _drive(smoke,
+                                          f"{mode} MWF_ENGINE=multi G=4",
                                           list(zip(ts, qs)), opt, card)
         smoke.check([r.s for r in res] == [g["s"] for g in gold],
                     f"main {mode} multi: {B_MAIN} scores equal "
@@ -1199,8 +1178,9 @@ def main_path(smoke: Smoke, card: str) -> dict:
             g = sgold[name][mode]
             spans = Spans()
             with WalkTimer() as w1:
-                res, counts, wall, _ = _drive(f"{name} {mode}", [(t, q)],
-                                              Options(cigar=True), card,
+                res, counts, wall, _ = _drive(smoke, f"{name} {mode}",
+                                              [(t, q)], Options(cigar=True),
+                                              card,
                                               fns[mode], spans=spans)
             smoke.check(res[0].s == g["s"], f"{name} {mode}: s={res[0].s} "
                         f"equals scale_goldens.json ({g['s']})")
@@ -1259,7 +1239,8 @@ def _div5m_multi(smoke, card, t, q, g, k1_spans, launches) -> None:
     from miniwfa_tpu_torch.utils.spans import Spans
     spans = Spans()
     with mock.patch.dict(os.environ, MULTI_ENV):
-        res, counts, wall, _ = _drive("div5m auto MWF_ENGINE=multi G=4",
+        res, counts, wall, _ = _drive(smoke,
+                                      "div5m auto MWF_ENGINE=multi G=4",
                                       [(t, q)], Options(cigar=True), card,
                                       align_auto_batch, spans=spans)
     smoke.check(res[0].s == g["s"], f"div5m auto multi: s={res[0].s} "
@@ -1294,7 +1275,8 @@ def penalty_runs(smoke: Smoke, card: str) -> None:
     for o2 in PENALTY_O2:
         for mode, (kw, fn) in runs.items():
             opt = Options(cigar=True, o2=o2, e2=1, **kw)
-            res, _, _, _ = _drive(f"t3 o2={o2} {mode}", pair, opt, card, fn)
+            res, _, _, _ = _drive(smoke, f"t3 o2={o2} {mode}", pair, opt,
+                                  card, fn)
             got = (res[0].s, res[0].n_iter, res[0].cigar_str)
             want = T3_PENALTIES[o2][mode]
             smoke.check(got == want, f"t3 o2={o2} e2=1 {mode}: (s, n_iter, "
@@ -1353,8 +1335,8 @@ def sharded_path(smoke: Smoke, card: str, info) -> dict:
     pairs = list(zip(info["ts"], info["qs"]))
     mesh = make_mesh(["cuda:0"] * SHARD_MAIN)
     for mode, opt, kmodes in info["modes"]:
-        res, counts, wall, _ = _drive(f"sharded {mode}", pairs, opt, card,
-                                      on(mesh))
+        res, counts, wall, _ = _drive(smoke, f"sharded {mode}", pairs, opt,
+                                      card, on(mesh))
         add(counts)
         smoke.check([(r.s, r.n_iter, r.cigar_str) for r in res]
                     == info["results"][mode], f"sharded {mode}: "
@@ -1377,7 +1359,7 @@ def sharded_path(smoke: Smoke, card: str, info) -> dict:
 
     names = SHARD_WIDE_RUNS
     ts, qs = zip(*(info["fixture"](name) for name in names))
-    res, counts, wall, _ = _drive(f"sharded score {'+'.join(names)}",
+    res, counts, wall, _ = _drive(smoke, f"sharded score {'+'.join(names)}",
                                   list(zip(ts, qs)), Options(), card,
                                   on(make_mesh(["cuda:0"] * SHARD_WIDE)))
     add(counts)
@@ -1956,6 +1938,38 @@ def probe_phase(smoke: Smoke, card: str) -> dict:
         "bodies": bodies}
 
 
+# phase 6: the port's benchmarks, each a subprocess with its time limit
+BENCH_RUNS = (("bench_cuda.py", ["bench_cuda.py"]),
+              ("scaling_bench",
+               ["-m", "miniwfa_tpu_torch.tools.scaling_bench"]))
+BENCH_TIMEOUT = 180
+
+
+def bench_phase(smoke: Smoke, card: str) -> None:
+    """Phase 6: ``bench_cuda.py`` at its defaults and the scaling bench,
+    each in its own process on the card; echoes each one's output and
+    seconds, and fails the run on a non-zero exit or a time-out."""
+    import torch
+    torch.cuda.empty_cache()     # the earlier phases' cached blocks
+    print("phase 6: the port's benchmarks", flush=True)
+    for name, args in BENCH_RUNS:
+        t0 = time.perf_counter()
+        try:
+            p = subprocess.run([sys.executable, *args], cwd=ROOT,
+                               capture_output=True, text=True,
+                               timeout=BENCH_TIMEOUT)
+            rc, out, err = p.returncode, p.stdout, p.stderr
+        except subprocess.TimeoutExpired as e:   # run() killed it
+            rc, out = None, (e.stdout or b"").decode(errors="replace")
+            err = f"no end in {BENCH_TIMEOUT} s"
+        for line in out.strip().splitlines():
+            print(f"  {name}: {line}", flush=True)
+        smoke.check(rc == 0, f"{name}: exit {rc} in "
+                    f"{time.perf_counter() - t0:.1f} s card={card}"
+                    + ("" if rc == 0 else f"; its errors end:\n"
+                       f"{err[-2000:]}"))
+
+
 def main() -> int:
     try:
         import torch
@@ -2030,9 +2044,12 @@ def main() -> int:
     ftimes = gap_fill_times(smoke, card)
     wtime = wide_times(smoke, card, winfo["first"]["nbear1m"])
     wreal = wide_real_shapes(smoke, card, winfo["first"])
+    t3 = time.perf_counter()
+    bench_phase(smoke, card)
     print(f"phase seconds: kernels {tp - t0:.1f}, probes {t1 - tp:.1f}, "
           f"main path {t_sh - t1:.1f}, sharded {t2 - t_sh:.1f}, "
-          f"timings {time.perf_counter() - t2:.1f}", flush=True)
+          f"timings {t3 - t2:.1f}, benchmarks "
+          f"{time.perf_counter() - t3:.1f}", flush=True)
     launches = info["launches"]
     wl = winfo["launches"]
 

@@ -46,6 +46,7 @@ from ..ops import traceback_device as tbd
 from ..ops import wavefront_kernel as wk
 from ..ops import wavefront_multi as wm
 from ..ops import wavefront_wide as ww
+from ..utils import hbm
 from . import traceback as tbk
 
 MODE_SCORE, MODE_TB, MODE_PASS1 = wk.MODE_SCORE, wk.MODE_TB, wk.MODE_PASS1
@@ -333,9 +334,11 @@ def _run_wide(opt: Options, mode: int, bk: _Buckets,
             spec, n_snap=min(spec.n_snap, WIDE_SNAP_ROWS0))
     tw = torch.from_numpy(tw).to(device)
     qw = torch.from_numpy(qw).to(device)
-    out, snap, spec = ww.run_chunked(
-        spec, torch.from_numpy(lanes).to(device), tw, qw,
-        snap_budget=_pass1_budget(device))
+    lanes_t = torch.from_numpy(lanes).to(device)
+    out, snap, spec = ww.run_chunked(spec, lanes_t, tw, qw,
+                                     snap_budget=_pass1_budget(device))
+    hbm.note_arrays(f"wide-out mode={mode} B={len(ts_list)} W={spec.W} "
+                    f"S_CAP={spec.S_CAP}", out, snap, lanes_t, tw, qw)
     return out.cpu().numpy(), None, snap, lanes, tw, qw, spec
 
 

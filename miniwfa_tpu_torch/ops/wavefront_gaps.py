@@ -44,6 +44,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils import hbm
 from ..utils.launches import count_launch
 from . import build
 from . import pack
@@ -277,10 +278,13 @@ def gaps(spec: GSpec, lens: torch.Tensor, tw: torch.Tensor,
          qw: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Align every gap; outputs as ``gaps_plain``.  CPU tensors take the
     plain version; CUDA tensors launch ``csrc/gaps.cu`` and count the
-    launch in ``gaps.launches``."""
+    launch in ``gaps.launches``.  Either notes its buffers in the
+    peak-memory meter."""
     _check(spec, lens, tw, qw)
     if lens.device.type == "cpu":
-        return gaps_plain(spec, lens, tw, qw)
+        out, tb = gaps_plain(spec, lens, tw, qw)
+        _note(spec, lens, tw, qw, out, tb)
+        return out, tb
     if lens.device.type != "cuda":
         raise ValueError(f"unsupported device {lens.device}")
     fn = build.load("gaps", "mwf_gaps",
@@ -305,7 +309,16 @@ def gaps(spec: GSpec, lens: torch.Tensor, tw: torch.Tensor,
     if rc:
         raise RuntimeError(f"gaps kernel launch failed: CUDA error {rc}")
     count_launch(gaps)
+    _note(spec, lens, tw, qw, out, tb)
     return out, tb
+
+
+def _note(spec: GSpec, lens: torch.Tensor, *bufs) -> None:
+    """The peak-memory meter's note of one dispatch: its inputs and
+    outputs (``utils/hbm.py``, tag ``gaps``; the rings live in shared
+    memory)."""
+    hbm.note_arrays(f"gaps mode={spec.mode} G={lens.shape[0]} "
+                    f"S_CAP={spec.S_CAP}", lens, *bufs)
 
 
 gaps.launches = 0

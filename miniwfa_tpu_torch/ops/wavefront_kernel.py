@@ -73,6 +73,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils import hbm
 from ..utils.launches import count_launch
 from . import build
 
@@ -335,9 +336,19 @@ def wavefront_plain(spec: KSpec, lanes: torch.Tensor, tw: torch.Tensor,
         snap = torch.full((B, spec.n_snap, snapshot_layout(spec)[5], W),
                           WF_NEG_INF, dtype=torch.int32, device=dev)
     m = PlainState(spec, B, dev)
-    run_cycles(spec, m, new_planes(spec, lanes), lanes, tw, qw,
-               spec.S_CAP - 1, snap=snap, tb=tb, bands=bands, segs=segs)
-    return m.outputs(spec.S_CAP), tb, bands, snap
+    planes = new_planes(spec, lanes)
+    run_cycles(spec, m, planes, lanes, tw, qw, spec.S_CAP - 1, snap=snap,
+               tb=tb, bands=bands, segs=segs)
+    out = m.outputs(spec.S_CAP)
+    _note(spec, lanes, tw, qw, segs, planes, out, tb, bands, snap)
+    return out, tb, bands, snap
+
+
+def _note(spec: KSpec, lanes: torch.Tensor, *bufs) -> None:
+    """The peak-memory meter's note of one K1 or K4 dispatch: its inputs,
+    planes and outputs (``utils/hbm.py``, tag ``kernel``)."""
+    hbm.note_arrays(f"kernel mode={spec.mode} B={lanes.shape[0]} "
+                    f"W={spec.W} S_CAP={spec.S_CAP}", lanes, *bufs)
 
 
 def run_cycles(spec: KSpec, m: PlainState, planes: torch.Tensor,
@@ -646,8 +657,8 @@ def launch(spec: KSpec, lanes: torch.Tensor, tw: torch.Tensor,
     caller): K1 (``mwf_wavefront``) at C CTAs per lane (a cluster; one
     block at C = 1) when G is 1, else K4 (``mwf_wavefront_multi``, G lanes
     per block, C = 1); outputs as ``wavefront_plain``.  A launch the card
-    refuses raises, with C in the message.  Counts nothing: each wrapper
-    counts its own."""
+    refuses raises, with C in the message.  Notes its buffers in the
+    peak-memory meter; counts no launch: each wrapper counts its own."""
     if C not in (1,) + CLUSTERS:
         raise ValueError(f"C must be one of {(1,) + CLUSTERS}, got {C}")
     if G != 1 and C != 1:
@@ -702,6 +713,7 @@ def launch(spec: KSpec, lanes: torch.Tensor, tw: torch.Tensor,
     if rc:
         raise RuntimeError(f"wavefront kernel launch failed (G={G}, C={C}): "
                            f"CUDA error {rc}")
+    _note(spec, lanes, tw, qw, segs, planes, out, tb, bands, snap)
     return out, tb, bands, snap
 
 

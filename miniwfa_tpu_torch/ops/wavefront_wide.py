@@ -61,6 +61,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import hbm
 from ..utils.launches import count_launch
 from . import build
 from . import wavefront_kernel as wk
@@ -325,12 +326,13 @@ def wide(spec: wk.KSpec, lanes: torch.Tensor, tw: torch.Tensor,
     in ``wide.launches_by_variant``; by card index, ``wide.tiles[card][mode]``
     keeps the card's last launch's variant, n, k and blocks, and
     ``wide.last_stats[card]`` its STATS (an int64 tensor on the card; 0 in
-    "cycle")."""
+    "cycle").  Either notes its buffers in the peak-memory meter."""
     _check_spec(spec)
     wk._check_inputs(spec, lanes, tw, qw, None)
     _check_state(spec, lanes, state, t_lim)
     _check_forced(spec, tile, batch, variant)
     if lanes.device.type == "cpu":
+        _note(spec, lanes, tw, qw, state, t_lim)
         return wide_plain(spec, lanes, tw, qw, state, t_lim)
     if lanes.device.type != "cuda":
         raise ValueError(f"unsupported device {lanes.device}")
@@ -364,6 +366,7 @@ def wide(spec: wk.KSpec, lanes: torch.Tensor, tw: torch.Tensor,
         else:
             flags = torch.empty((2 * F_N,), dtype=torch.int32, device=dev)
             scratch = None
+        _note(spec, lanes, tw, qw, state, t_lim, out, stats, flags, scratch)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(lanes.data_ptr(), tw.data_ptr(), qw.data_ptr(), tw.shape[1],
                 state.row.data_ptr(), state.row.shape[1], t_lim.data_ptr(),
@@ -385,6 +388,17 @@ def wide(spec: wk.KSpec, lanes: torch.Tensor, tw: torch.Tensor,
         "variant": v, "n": n, "k": k, "blocks": wide.blocks[key]}
     wide.last_stats[dev.index] = stats
     return out
+
+
+def _note(spec: wk.KSpec, lanes: torch.Tensor, tw, qw, state: WideState,
+          *bufs) -> None:
+    """The peak-memory meter's note of one call: the inputs, the run's
+    state (row, planes, snapshot rows) and the launch's own buffers
+    (``utils/hbm.py``, tag ``wide-planes``; ``run_chunked`` makes one call
+    a step, after growing the snapshot rows)."""
+    hbm.note_arrays(f"wide-planes mode={spec.mode} B={lanes.shape[0]} "
+                    f"W={spec.W} n_snap={spec.n_snap}", lanes, tw, qw,
+                    state.row, state.planes, state.snap, *bufs)
 
 
 wide.launches = 0

@@ -8,6 +8,9 @@ Tolerance: exact equality (both versions run the same integer algorithm).
 """
 
 import ctypes
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -932,3 +935,27 @@ def test_wide_tile_smem_matches_the_kernel(dev, mode):
             assert got.value == ww.tile_smem(spec, n, k), (spec.o2, n, k)
     budget = ww._smem_optin(dev, mode)
     assert ww.tile_smem(specs[0], *ww.TILES[0]) <= budget < 232448
+
+
+def test_meter_in_a_fresh_process(dev):
+    """The peak-memory meter (utils/hbm.py) in a new process, as
+    bench_cuda.py runs it: reset() before CUDA is initialised, then one
+    CIGAR dispatch, whose note lies above 0 and at most at the allocator's
+    peak."""
+    code = ("import torch\n"
+            "from miniwfa_tpu_torch import Options\n"
+            "from miniwfa_tpu_torch.models.exact import align_batch\n"
+            "from miniwfa_tpu_torch.utils import hbm\n"
+            "hbm.reset()\n"
+            "align_batch([('ACGT' * 300, 'ACGA' * 300)],\n"
+            "            Options(cigar=True))\n"
+            "torch.cuda.synchronize()\n"
+            "b, tag = hbm.peak()\n"
+            "s = hbm.snapshot()\n"
+            "assert tag.startswith('kernel mode=1 ') and "
+            "0 < b <= s['device_peak_bytes'], s\n")
+    p = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=600,
+                       cwd=os.path.dirname(os.path.dirname(
+                           os.path.abspath(__file__))))
+    assert p.returncode == 0, p.stderr[-2000:]
