@@ -25,7 +25,13 @@ tests/data/bench_goldens.json; where that file has the length, CIGAR
 (score and ``cigar_md5`` parity) and low-mem at step 5000 (equal to the
 CIGAR row, pair by pair), each a warm-up and one timed run; and score on
 2 pairs of ``MWF_BENCH_BIG_N`` bp (200 kb, seed 13; 0 turns the row off).
-``parity`` is the AND of the checks that ran; without it the run exits 1.
+Where the file lacks the length (``MWF_BENCH_N=1000``, say), the score
+row's ``s`` and ``n_iter`` of every pair are held instead against one
+untimed run of the other route of K1's batches: K4 (``MWF_ENGINE=multi``)
+when the run takes the default route, K1 when it takes K4
+(``detail.parity_against`` names it; ``checks.route_parity``).
+``parity`` is the AND of the checks that ran, null if none ran; unless
+it is true the run exits 1.
 ``detail.peak_hbm`` is the peak-memory meter's report over the whole run
 (``miniwfa_tpu_torch/utils/hbm.py``: the largest dispatch's footprint and
 the allocator's peak on the card), ``detail.device`` the card's name and
@@ -36,6 +42,7 @@ power limit by nvidia-smi (null on the CPU).  With no card and no
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import os
@@ -69,6 +76,20 @@ def card_info(device: torch.device) -> Optional[dict]:
     return {"name": name, "power_limit": limit}
 
 
+@contextlib.contextmanager
+def engine(value: Optional[str]):
+    """``MWF_ENGINE`` set to ``value`` (None: unset) for the block."""
+    old = os.environ.pop("MWF_ENGINE", None)
+    if value is not None:
+        os.environ["MWF_ENGINE"] = value
+    try:
+        yield
+    finally:
+        os.environ.pop("MWF_ENGINE", None)
+        if old is not None:
+            os.environ["MWF_ENGINE"] = old
+
+
 def run(n: int, b: int, reps: int, big_n: int, device="cuda",
         goldens: Optional[dict] = None) -> dict:
     """The benchmark's rows on ``device``; returns the JSON line's object.
@@ -93,17 +114,24 @@ def run(n: int, b: int, reps: int, big_n: int, device="cuda",
     pairs = make_pairs(n, b)
     opt = Options()  # score-only exact mode: the fundamental hot path
     w0 = s0 = max(1024, n // 4)  # start near the terminal bucket
-    parity = True
     checks = {}
+    against = "bench_goldens.json" if gold else None
 
     res, warmup_s = timed(pairs, opt, w0, s0)  # builds the kernels if cold
     if gold:
-        ok = all(r.s == g["s"] for r, g in zip(res, gold))
-        checks["score_parity"] = ok
-        parity &= ok
+        checks["score_parity"] = all(r.s == g["s"] for r, g in zip(res, gold))
     else:
         checks["score_parity"] = None
     res, dt = timed(pairs, opt, w0, s0, reps)
+    if not gold:
+        # no goldens at this length: every pair's (s, n_iter) against the
+        # other route of K1's batches, K1 against K4, in this run
+        other = None if os.environ.get("MWF_ENGINE") == "multi" else "multi"
+        with engine(other):
+            ores = align_batch(pairs, opt, w0=w0, s0=s0, device=device)
+        checks["route_parity"] = [(r.s, r.n_iter) for r in res] == \
+            [(r.s, r.n_iter) for r in ores]
+        against = "MWF_ENGINE=multi" if other else "MWF_ENGINE unset"
     total_cells = sum(r.n_iter for r in res)
     cells_per_s = total_cells / dt
     bp = sum(min(len(t), len(q)) for t, q in pairs)
@@ -123,7 +151,6 @@ def run(n: int, b: int, reps: int, big_n: int, device="cuda",
                 md5 = hashlib.md5(r.cigar_str.encode()).hexdigest()
                 ok &= md5 == g["cigar_md5"]
         checks["cigar_parity"] = ok
-        parity &= ok
 
     # low-mem row (reference -cp5000) over the full batch: every pair
     # must reproduce the high-mem CIGAR bit for bit
@@ -136,7 +163,6 @@ def run(n: int, b: int, reps: int, big_n: int, device="cuda",
         ok = all(lr.s == cr.s and lr.cigar_str == cr.cigar_str
                  for lr, cr in zip(lres, cres))
         checks["lowmem_parity"] = ok
-        parity &= ok
 
     # scale row: the same workload shape at 2x the pair length
     big_cells = None
@@ -146,6 +172,8 @@ def run(n: int, b: int, reps: int, big_n: int, device="cuda",
         bres, bdt = timed(bpairs, opt, big_n // 4, big_n // 4)
         big_cells = round(sum(r.n_iter for r in bres) / bdt)
 
+    ran = [ok for ok in checks.values() if ok is not None]
+    parity = all(ran) if ran else None
     return {
         "metric": "wavefront_cells_per_s_1chip",
         "value": round(cells_per_s),
@@ -161,6 +189,7 @@ def run(n: int, b: int, reps: int, big_n: int, device="cuda",
             "lowmem_cells_per_s": round(lm_cells / lm_dt) if lm_dt else None,
             "score_cells_per_s_at_2x_bp": big_cells,
             "parity": parity,
+            "parity_against": against,
             "checks": checks,
             # km_stat analog: the largest single-dispatch device buffer
             # footprint seen across every row above
@@ -191,7 +220,7 @@ def main(argv=None) -> int:
             goldens = json.load(f)
     out = run(n, b, reps, big_n, args.device, goldens)
     print(json.dumps(out))
-    return 0 if out["detail"]["parity"] else 1
+    return 0 if out["detail"]["parity"] is True else 1
 
 
 if __name__ == "__main__":

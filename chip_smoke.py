@@ -82,9 +82,11 @@
    on 2048 pairs of 1 kb (the chain's K1 gap fills come in chunks of
    2048), each against the plain version;
 6. runs the port's benchmarks, each in its own process: ``bench_cuda.py``
-   at its defaults (its one JSON line, parity included) and
-   ``python -m miniwfa_tpu_torch.tools.scaling_bench``; a non-zero exit
-   fails the run.
+   with one timed run and no 2 x 200 kb row (phase 4 has held the same
+   rows; this checks the entry point and its JSON line, parity included)
+   and ``python -m miniwfa_tpu_torch.tools.scaling_bench 100000 16``, the
+   main path's 16 pairs of 100 kb on every card; a non-zero exit fails
+   the run.
 
 The tolerance of every comparison is exact equality: both versions run
 the same integer algorithm.  Prints a ``kernels`` JSON line (each entry's
@@ -130,8 +132,6 @@ import sys
 import time
 from unittest import mock
 
-from miniwfa_tpu_torch.tools.pairs import make_pairs, mutate, rand_seq
-
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_MAIN, B_MAIN = 100_000, 16
 STEP_MAIN = 5000
@@ -167,10 +167,18 @@ SCALE_RUNS = (("chain", ("div100k", "sv300k", "rep200k", "dissim150k",
                         "div5m")))
 
 
+def make_pairs(n, b, seed=7):
+    """``tools/pairs.make_pairs``, imported when called: after main()'s
+    checks, which say what is missing before the package is imported."""
+    from miniwfa_tpu_torch.tools.pairs import make_pairs as make
+    return make(n, b, seed)
+
+
 def gen_case(name):
     """The scale fixtures of tests/data/scale_goldens.json
     (tools/make_scale_goldens.py::gen_case, restated without JAX)."""
     import random
+    from miniwfa_tpu_torch.tools.pairs import mutate, rand_seq
     if name == "del50k":         # one 5 kb deletion
         rng = random.Random(501)
         t = rand_seq(rng, 50_000)
@@ -671,6 +679,7 @@ def random_gaps(seed, n, maxn=60):
     """Seeded gap pairs of at most 127 bp (tests/test_gaps_interpret.py::
     _pairs, restated): 10% substitutions, 5% insertions."""
     import random
+    from miniwfa_tpu_torch.tools.pairs import rand_seq
     rng = random.Random(seed)
     out = []
     for _ in range(n):
@@ -1938,24 +1947,29 @@ def probe_phase(smoke: Smoke, card: str) -> dict:
         "bodies": bodies}
 
 
-# phase 6: the port's benchmarks, each a subprocess with its time limit
-BENCH_RUNS = (("bench_cuda.py", ["bench_cuda.py"]),
+# phase 6: the port's benchmarks, each a subprocess with its time limit:
+# (name, arguments, environment)
+BENCH_RUNS = (("bench_cuda.py", ["bench_cuda.py"],
+               {"MWF_BENCH_REPS": "1", "MWF_BENCH_BIG_N": "0"}),
               ("scaling_bench",
-               ["-m", "miniwfa_tpu_torch.tools.scaling_bench"]))
+               ["-m", "miniwfa_tpu_torch.tools.scaling_bench",
+                str(N_MAIN), str(B_MAIN)], {}))
 BENCH_TIMEOUT = 180
 
 
 def bench_phase(smoke: Smoke, card: str) -> None:
-    """Phase 6: ``bench_cuda.py`` at its defaults and the scaling bench,
-    each in its own process on the card; echoes each one's output and
-    seconds, and fails the run on a non-zero exit or a time-out."""
+    """Phase 6: ``bench_cuda.py`` (one timed run, no 2 x 200 kb row) and
+    the scaling bench at the main path's shape, each in its own process on
+    the card; echoes each one's output and seconds, and fails the run on a
+    non-zero exit or a time-out."""
     import torch
     torch.cuda.empty_cache()     # the earlier phases' cached blocks
     print("phase 6: the port's benchmarks", flush=True)
-    for name, args in BENCH_RUNS:
+    for name, args, env in BENCH_RUNS:
         t0 = time.perf_counter()
         try:
             p = subprocess.run([sys.executable, *args], cwd=ROOT,
+                               env={**os.environ, **env},
                                capture_output=True, text=True,
                                timeout=BENCH_TIMEOUT)
             rc, out, err = p.returncode, p.stdout, p.stderr

@@ -11,6 +11,12 @@ the timer starts and after it stops.
     python -m miniwfa_tpu_torch.tools.scaling_bench [pair_bp] \
         [pairs_per_device] [--device cpu]
 
+The defaults, 4 pairs of 2 kb an entry, are the JAX tool's: a few
+milliseconds of wall, mostly host dispatch, so they check the path and
+measure nothing.  The measurement is the main path's shape on every card,
+``scaling_bench 100000 16`` (16 pairs of 100 kb a card, seconds of card
+work per size).
+
 ``--device cpu`` takes 8 CPU entries, as the JAX tool takes 8 virtual CPU
 devices: they merge into one ``align_batch`` call, so the lines check the
 path, not a speed.  Entries of one card merge the same way, so a mesh

@@ -69,22 +69,15 @@ def note(tag: str, nbytes: int) -> None:
             _peak_tag = tag
 
 
-def note_arrays(tag: str, *objs) -> int:
-    """Sum the bytes of tensors and numpy arrays (or dicts, lists and
-    tuples of them; None is skipped), record the sum and return it.
+def note_arrays(tag: str, *bufs) -> int:
+    """Sum the bytes of tensors and numpy arrays (None is skipped), record
+    the sum and return it.
 
     A tensor counts ``numel() * element_size()``, a numpy array ``nbytes``.
     Only buffers on a device count: where any of them is a CUDA tensor,
     CPU tensors and numpy arrays (host memory) are left out.  A dispatch
     that holds no CUDA tensor, the plain versions' on the CPU, counts its
     CPU tensors and arrays, so that the meter means something there."""
-    bufs = []
-    for o in objs:
-        if o is None:
-            continue
-        vals = o.values() if isinstance(o, dict) else \
-            o if isinstance(o, (list, tuple)) else (o,)
-        bufs.extend(v for v in vals if v is not None)
     on_card = any(isinstance(v, torch.Tensor) and v.is_cuda for v in bufs)
     total = 0
     for v in bufs:

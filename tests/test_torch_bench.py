@@ -6,6 +6,7 @@ against the JAX side's.  Tolerance: exact equality (cell counts, scores,
 sequences).
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -56,6 +57,7 @@ def test_bench_cuda_cpu_line(small_run):
     assert DETAIL <= set(d)
     assert (d["pairs"], d["pair_bp"], d["reps"]) == (1, 8000, 1)
     assert d["parity"] is True
+    assert d["parity_against"] == "bench_goldens.json"
     assert d["checks"] == {"score_parity": True, "cigar_parity": True,
                            "lowmem_parity": True}
     assert d["score_cells_per_s_at_2x_bp"] is None
@@ -103,6 +105,42 @@ def test_main_returns_1_without_parity(monkeypatch, capsys, tmp_path):
     assert bench_cuda.main(["--device", "cpu"]) == 1
     out = json.loads(capsys.readouterr().out)
     assert out["detail"]["parity"] is False
+
+
+@pytest.mark.parametrize("engine", [None, "multi"])
+def test_run_without_goldens_holds_the_other_route(monkeypatch, engine):
+    """At a length with no goldens the score row is held, pair by pair in
+    s and n_iter, against the other route of K1's batches (K4 under the
+    default, K1 under MWF_ENGINE=multi); the environment is restored."""
+    if engine is None:
+        monkeypatch.delenv("MWF_ENGINE", raising=False)
+    else:
+        monkeypatch.setenv("MWF_ENGINE", engine)
+    d = bench_cuda.run(1000, 4, 1, 0, "cpu", {})["detail"]
+    assert d["checks"] == {"score_parity": None, "route_parity": True}
+    assert d["parity"] is True
+    assert d["parity_against"] == ("MWF_ENGINE unset" if engine
+                                   else "MWF_ENGINE=multi")
+    assert d["cigar_cells_per_s"] is None and d["lowmem_cells_per_s"] is None
+    assert os.environ.get("MWF_ENGINE") == engine
+
+
+def test_route_mismatch_fails(monkeypatch):
+    """A route whose n_iter differs from the timed route's turns
+    route_parity and parity false."""
+    monkeypatch.delenv("MWF_ENGINE", raising=False)
+    real = bench_cuda.align_batch
+
+    def skewed(*args, **kw):
+        res = real(*args, **kw)
+        if os.environ.get("MWF_ENGINE") == "multi":
+            res[-1] = dataclasses.replace(res[-1], n_iter=res[-1].n_iter + 1)
+        return res
+
+    monkeypatch.setattr(bench_cuda, "align_batch", skewed)
+    d = bench_cuda.run(1000, 2, 1, 0, "cpu", {})["detail"]
+    assert d["checks"] == {"score_parity": None, "route_parity": False}
+    assert d["parity"] is False
 
 
 def test_no_card_fails(monkeypatch):

@@ -48,7 +48,7 @@ def test_meter_keeps_max(order):
     for i in order:
         hbm.note(*NOTES[i])
     assert hbm.peak() == (1000, "big")
-    total = hbm.note_arrays("arrays", {"a": np.zeros(4096)})
+    total = hbm.note_arrays("arrays", np.zeros(4096))
     assert total == 4096 * 8
     assert hbm.peak() == (4096 * 8, "arrays")
     hbm.reset()
@@ -56,14 +56,14 @@ def test_meter_keeps_max(order):
 
 
 def test_note_arrays_counts_tensors_and_arrays():
-    """numel * element_size for tensors, nbytes for numpy arrays, through
-    dicts, lists and tuples; None is skipped."""
+    """numel * element_size for tensors, nbytes for numpy arrays; None is
+    skipped."""
     hbm.reset()
     t32 = torch.zeros((4, 1024), dtype=torch.int32)
     u8 = torch.zeros((3, 5, 7), dtype=torch.uint8)
     i64 = torch.zeros(9, dtype=torch.int64)
-    total = hbm.note_arrays("mix", t32, None, {"u": u8, "n": None},
-                            [np.zeros(100, np.int16)], (i64,))
+    total = hbm.note_arrays("mix", t32, None, u8, np.zeros(100, np.int16),
+                            i64)
     assert total == 4 * 1024 * 4 + 105 + 200 + 72
     assert hbm.peak() == (total, "mix")
     # a view counts its own elements
