@@ -77,10 +77,13 @@
    card) at the same window, held equal; the wide kernel against
    wide_plain at the specs of phase 4d's nbear1m score and div5m pass 1
    for their first few thousand cycles; K4 at G=4 at the main path's
-   SCORE and TB shapes, held equal to K1 there, whole and with its lanes
-   stopped past MAIN_CUT; and K1 against K4 at 2, 4 and 8 lanes per block
-   on 2048 pairs of 1 kb (the chain's K1 gap fills come in chunks of
-   2048), each against the plain version;
+   SCORE and TB shapes (its "global" variant: the rings do not fit shared
+   memory), held equal to K1 there, whole and with its lanes stopped past
+   MAIN_CUT; and K1 against K4 at 2, 4 and 8 lanes per block (its "smem"
+   variant, a warp a lane) on 2048 pairs of 1 kb (the chain's K1 gap
+   fills come in chunks of 2048) in SCORE and TB, each against the plain
+   version; K3 by width class (csrc/gaps.cu, every class the dispatch
+   holds);
 6. runs the port's benchmarks, each in its own process: ``bench_cuda.py``
    with one timed run and no 2 x 200 kb row (phase 4 has held the same
    rows; this checks the entry point and its JSON line, parity included)
@@ -92,9 +95,17 @@ The tolerance of every comparison is exact equality: both versions run
 the same integer algorithm.  Prints a ``kernels`` JSON line (each entry's
 ``ms``, ``bound_ms`` and ``bound_by`` are phase 5's at the main path's
 shape: the wavefront entry's SCORE's, the gaps entry's TB's, the wide
-entry's nbear1m score's, the multi entry's SCORE's at G=4; ``plain_ms`` is
-the plain version's at the 8 kb shape (the multi entry's at the 2048 x 1
-kb shape), beside the kernel's own time there, ``plain_shape_kernel_ms``;
+entry's nbear1m score's, the multi entry's SCORE's at G=4 (its global
+variant); ``plain_ms`` is the plain version's at the 8 kb shape (the
+multi entry's at the 2048 x 1 kb shape), beside the kernel's own time
+there, ``plain_shape_kernel_ms`` (the smem variant's at G=8); the multi
+entry's ``gap_fills`` keep SCORE's times at 2048 x 1 kb by G (TB's under
+``TB``),
+``variants`` each variant's source and ``launches_by_variant`` its
+launches; the gaps entry's ``launches`` count kernel launches, one per
+width class a dispatch holds (``launches_by_variant`` by the class's
+window slots), and its ``classes`` the first dispatch's gaps by window
+slots;
 the wide entry's ``launches_by_variant`` counts phase 4d's launches of
 each variant, ``checks_by_variant`` those of phase 2+3's comparisons
 with wide_plain; ``modes`` holds every mode's launches in the main path's
@@ -232,6 +243,8 @@ def _reset_counts():
     wk.wavefront.clusters.clear()
     wm.wavefront_multi.launches = 0
     wm.wavefront_multi.launches_by_mode.clear()
+    wm.wavefront_multi.launches_by_variant.clear()
+    wm.wavefront_multi.variants.clear()
     ww.wide.launches = 0
     ww.wide.launches_by_mode.clear()
     ww.wide.launches_by_variant.clear()
@@ -239,6 +252,8 @@ def _reset_counts():
     tbd.walk.launches_by_variant.clear()
     tbd.chain_ptrs.launches = 0
     wg.gaps.launches = 0
+    wg.gaps.launches_by_variant.clear()
+    wg.gaps.dispatches = 0
 
 
 def _read_counts() -> dict:
@@ -251,10 +266,13 @@ def _read_counts() -> dict:
             "walk_variants": dict(tbd.walk.launches_by_variant),
             "chain_ptrs": tbd.chain_ptrs.launches,
             "gaps": wg.gaps.launches,
+            "gaps_dispatches": wg.gaps.dispatches,
+            "gaps_classes": dict(wg.gaps.launches_by_variant),
             "modes": dict(wk.wavefront.launches_by_mode),
             "clusters": dict(wk.wavefront.clusters.get(0, {})),
             "multi": wm.wavefront_multi.launches,
             "multi_modes": dict(wm.wavefront_multi.launches_by_mode),
+            "multi_variants": dict(wm.wavefront_multi.launches_by_variant),
             "wide": ww.wide.launches,
             "wide_modes": dict(ww.wide.launches_by_mode),
             "wide_variants": dict(ww.wide.launches_by_variant)}
@@ -1041,6 +1059,7 @@ def _drive(smoke, label, pairs, opt, card, fn=None, **kw):
           f"meter_bytes={meter} meter_tag='{tag}' "
           f"launches wavefront={counts['wavefront']} {counts['modes']} "
           f"wavefront_multi={counts['multi']} {counts['multi_modes']} "
+          f"{counts['multi_variants']} "
           f"wavefront_wide={counts['wide']} {counts['wide_modes']} "
           f"walk={counts['walk']} {counts['walk_variants']} "
           f"chain_ptrs={counts['chain_ptrs']} gaps={counts['gaps']} "
@@ -1096,8 +1115,8 @@ def main_path(smoke: Smoke, card: str) -> dict:
     print(f"phase 4: main path, {B_MAIN} pairs x {N_MAIN} bp, 2% divergence",
           flush=True)
     launches = {"wavefront": 0, "walk": 0, "modes": {}, "wavefront_multi": 0,
-                "multi_modes": {}, "clusters": {}, "chain_ptrs": 0,
-                "walk_variants": {}}
+                "multi_modes": {}, "multi_variants": {}, "clusters": {},
+                "chain_ptrs": 0, "walk_variants": {}}
     walls, results = {}, {}
     for mode, opt, kmodes in modes:
         res, counts, walls[mode], _ = _drive(smoke, mode, list(zip(ts, qs)),
@@ -1157,9 +1176,7 @@ def main_path(smoke: Smoke, card: str) -> dict:
                     f"times and wavefront {counts['wavefront']}")
         print(f"  main {mode}: wall_s K1={walls[mode]:.6f} "
               f"K4(G=4)={wall:.6f} card={card}", flush=True)
-        launches["wavefront_multi"] += counts["multi"]
-        for k, n in counts["multi_modes"].items():
-            launches["multi_modes"][k] = launches["multi_modes"].get(k, 0) + n
+        _add_multi(launches, counts)
 
     with open(os.path.join(ROOT, "tests", "data", "scale_goldens.json")) as f:
         sgold = json.load(f)
@@ -1179,6 +1196,7 @@ def main_path(smoke: Smoke, card: str) -> dict:
     from miniwfa_tpu_torch.models.chain import align_chain_batch
     from miniwfa_tpu_torch.utils.spans import Spans
     launches["gaps"] = 0
+    launches["gaps_classes"] = {}
     launches["walk_on_gaps"] = 0
     fns = {"chain": align_chain_batch, "auto": align_auto_batch}
     for mode, names in SCALE_RUNS:
@@ -1214,12 +1232,16 @@ def main_path(smoke: Smoke, card: str) -> dict:
             k1_tb = sum(n for k, n in counts["modes"].items()
                         if k.startswith("TB"))
             on_gaps = counts["walk"] - k1_tb
-            smoke.check(on_gaps == counts["gaps"],
+            smoke.check(on_gaps == counts["gaps_dispatches"],
                         f"{name} {mode}: walk launched {on_gaps} times on "
-                        f"K3's {counts['gaps']} tracebacks")
+                        f"K3's {counts['gaps_dispatches']} tracebacks "
+                        f"({counts['gaps']} kernel launches)")
             for k in ("wavefront", "walk", "gaps"):
                 launches[k] += counts[k]
             launches["walk_on_gaps"] += on_gaps
+            for k, n in counts["gaps_classes"].items():
+                launches["gaps_classes"][k] = \
+                    launches["gaps_classes"].get(k, 0) + n
             for k, n in counts["modes"].items():
                 launches["modes"][k] = launches["modes"].get(k, 0) + n
             if name == "div5m":
@@ -1262,9 +1284,16 @@ def _div5m_multi(smoke, card, t, q, g, k1_spans, launches) -> None:
           f"(wavefront_multi {counts['multi']} {counts['multi_modes']}, "
           f"wavefront {counts['wavefront']} {counts['modes']}) "
           f"wall={wall:.6f} card={card}", flush=True)
+    _add_multi(launches, counts)
+
+
+def _add_multi(launches, counts) -> None:
+    """Add a run's K4 launches, by mode and by variant, to ``launches``."""
     launches["wavefront_multi"] += counts["multi"]
-    for k, n in counts["multi_modes"].items():
-        launches["multi_modes"][k] = launches["multi_modes"].get(k, 0) + n
+    for key, into in (("multi_modes", "multi_modes"),
+                      ("multi_variants", "multi_variants")):
+        for k, n in counts[key].items():
+            launches[into][k] = launches[into].get(k, 0) + n
 
 
 def penalty_runs(smoke: Smoke, card: str) -> None:
@@ -1489,25 +1518,31 @@ def _multi_main(smoke, label, spec, args, k1, card, G=4) -> dict:
     smoke.err["wavefront_multi"] = max(smoke.err["wavefront_multi"], err,
                                        cut)
     mode = wk.launch_mode(spec, None)
-    smoke.check(err == 0 and cut == 0,
-                f"K4 {label} {mode} G={G}: every output equal K1's, whole "
-                f"and with lanes stopped past max_s={MAIN_CUT}, "
-                f"max_abs_err={max(err, cut)}")
+    v = wm.wavefront_multi.variants[args[0].device.index][mode]
+    smoke.check(err == 0 and cut == 0 and v["variant"] == "global",
+                f"K4 {label} {mode} G={G} {v['variant']} variant: every "
+                f"output equal K1's, whole and with lanes stopped past "
+                f"max_s={MAIN_CUT}, max_abs_err={max(err, cut)}")
     print(f"  wavefront_multi[{mode}] {label} G={G} B={len(args[0])} "
-          f"W={spec.W} S_CAP={spec.S_CAP}: kernel_ms={ms:.3f} "
-          f"bound_ms={bound_ms:.6f} ({bound_by}) card={card}", flush=True)
-    return dict(G=G, ms=ms, bound_ms=bound_ms, bound_by=bound_by)
+          f"W={spec.W} S_CAP={spec.S_CAP} variant={v['variant']}: "
+          f"kernel_ms={ms:.3f} bound_ms={bound_ms:.6f} ({bound_by}) "
+          f"card={card}", flush=True)
+    return dict(G=G, variant=v["variant"], ms=ms, bound_ms=bound_ms,
+                bound_by=bound_by)
 
 
 # the chain's K1 gap fills: dispatches of up to 2048 lanes (models/chain.py
-# CHUNK), here 1 kb pairs, SCORE
+# CHUNK), here 1 kb pairs
 FILL_N, FILL_B = 1000, 2048
 
 
 def gap_fill_times(smoke: Smoke, card: str) -> dict:
-    """Phase 5, K4: FILL_B pairs of FILL_N bp (make_pairs) in SCORE mode
-    at G = 1 (K1) and 2, 4, 8 lanes per block (K4), CUDA events, each
-    with its bound and every output held against the plain version's."""
+    """Phase 5, K4: FILL_B pairs of FILL_N bp (make_pairs) in SCORE and TB
+    modes at G = 1 (K1, whose chooser runs so many lanes at C = 1) and 2,
+    4, 8 lanes per block (K4 at the chooser's variant: smem, at 4 lanes a
+    block), CUDA events, each with its bound, µs a cycle (over the lanes'
+    largest score) and every output held against the plain version's;
+    then the smem variant at 1 lane a block, held equal."""
     import torch
     from miniwfa_tpu_torch import Options
     from miniwfa_tpu_torch.models import exact
@@ -1517,34 +1552,52 @@ def gap_fill_times(smoke: Smoke, card: str) -> dict:
     pairs = make_pairs(FILL_N, FILL_B)
     ts = [t.encode() for t, _ in pairs]
     qs = [q.encode() for _, q in pairs]
-    opt = Options()
-    bk, _ = exact.first_bucket(opt, wk.MODE_SCORE, ts, qs, 512, 512,
-                               smoke.dev)
-    spec, lanes, tw, qw = exact.kernel_inputs(opt, wk.MODE_SCORE, bk.W,
-                                              bk.S_CAP, ts, qs)
-    args = [torch.from_numpy(a).to(smoke.dev) for a in (lanes, tw, qw)]
-    print(f"phase 5, K4: {FILL_B} pairs of {FILL_N} bp, SCORE, W={spec.W} "
-          f"S_CAP={spec.S_CAP}", flush=True)
-    want, plain_ms = _ms(lambda: wk.wavefront_plain(spec, *args))
-    done = int(want[0][:, wk.O_DONE].sum())
-    smoke.check(done == FILL_B, f"plain {FILL_B} x {FILL_N} bp: {done} done "
-                f"(plain_ms={plain_ms:.3f})")
-    res = {"plain_ms": plain_ms, "W": spec.W, "cells":
-           int(want[0][:, wk.O_NITER].sum())}
-    for G in (1,) + tuple(sorted(wm.GS)):
-        fn = (lambda: wk.wavefront(spec, *args)) if G == 1 else \
-            (lambda: wm.wavefront_multi(spec, G, *args))
-        got, ms = _ms(fn)
-        bound_ms, bound_by = _k1_bound(spec, args, None, got)
-        err = max(_max_err(a, b) for a, b in zip(got, want))
-        key = "wavefront" if G == 1 else "wavefront_multi"
-        smoke.err[key] = max(smoke.err[key], err)
-        smoke.check(err == 0, f"{key} {FILL_B} x {FILL_N} bp G={G}: every "
-                    f"output equal the plain version's, max_abs_err={err}")
-        print(f"  {key}[SCORE] G={G}: kernel_ms={ms:.3f} "
-              f"bound_ms={bound_ms:.6f} ({bound_by}) plain_ms={plain_ms:.3f}"
-              f" card={card}", flush=True)
-        res[G] = dict(ms=ms, bound_ms=bound_ms, bound_by=bound_by)
+    res = {}
+    for name, opt, mode in (("SCORE", Options(), wk.MODE_SCORE),
+                            ("TB", Options(cigar=True), wk.MODE_TB)):
+        bk, _ = exact.first_bucket(opt, mode, ts, qs, 512, 512, smoke.dev)
+        spec, lanes, tw, qw = exact.kernel_inputs(opt, mode, bk.W, bk.S_CAP,
+                                                  ts, qs)
+        args = [torch.from_numpy(a).to(smoke.dev) for a in (lanes, tw, qw)]
+        print(f"phase 5, K4: {FILL_B} pairs of {FILL_N} bp, {name}, "
+              f"W={spec.W} S_CAP={spec.S_CAP}", flush=True)
+        want, plain_ms = _ms(lambda: wk.wavefront_plain(spec, *args))
+        done = int(want[0][:, wk.O_DONE].sum())
+        s_max = int(want[0][:, wk.O_S].max())
+        smoke.check(done == FILL_B, f"plain {FILL_B} x {FILL_N} bp {name}: "
+                    f"{done} done (plain_ms={plain_ms:.3f})")
+        r = res[name] = {"plain_ms": plain_ms, "W": spec.W,
+                         "S_CAP": spec.S_CAP, "max_s": s_max,
+                         "cells": int(want[0][:, wk.O_NITER].sum())}
+        for G in (1,) + tuple(sorted(wm.GS)):
+            fn = (lambda: wk.wavefront(spec, *args)) if G == 1 \
+                else (lambda: wm.wavefront_multi(spec, G, *args))
+            got, ms = _ms(fn)
+            bound_ms, bound_by = _k1_bound(spec, args, None, got)
+            err = max(_max_err(a, b) for a, b in zip(got, want))
+            key = "wavefront" if G == 1 else "wavefront_multi"
+            v = {"variant": "K1"} if G == 1 else \
+                wm.wavefront_multi.variants[smoke.dev.index][name]
+            smoke.err[key] = max(smoke.err[key], err)
+            smoke.check(err == 0 and (G == 1 or v["variant"] == "smem"),
+                        f"{key} {FILL_B} x {FILL_N} bp {name} G={G} "
+                        f"{v['variant']}: every output equal the plain "
+                        f"version's, max_abs_err={err}")
+            us = 1e3 * ms / max(s_max, 1)
+            print(f"  {key}[{name}] G={G} {v}: kernel_ms={ms:.3f} "
+                  f"us_per_cycle={us:.3f} bound_ms={bound_ms:.6f} "
+                  f"({bound_by}) plain_ms={plain_ms:.3f} card={card}",
+                  flush=True)
+            r[G] = dict(ms=ms, us_per_cycle=us, bound_ms=bound_ms,
+                        bound_by=bound_by, **v)
+        # the smem variant at one lane a block, beside the chooser's
+        err = max(_max_err(a, b) for a, b in
+                  zip(wm._launch_smem(spec, *args, None, 1), want))
+        smoke.err["wavefront_multi"] = max(smoke.err["wavefront_multi"], err)
+        smoke.check(err == 0, f"wavefront_multi {FILL_B} x {FILL_N} bp "
+                    f"{name} smem at 1 lane a block: every output equal "
+                    f"the plain version's, max_abs_err={err}")
+        del want
     return res
 
 
@@ -1839,6 +1892,7 @@ def gaps_times(smoke: Smoke, card: str, t: bytes, q: bytes) -> dict:
     """Phase 5, gaps: K3 SCORE and TB, and W1 on K3's traceback, against
     their plain versions at div5m auto's first K3 dispatch (its chain
     plan's gaps ordered by score bound, the first GMAX of them)."""
+    import numpy as np
     import torch
     from miniwfa_tpu_torch import Options
     from miniwfa_tpu_torch.models import tiny
@@ -1850,10 +1904,14 @@ def gaps_times(smoke: Smoke, card: str, t: bytes, q: bytes) -> dict:
     sb = [tiny._s_bound(Options(), len(a), len(b)) for a, b in gaps]
     sel = sorted(range(len(gaps)), key=lambda g: sb[g])[:tiny.GMAX]
     s_cap = tiny._scap_bucket(max(sb[g] for g in sel))
+    lens = np.array([[len(gaps[g][0]), len(gaps[g][1])] for g in sel],
+                    dtype=np.int32)
+    classes = {str(wd): n for wd, (_, n) in zip(wg.CLASSES,
+                                                 wg.plan(lens)[1])}
     print(f"phase 5, gaps: div5m's chain plan holds {len(gaps)} gaps of at "
           f"most 127 bp; first dispatch G={len(sel)} S_CAP={s_cap} "
-          f"cpw={cpw}", flush=True)
-    times = {}
+          f"cpw={cpw}, gaps by window slots {classes}", flush=True)
+    times = {"classes": classes}
     for opt in (Options(), Options(cigar=True)):
         spec, lens, tw, qw = tiny.dispatch_inputs(
             opt, [gaps[g][0] for g in sel], [gaps[g][1] for g in sel], cpw,
@@ -2018,15 +2076,19 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
-    # gaps.cu's shared memory is dynamic, so ptxas does not report it: per
-    # gap (warp), the rings plus both sides' words at cpw 4 (mwf_gaps)
-    from miniwfa_tpu_torch.ops import pack
+    # gaps.cu's and wavefront_multi.cu's shared memory is dynamic, so ptxas
+    # does not report it: K3's block of each width class, K4's smem lane at
+    # the 2048 x 1 kb gap fills' window, at the default penalties
     from miniwfa_tpu_torch.ops import wavefront_gaps as wg
-    dh, de1, de2 = wg.GSpec(S_CAP=64, x=4, o1=4, e1=2, o2=15, e2=1).rings
-    smem = 4 * ((dh + 2 * de1 + 2 * de2) * wg.WIN
-                + 2 * pack.n_words(wg.MAX_TOT, 4))
-    print(f"  gaps: dynamic shared memory {smem} bytes per gap at the "
-          f"default penalties, 4 gaps a block")
+    from miniwfa_tpu_torch.ops import wavefront_kernel as wk
+    from miniwfa_tpu_torch.ops import wavefront_multi as wm
+    gspec = wg.GSpec(S_CAP=64, x=4, o1=4, e1=2, o2=15, e2=1)
+    print("  gaps: dynamic shared memory a block (bytes, warps) by class "
+          + ", ".join(f"{wd}: {wg.block_of(gspec, c)}"
+                      for c, wd in enumerate(wg.CLASSES)))
+    kspec = wk.KSpec(W=512, S_CAP=64, x=4, o1=4, e1=2, o2=15, e2=1)
+    print(f"  wavefront_multi smem: {wm.lane_smem(kspec)} bytes a lane at "
+          f"W=512")
 
     smoke = Smoke(torch.device("cuda", 0))
     t0 = time.perf_counter()
@@ -2098,6 +2160,13 @@ def main() -> int:
         "PASS1": {"launches": wl["modes"].get("PASS1", 0),
                   **timed(d5, wtimes8["PASS1"]), **tiled(d5),
                   "shape": "div5m low-mem pass 1"}}
+    # SCORE's at the entry's top level, TB's under its own key
+    fills = {m: {"shape": f"{FILL_B} x {FILL_N} bp {m} W={ftimes[m]['W']} "
+                          f"S_CAP={ftimes[m]['S_CAP']}",
+                 "cells": ftimes[m]["cells"], "max_s": ftimes[m]["max_s"],
+                 "plain_ms": ftimes[m]["plain_ms"],
+                 "by_G": {str(g): ftimes[m][g] for g in (1, 2, 4, 8)}}
+             for m in ("SCORE", "TB")}
     kernels = [
         {"name": "wavefront", "route": "cuda",
          "source": "miniwfa_tpu_torch/csrc/wavefront.cu",
@@ -2141,8 +2210,10 @@ def main() -> int:
          "source": "miniwfa_tpu_torch/csrc/gaps.cu",
          "replaces": "miniwfa_tpu/ops/wavefront_gaps.py:90",
          "launches": launches["gaps"], "max_abs_err": smoke.err["gaps"],
+         "launches_by_variant": launches["gaps_classes"],
          "sharded_launches": sharded["gaps"],
          **timed(gtimes["TB"]), "library_ms": None,
+         "classes": gtimes["classes"],
          "modes": {m: timed(gtimes[m]) for m in ("SCORE", "TB")}},
         {"name": "wavefront_wide", "route": "cuda",
          "source": "miniwfa_tpu_torch/csrc/wavefront_wide.cu",
@@ -2164,14 +2235,16 @@ def main() -> int:
          "max_abs_err": smoke.err["wavefront_multi"],
          **{k: times["SCORE"]["multi"][k] for k in ("ms", "bound_ms",
                                                     "bound_by")},
-         "plain_ms": ftimes["plain_ms"],
-         "plain_shape_kernel_ms": ftimes[8]["ms"], "library_ms": None,
+         "plain_ms": ftimes["SCORE"]["plain_ms"],
+         "plain_shape_kernel_ms": ftimes["SCORE"][8]["ms"],
+         "library_ms": None,
+         "launches_by_variant": launches["multi_variants"],
+         "variants": {
+             "smem": "miniwfa_tpu_torch/csrc/wavefront_multi.cu",
+             "global": "miniwfa_tpu_torch/csrc/wavefront.cu"},
          "modes": {m: {"launches": launches["multi_modes"].get(m, 0),
                        **times[m]["multi"]} for m in ("SCORE", "TB")},
-         "gap_fills": {"shape": f"{FILL_B} x {FILL_N} bp SCORE "
-                                f"W={ftimes['W']}",
-                       "cells": ftimes["cells"],
-                       "by_G": {str(g): ftimes[g] for g in (1, 2, 4, 8)}}},
+         "gap_fills": {**fills["SCORE"], "TB": fills["TB"]}},
         {**probes, "sharded_launches": sharded["probes"]}]
     print(json.dumps({"kernels": kernels}), flush=True)
     if smoke.failures:

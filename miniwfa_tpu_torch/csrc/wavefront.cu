@@ -115,10 +115,11 @@
 // barrier's latency and the L2 traffic of the ring planes set the pace.
 // Clusters put up to 16 SMs on a lane where one block per lane left 116 of
 // the 132 SMs idle on a batch of 16; the fused extension removes a pass
-// over the top band and a barrier from every cycle.  K4 serves batches of
-// more lanes than SMs with narrow bands (the chain's gap fills): G lanes
-// share an SM's block slots, each with 512/G threads.  Shared-memory rings
-// are later work.
+// over the top band and a barrier from every cycle.  K4 here is the
+// "global" variant, for windows whose rings do not fit shared memory: G
+// lanes share an SM's block slots, each with 512/G threads.  Lanes that
+// fit take K4's "smem" variant (wavefront_multi.cu: a warp per lane, its
+// rings in shared memory).
 
 #include <cooperative_groups.h>
 

@@ -1,5 +1,5 @@
-"""Gaps engine: many tiny exact alignments at once, one 128-diagonal
-window per gap.
+"""Gaps engine: many tiny exact alignments at once, each in a window of
+diagonals sized to the gap.
 
 Counterpart of ``miniwfa_tpu/ops/wavefront_gaps.py`` (K3, the
 gaps-in-sublanes Pallas kernel), which serves the chain mode's exact gap
@@ -8,10 +8,17 @@ mwf_wfa_exact, miniwfa.c:877).  Two implementations of one algorithm:
 
 * ``gaps_plain`` — plain PyTorch, vectorised over ``[G, 128]`` planes;
   any device.
-* ``csrc/gaps.cu`` — the hand-written Hopper kernel, one warp per gap.
+* ``csrc/gaps.cu`` — the hand-written Hopper kernel: a tile of
+  ``THREADS[c]`` threads per gap over a window of WD = ``CLASSES[c]``
+  slots, the smallest that holds the gap's ``tl + ql + 1`` legal
+  diagonals, and ``32 / THREADS[c]`` gaps a warp; one launch per width
+  class.
 
-``gaps`` dispatches on the device of its inputs: CPU tensors run the
-plain version, CUDA tensors launch the kernel (or raise).
+``gaps`` dispatches on the device of its inputs.  Either way it first
+groups the gaps by width class on the host (``plan``: a permutation and
+each class's first index and count); CUDA tensors then launch the kernel
+once per non-empty class (or raise), and CPU tensors run the plain
+version on each class's gaps; both return the outputs in input order.
 
 Semantics contract: identical to the wavefront kernel
 (ops/wavefront_kernel.py) in MODE_SCORE / MODE_TB for pairs with
@@ -38,14 +45,16 @@ CIGAR walker (ops/traceback_device.walk) reads it as it is.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..utils import hbm
-from ..utils.launches import count_launch
+from ..utils.launches import count_dispatch, count_launch
 from . import build
 from . import pack
 from . import wavefront_kernel as wk
@@ -57,6 +66,11 @@ MODE_SCORE, MODE_TB, WF_NEG_INF = wk.MODE_SCORE, wk.MODE_TB, wk.WF_NEG_INF
 MAX_TOT = 127
 WIN = 128
 SMEM_CAP = 232448   # shared memory one block may use (csrc/gaps.cu)
+# the kernel's width classes: window slots of a gap's tile, and its threads
+CLASSES = (8, 16, 32, 64, 128)
+THREADS = (8, 16, 16, 32, 32)
+# the class of a gap of n = tl + ql + 1 slots, by n
+_CLASS_OF = np.searchsorted(CLASSES, np.arange(WIN + 1))
 
 
 @dataclass(frozen=True)
@@ -86,15 +100,31 @@ class GSpec:
                 max(self.e1, 1), max(self.e2, 1))
 
 
-def fits(spec: GSpec) -> bool:
-    """Whether one gap's rings and words fit a block's shared memory
-    (csrc/gaps.cu, mwf_gaps)."""
+WPB = 8             # warps a block of csrc/gaps.cu at most
+
+
+def block_of(spec: GSpec, c: int) -> Tuple[int, int]:
+    """(dynamic shared memory bytes, warps) of a block of width class c at
+    the spec's penalties, as csrc/gaps.cu launches it: each warp holds
+    32 / THREADS[c] gaps' rings of WD slots and both sides' words of WD - 1
+    characters at cpw 4; as many warps as fit SMEM_CAP, at most WPB."""
     DH, DE1, DE2 = spec.rings
-    return 4 * ((DH + 2 * DE1 + 2 * DE2) * WIN
-                + 2 * pack.n_words(MAX_TOT, 4)) <= SMEM_CAP
+    WD = CLASSES[c]
+    per_gap = (DH + 2 * DE1 + 2 * DE2) * WD + 2 * pack.n_words(WD - 1, 4)
+    per_warp = 4 * (32 // THREADS[c]) * per_gap
+    warps = min(WPB, SMEM_CAP // per_warp)
+    return warps * per_warp, warps
 
 
-def _check(spec: GSpec, lens, tw, qw) -> None:
+def fits(spec: GSpec) -> bool:
+    """Whether a block of the widest class holds one gap's rings and
+    words (csrc/gaps.cu, mwf_gaps): at most 453 ring planes."""
+    return block_of(spec, len(CLASSES) - 1)[1] >= 1
+
+
+def _check(spec: GSpec, lens, tw, qw) -> np.ndarray:
+    """Check a dispatch's inputs; returns the lens on the host (the one
+    copy from the card)."""
     if spec.mode not in (MODE_SCORE, MODE_TB):
         raise ValueError(f"unsupported gaps mode {spec.mode}")
     if spec.cpw not in (4, 16):
@@ -116,9 +146,12 @@ def _check(spec: GSpec, lens, tw, qw) -> None:
         raise ValueError("gaps inputs must be contiguous")
     if tw.shape[1] != qw.shape[1]:
         raise ValueError("tw and qw must have the same word count")
+    lens_h = lens.cpu().numpy()
     if lens.shape[0]:
-        longest = int(lens.max())
-        if int(lens.min()) < 0 or int(lens.sum(1).max()) > MAX_TOT:
+        longest, low = int(lens_h.max()), int(lens_h.min())
+        # columns added, not sum(1): numpy's reduction over a short
+        # axis is slow, and this runs once a dispatch
+        if low < 0 or int((lens_h[:, 0] + lens_h[:, 1]).max()) > MAX_TOT:
             raise ValueError(f"every gap needs 0 <= tl, ql and "
                              f"tl + ql <= {MAX_TOT}")
         # the kernel keeps a gap's words in shared memory, sized for
@@ -127,6 +160,7 @@ def _check(spec: GSpec, lens, tw, qw) -> None:
             raise ValueError(f"word streams of {tw.shape[1]} words; the "
                              f"longest sequence packs into "
                              f"{pack.n_words(longest, spec.cpw)}")
+    return lens_h
 
 
 def gaps_plain(spec: GSpec, lens: torch.Tensor, tw: torch.Tensor,
@@ -274,51 +308,101 @@ def gaps_plain(spec: GSpec, lens: torch.Tensor, tw: torch.Tensor,
     return out, tb
 
 
+def plan(lens: np.ndarray) -> Tuple[np.ndarray, List[Tuple[int, int]]]:
+    """The gaps of a dispatch grouped by width class, from their lens on
+    the host: (perm int32 [G], the gap indices class by class, each class
+    in input order; each class's first index in perm and count).  A gap's
+    class is the smallest window of CLASSES that holds its tl + ql + 1
+    diagonals."""
+    cls = _CLASS_OF[lens[:, 0] + lens[:, 1] + 1]
+    perm = np.argsort(cls, kind="stable").astype(np.int32)
+    count = np.bincount(cls, minlength=len(CLASSES))
+    first = np.cumsum(count) - count
+    return perm, list(zip(first.tolist(), count.tolist()))
+
+
+def _gaps_by_class_plain(spec: GSpec, lens, tw, qw, lens_h, perm,
+                         bounds):
+    """The plain version class by class, as the kernel's launches take the
+    gaps (each class's word streams cut to its longest sequence), the
+    outputs scattered back to input order."""
+    G = lens.shape[0]
+    out = torch.empty((G, GO_N), dtype=torch.int32)
+    tb = torch.zeros((G, spec.S_CAP, WIN), dtype=torch.uint8) \
+        if spec.mode == MODE_TB else None
+    for first, count in bounds:
+        if not count:
+            continue
+        idx = perm[first:first + count].long()
+        nw = pack.n_words(int(lens_h[idx.numpy()].max()), spec.cpw)
+        o, t = gaps_plain(spec, lens[idx], tw[idx, :nw].contiguous(),
+                          qw[idx, :nw].contiguous())
+        out[idx] = o
+        if tb is not None:
+            tb[idx] = t
+    return out, tb
+
+
 def gaps(spec: GSpec, lens: torch.Tensor, tw: torch.Tensor,
          qw: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Align every gap; outputs as ``gaps_plain``.  CPU tensors take the
-    plain version; CUDA tensors launch ``csrc/gaps.cu`` and count the
-    launch in ``gaps.launches``.  Either notes its buffers in the
-    peak-memory meter."""
-    _check(spec, lens, tw, qw)
-    if lens.device.type == "cpu":
-        out, tb = gaps_plain(spec, lens, tw, qw)
-        _note(spec, lens, tw, qw, out, tb)
-        return out, tb
-    if lens.device.type != "cuda":
+    """Align every gap; outputs as ``gaps_plain``, in input order.  The
+    gaps are grouped by width class on the host (``plan``); CPU tensors
+    take the plain version class by class; CUDA tensors launch
+    ``csrc/gaps.cu`` once per non-empty class, on the caller's stream,
+    count each launch in ``gaps.launches`` and, by the class's window
+    slots, ``gaps.launches_by_variant``, and the call in
+    ``gaps.dispatches``.  Either notes its buffers in the peak-memory
+    meter."""
+    lens_h = _check(spec, lens, tw, qw)
+    if lens.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {lens.device}")
-    fn = build.load("gaps", "mwf_gaps",
-                    [ctypes.c_void_p] * 3 + [ctypes.c_int]
-                    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 10
-                    + [ctypes.c_longlong, ctypes.c_void_p])
+    perm_h, bounds = plan(lens_h)
     dev = lens.device
+    perm = torch.from_numpy(perm_h).to(dev)
+    if dev.type == "cpu":
+        out, tb = _gaps_by_class_plain(spec, lens, tw, qw, lens_h, perm,
+                                       bounds)
+        _note(spec, lens, tw, qw, perm, out, tb)
+        return out, tb
+    fn = build.load("gaps", "mwf_gaps",
+                    [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int]
+                    + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10
+                    + [ctypes.c_longlong, ctypes.c_void_p])
     G = lens.shape[0]
     out = torch.empty((G, GO_N), dtype=torch.int32, device=dev)
-    # rows a gap does not transition in stay 0, as in the plain version
+    # bytes the kernel does not write (outside a gap's band, rows past its
+    # end) stay 0, as in the plain version
     tb = torch.zeros((G, spec.S_CAP, WIN), dtype=torch.uint8, device=dev) \
         if spec.mode == MODE_TB else None
-    if G == 0:
-        return out, tb
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(lens.data_ptr(), tw.data_ptr(), qw.data_ptr(), tw.shape[1],
-                out.data_ptr(), tb.data_ptr() if tb is not None else None,
-                G, spec.S_CAP, spec.mode, spec.cpw, spec.x, spec.o1,
-                spec.e1, spec.o2, spec.e2, spec.max_s, spec.max_iter,
-                stream)
-    if rc:
-        raise RuntimeError(f"gaps kernel launch failed: CUDA error {rc}")
-    count_launch(gaps)
-    _note(spec, lens, tw, qw, out, tb)
+        for c, (first, count) in enumerate(bounds):
+            if not count:
+                continue
+            rc = fn(c, lens.data_ptr(), tw.data_ptr(), qw.data_ptr(),
+                    tw.shape[1], out.data_ptr(),
+                    tb.data_ptr() if tb is not None else None,
+                    perm.data_ptr() + 4 * first, count, spec.S_CAP,
+                    spec.mode, spec.cpw, spec.x, spec.o1, spec.e1, spec.o2,
+                    spec.e2, spec.max_s, spec.max_iter, stream)
+            if rc:
+                raise RuntimeError(f"gaps kernel launch failed (window of "
+                                   f"{CLASSES[c]} slots, {count} gaps): "
+                                   f"CUDA error {rc}")
+            count_launch(gaps, variant=CLASSES[c])
+    count_dispatch(gaps)
+    _note(spec, lens, tw, qw, perm, out, tb)
     return out, tb
 
 
 def _note(spec: GSpec, lens: torch.Tensor, *bufs) -> None:
-    """The peak-memory meter's note of one dispatch: its inputs and
-    outputs (``utils/hbm.py``, tag ``gaps``; the rings live in shared
-    memory)."""
+    """The peak-memory meter's note of one dispatch: its inputs, the
+    class permutation and the outputs (``utils/hbm.py``, tag ``gaps``;
+    the rings live in shared memory)."""
     hbm.note_arrays(f"gaps mode={spec.mode} G={lens.shape[0]} "
                     f"S_CAP={spec.S_CAP}", lens, *bufs)
 
 
 gaps.launches = 0
+gaps.launches_by_variant = collections.Counter()
+gaps.dispatches = 0

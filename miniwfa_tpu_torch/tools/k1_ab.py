@@ -11,7 +11,7 @@ call.  Each turn is a process of its own, started in that checkout,
 that builds its kernels.
 
     python3 -m miniwfa_tpu_torch.tools.k1_ab CHECKOUT_A CHECKOUT_B \
-        [--paths] [--wide]
+        [--paths] [--wide] [--multi] [--gaps]
 
 With ``--paths`` each turn also runs ``chip_smoke.py``'s wide low-mem
 fixtures (step 5000: dissim150k, nbear1m, sv300k, div5m) and div5m in auto
@@ -29,6 +29,24 @@ the variant, n and k and the tiled launches' stats summed over the run
 (``wavefront_wide.STATS``: batches, reruns, and block 0's tiles and
 clock64 cycles by phase).
 
+With ``--multi`` each turn also times the multi-lane engine K4
+(``wavefront_multi``) in SCORE and TB on ``chip_smoke.py``'s 2048 pairs
+of 1 kb (the chain's K1 gap fills, W and S_CAP of their first bucket) at
+G = 2, 4 and 8, and K1 at C = 1 beside them, each with its µs a cycle
+(kernel ms over the lanes' largest score) and the device time of each
+kernel of one call (``device_us``, torch.profiler), at the chooser's
+variant (with each launch's variant and lanes per block, in a checkout
+that has K4's variants) and at the "global" one (``wavefront_kernel.launch``
+at G, the only K4 of a checkout without them).  Then ``bench_cuda.py`` at
+``MWF_BENCH_N=1000 MWF_BENCH_B=2048 MWF_BENCH_BIG_N=0``, with and without
+``MWF_ENGINE=multi``: each run's batch wall and ``checks.route_parity``.
+
+With ``--gaps`` each turn also times K3 (``wavefront_gaps.gaps``) in
+SCORE and TB at div5m auto's first gaps dispatch (``chip_smoke.py``'s
+``chain_gaps`` of div5m, ordered by score bound, the first GMAX), with
+the device time of each kernel of one call (``device_us``): the call's
+CUDA events also hold the host's work between its launches.
+
 Prints one JSON line per turn: the checkout, its times in ms by kernel
 and mode, and by mode the CTAs per lane K1 ran at with the card's count
 of co-resident clusters there (``clusters``; empty for a checkout that
@@ -36,18 +54,19 @@ launches one block per lane).
 """
 
 import json
+import os
 import subprocess
 import sys
 
-CHILD = r"""
+# Prepended to every child: the kernels built before any timing, the
+# card, and the timers.
+PRELUDE = r"""
 import json
 import torch
-from chip_smoke import B_MAIN, N_MAIN, STEP_MAIN, make_pairs
-from miniwfa_tpu_torch import Options
-from miniwfa_tpu_torch.models import exact
-from miniwfa_tpu_torch.models import traceback as tbk
-from miniwfa_tpu_torch.ops import traceback_device as tbd
-from miniwfa_tpu_torch.ops import wavefront_kernel as wk
+from miniwfa_tpu_torch.ops import build
+
+build.build()   # no nvcc inside the first run's CUDA events
+dev = torch.device("cuda", 0)
 
 
 def ms(fn):
@@ -61,7 +80,29 @@ def ms(fn):
     return start.elapsed_time(end)
 
 
-dev = torch.device("cuda", 0)
+# device time (µs) of each kernel, copy and fill of one call of fn, by
+# torch.profiler (CUPTI), summed by name
+def device_us(fn):
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", 0)
+        if us:
+            out[e.key[:72]] = round(us, 3)
+    return out
+"""
+
+CHILD = r"""
+from chip_smoke import B_MAIN, N_MAIN, STEP_MAIN, make_pairs
+from miniwfa_tpu_torch import Options
+from miniwfa_tpu_torch.models import exact
+from miniwfa_tpu_torch.models import traceback as tbk
+from miniwfa_tpu_torch.ops import traceback_device as tbd
+from miniwfa_tpu_torch.ops import wavefront_kernel as wk
+
 pairs = make_pairs(N_MAIN, B_MAIN)
 ts, qs = [t.encode() for t, _ in pairs], [q.encode() for _, q in pairs]
 res = {}
@@ -124,9 +165,7 @@ print(json.dumps(res))
 """
 
 PATHS = r"""
-import json
 import time
-import torch
 from chip_smoke import STEP_MAIN, gen_case
 from miniwfa_tpu_torch import Options
 from miniwfa_tpu_torch.models import exact
@@ -177,16 +216,12 @@ print(json.dumps(res))
 
 
 WIDE = r"""
-import json
 import time
-import torch
 from chip_smoke import STEP_MAIN, WIDE_RUNS, gen_case
 from miniwfa_tpu_torch import Options
 from miniwfa_tpu_torch.models import exact
-from miniwfa_tpu_torch.ops import build
 from miniwfa_tpu_torch.ops import wavefront_wide as ww
 
-build.build()   # no nvcc inside the first run's CUDA events
 real, real_p1 = ww.wide, exact._run_pass1
 calls, p1 = [], []
 
@@ -227,13 +262,14 @@ for run, names in WIDE_RUNS:
         r = exact.align_batch([pair], opt, device="cuda")[0]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        ms = sum(a.elapsed_time(b) for a, b, _, _ in calls)
+        kernel_ms = sum(a.elapsed_time(b) for a, b, _, _ in calls)
         cycles = sum(c for _, _, c, _ in calls)
         stats = [s.tolist() for _, _, _, s in calls if s is not None]
         res[f"{name} {run}"] = {
             "s": r.s, "wall_s": wall, "pass1_s": sum(p1),
-            "wide_calls": len(calls), "wide_kernel_ms": ms,
-            "wide_cycles": cycles, "us_per_cycle": 1e3 * ms / max(cycles, 1),
+            "wide_calls": len(calls), "wide_kernel_ms": kernel_ms,
+            "wide_cycles": cycles,
+            "us_per_cycle": 1e3 * kernel_ms / max(cycles, 1),
             "tiles": dict(getattr(real, "tiles", {})),
             "stats": (dict(zip(ww.STATS, map(sum, zip(*stats))))
                       if stats else None)}
@@ -241,18 +277,109 @@ print(json.dumps(res))
 """
 
 
+MULTI = r"""
+from chip_smoke import FILL_B, FILL_N, make_pairs
+from miniwfa_tpu_torch import Options
+from miniwfa_tpu_torch.models import exact
+from miniwfa_tpu_torch.ops import wavefront_kernel as wk
+from miniwfa_tpu_torch.ops import wavefront_multi as wm
+
+pairs = make_pairs(FILL_N, FILL_B)
+ts, qs = [t.encode() for t, _ in pairs], [q.encode() for _, q in pairs]
+# each launch's variant, in a checkout that has K4's variants
+variants = getattr(wm.wavefront_multi, "variants", None)
+res = {}
+for name, opt, mode in (("SCORE", Options(), wk.MODE_SCORE),
+                        ("TB", Options(cigar=True), wk.MODE_TB)):
+    bk, _ = exact.first_bucket(opt, mode, ts, qs, 512, 512, dev)
+    spec, lanes, tw, qw = exact.kernel_inputs(opt, mode, bk.W, bk.S_CAP,
+                                              ts, qs)
+    args = [torch.from_numpy(a).to(dev) for a in (lanes, tw, qw)]
+    runs = {"K1 C=1": lambda: wk.launch(spec, *args, None, C=1)}
+    for G in (2, 4, 8):
+        runs[f"K4 G={G}"] = (lambda G=G: wm.wavefront_multi(spec, G, *args))
+        runs[f"K4 G={G} global"] = (lambda G=G: wk.launch(spec, *args, None,
+                                                          G))
+    for key, fn in runs.items():
+        out = fn()[0]
+        s_max = int(out[:, wk.O_S].max())
+        times = [ms(fn) for _ in range(3)]
+        row = {"ms": times, "max_s": s_max,
+               "us_per_cycle": 1e3 * min(times) / max(s_max, 1),
+               "cells": int(out[:, wk.O_NITER].sum()),
+               "device_us": device_us(fn)}
+        if variants is not None and key.startswith("K4") \
+                and not key.endswith("global"):
+            row.update(variants[0][name])
+        res[f"{name} {key} W={spec.W} S_CAP={spec.S_CAP}"] = row
+print(json.dumps(res))
+"""
+
+GAPS = r"""
+from chip_smoke import chain_gaps, gen_case
+from miniwfa_tpu_torch import Options
+from miniwfa_tpu_torch.models import tiny
+from miniwfa_tpu_torch.ops import pack
+from miniwfa_tpu_torch.ops import wavefront_gaps as wg
+
+t, q = (x.encode() for x in gen_case("div5m"))
+gaps = chain_gaps([t], [q], Options())
+cpw = 16 if all(pack.can_pack2(p) for p in gaps) else 4
+sb = [tiny._s_bound(Options(), len(a), len(b)) for a, b in gaps]
+sel = sorted(range(len(gaps)), key=lambda g: sb[g])[:tiny.GMAX]
+s_cap = tiny._scap_bucket(max(sb[g] for g in sel))
+res = {}
+for name, opt in (("SCORE", Options()), ("TB", Options(cigar=True))):
+    spec, lens, tw, qw = tiny.dispatch_inputs(
+        opt, [gaps[g][0] for g in sel], [gaps[g][1] for g in sel], cpw,
+        s_cap)
+    args = [torch.from_numpy(a).to(dev) for a in (lens, tw, qw)]
+    out = wg.gaps(spec, *args)[0]
+    res[f"gaps {name} G={len(sel)} S_CAP={s_cap}"] = {
+        "ms": [ms(lambda: wg.gaps(spec, *args)) for _ in range(3)],
+        "cells": int(out[:, wg.GO_NI].sum()),
+        "device_us": device_us(lambda: wg.gaps(spec, *args))}
+print(json.dumps(res))
+"""
+
+
+def bench_k4_route(root: str) -> dict:
+    """``bench_cuda.py``'s K4 route in checkout ``root``: 2048 pairs of 1
+    kb, with and without ``MWF_ENGINE=multi``; each run's batch wall and
+    route parity."""
+    res = {}
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MWF_ENGINE", "MWF_KERNEL_G")}
+    env.update(MWF_BENCH_N="1000", MWF_BENCH_B="2048", MWF_BENCH_BIG_N="0")
+    for name, extra in (("bench K1 route", {}),
+                        ("bench K4 route", {"MWF_ENGINE": "multi"})):
+        p = subprocess.run([sys.executable, "bench_cuda.py"], cwd=root,
+                           env={**env, **extra}, capture_output=True,
+                           text=True)
+        line = json.loads(p.stdout.strip().splitlines()[-1])
+        d = line["detail"]
+        res[name] = {"exit": p.returncode, "batch_wall_s": d["batch_wall_s"],
+                     "cells_per_s": line["value"],
+                     "route_parity": d["checks"].get("route_parity"),
+                     "device": d["device"]}
+    return res
+
+
 def main() -> int:
     a, b = sys.argv[1:3]
     flags = sys.argv[3:]
     children = ([CHILD] + ([PATHS] if "--paths" in flags else [])
-                + ([WIDE] if "--wide" in flags else []))
+                + ([WIDE] if "--wide" in flags else [])
+                + ([MULTI] if "--multi" in flags else [])
+                + ([GAPS] if "--gaps" in flags else []))
     for root in (a, b, b, a):
-        times = {}
+        times = bench_k4_route(root) if "--multi" in flags else {}
         for child in children:
             # ``python -c`` puts its working directory first on sys.path,
             # so the child imports that checkout's package and
             # chip_smoke.py
-            out = subprocess.run([sys.executable, "-c", child], cwd=root,
+            out = subprocess.run([sys.executable, "-c", PRELUDE + child],
+                                 cwd=root,
                                  capture_output=True, text=True, check=True)
             times.update(json.loads(out.stdout.strip().splitlines()[-1]))
         print(json.dumps({"checkout": root, **times}), flush=True)

@@ -4,8 +4,10 @@ Each wrapper that launches a kernel on the card counts it here, where it
 launches and nowhere else.  The counters are attributes of the wrapper
 function: ``launches`` (every wrapper), plus ``launches_by_mode`` (a
 ``Counter``: ``wavefront``, ``wavefront_multi``, ``wide``) and
-``launches_by_variant`` (a ``Counter``: ``walk``, ``wide``) where it
-counts by those.  The sharded path launches from one thread per card, and
+``launches_by_variant`` (a ``Counter``: ``walk``, ``wide``,
+``wavefront_multi``, ``gaps``) where it counts by those; ``gaps``, which
+launches a kernel per width class a call holds, also counts its calls in
+``dispatches``.  The sharded path launches from one thread per card, and
 ``+=`` is no atomic update, so every count goes through one lock.
 """
 
@@ -25,3 +27,9 @@ def count_launch(fn, *, mode=None, variant=None) -> None:
             fn.launches_by_mode[mode] += 1
         if variant is not None:
             fn.launches_by_variant[variant] += 1
+
+
+def count_dispatch(fn) -> None:
+    """Add one to ``fn.dispatches``: a call that launched its kernels."""
+    with _LOCK:
+        fn.dispatches += 1

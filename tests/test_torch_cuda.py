@@ -148,9 +148,11 @@ def test_gaps_kernel_matches_plain(goldens, dev, cpw, opt):
     ts, qs = [p[0] for p in pairs], [p[1] for p in pairs]
     spec, lens, tw, qw = tiny.dispatch_inputs(opt, ts, qs, cpw, 512)
     args = [torch.from_numpy(a).to(dev) for a in (lens, tw, qw)]
-    before = wg.gaps.launches
+    before = wg.gaps.launches, wg.gaps.dispatches
     got = wg.gaps(spec, *args)
-    assert wg.gaps.launches == before + 1
+    # one launch per non-empty width class, one dispatch
+    assert (wg.gaps.launches, wg.gaps.dispatches) == (
+        before[0] + sum(n > 0 for _, n in wg.plan(lens)[1]), before[1] + 1)
     want = wg.gaps_plain(spec, *args)
     for g, w in zip(got, want):
         assert (g is None and w is None) or torch.equal(g, w)
@@ -959,3 +961,164 @@ def test_meter_in_a_fresh_process(dev):
                        cwd=os.path.dirname(os.path.dirname(
                            os.path.abspath(__file__))))
     assert p.returncode == 0, p.stderr[-2000:]
+
+
+# K4's variants (csrc/wavefront_multi.cu "smem", csrc/wavefront.cu
+# "global") and K3's width classes against their plain versions
+EDGE_PAIRS = [(b"", b""), (b"", b"ACG"), (b"AAAA", b""), (b"A", b"G"),
+              (b"ACGT" * 16, b"ACGA" * 15 + b"ACG"),     # tl + ql = 127
+              (b"A" * 100, b"C" * 27)]                   # tl + ql = 127
+
+
+def _multi_forced(spec, dev):
+    """The global variant at 4 lanes a block, and the smem variant at 1,
+    half the most and the most lanes a block the card's budget takes: a
+    launch each, straight through ``wk.launch`` and ``_launch_smem``."""
+    n = min(wm.LPB_MAX,
+            wm._smem_budget(dev, spec.mode) // wm.lane_smem(spec))
+    return [("global", lambda *a: wk.launch(spec, *a, 4))] + [
+        (f"smem lpb={k}", lambda *a, k=k: wm._launch_smem(spec, *a, k))
+        for k in sorted({1, max(1, n // 2), n}) if n]
+
+
+def _multi_runs(ts, qs, dev, W, S_CAP, pens=None, runs=("score", "cigar",
+                                                          "cigar+seg")):
+    """K4 by the chooser at G = 2, 4 and 8, the global variant, and the
+    smem variant at forced lanes per block, against the plain version on
+    one batch in each run: every output, traceback byte and band row.
+    Returns the plain outputs by run."""
+    outs = {}
+    for run in runs:
+        opt = Options(cigar=run != "score", **(pens or {}))
+        mode = wk.MODE_TB if opt.cigar else wk.MODE_SCORE
+        sg = None
+        if run == "cigar+seg":
+            segs, _ = exact._run_pass1(opt.replace(step=16), ts, qs, 512,
+                                       512, dev)
+            sg = torch.from_numpy(exact.seg_input(segs)).to(dev)
+        spec, lanes, tw, qw = exact.kernel_inputs(opt, mode, W, S_CAP, ts,
+                                                  qs)
+        args = [torch.from_numpy(a).to(dev) for a in (lanes, tw, qw)]
+        want = wk.wavefront_plain(spec, *args, sg)
+        forced = _multi_forced(spec, dev)
+        assert len(forced) >= 2
+        for _, fn in forced:
+            _equal(fn(*args, sg), want)
+        for G in (2, 4, 8):
+            before = dict(wm.wavefront_multi.launches_by_variant)
+            got = wm.wavefront_multi(spec, G, *args, sg)
+            v = wm.wavefront_multi.variants[dev.index][
+                wk.launch_mode(spec, sg)]
+            assert wm.wavefront_multi.launches_by_variant[v["variant"]] == \
+                before.get(v["variant"], 0) + 1
+            assert v["variant"] == "smem"
+            _equal(got, want)
+        outs[run] = want[0]
+    return outs
+
+
+@pytest.mark.parametrize("W", [512, 2048])
+def test_multi_variants_match_plain_on_goldens(goldens, dev, W):
+    """Both variants on the goldens: at W=2048 (one lane of the smem
+    variant a block) and at W=512 (4 lanes a block); the widest
+    lanes overflow either window, as in the plain version, and every
+    other lane's score is its golden."""
+    ts, qs = _golden_pairs(goldens)
+    outs = _multi_runs(ts, qs, dev, W, 2048)
+    out = outs["score"]
+    ended = (out[:, wk.O_DONE] == 1).tolist()
+    assert sum(ended) >= 60 and bool(out[:, wk.O_OVFB].any())
+    assert [int(v) for v, e in zip(out[:, wk.O_S], ended) if e] == \
+        [g["s"] for g, e in zip(goldens["runs"]["score"], ended) if e]
+
+
+def test_multi_variants_match_plain_on_empty_and_127_bp_pairs(dev):
+    ts, qs = [p[0] for p in EDGE_PAIRS], [p[1] for p in EDGE_PAIRS]
+    outs = _multi_runs(ts, qs, dev, 512, 1024, runs=("score", "cigar"))
+    assert int(outs["cigar"][:, wk.O_DONE].sum()) == len(ts)
+    assert int(outs["score"][0, wk.O_S]) == 0
+
+
+def test_multi_variants_shrink_pair(dev):
+    """ROADMAP's shrink pair past the 256-cycle shrink in both variants:
+    s=294 and n_iter=27254, as the plain version."""
+    outs = _multi_runs([SHRINK_PAIR[0]] * 5, [SHRINK_PAIR[1]] * 5, dev,
+                       1024, 1024, pens=SHRINK_PENS, runs=("score", "cigar"))
+    for out in outs.values():
+        assert out[:, wk.O_S].tolist() == [294] * 5
+        assert out[:, wk.O_NITER].tolist() == [27254] * 5
+
+
+def test_multi_smem_lane_bytes_match_the_kernel(dev):
+    """``lane_smem`` against the kernel's own count, and an smem launch
+    past the budget is refused by the runtime and raises."""
+    fn = build.load("wavefront_multi", "mwf_multi_lane_bytes",
+                    [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    for W in (64, 512, 1000, 2074):
+        for pens in (dict(x=4, o1=4, e1=2, o2=15, e2=1),
+                     dict(x=4, o1=4, e1=2, o2=100, e2=1), SHRINK_PENS):
+            n = ctypes.c_longlong(0)
+            assert fn(W, *pens.values(), ctypes.addressof(n)) == 0
+            assert n.value == wm.lane_smem(wk.KSpec(W=W, S_CAP=64, **pens))
+    spec, lanes, tw, qw = exact.kernel_inputs(Options(), wk.MODE_SCORE,
+                                              4096, 64, [b"ACGT"] * 2,
+                                              [b"ACGT"] * 2)
+    args = [torch.from_numpy(a).to(dev) for a in (lanes, tw, qw)]
+    assert wm.lane_smem(spec) > wm._smem_budget(dev, spec.mode)
+    with pytest.raises(RuntimeError, match="smem, lanes_per_block=1"):
+        wm._launch_smem(spec, *args, None, 1)
+
+
+def _gaps_equal(pairs, opt, cpw, dev, s_cap=1024):
+    from miniwfa_tpu_torch.models import tiny
+    spec, lens, tw, qw = tiny.dispatch_inputs(
+        opt, [a for a, _ in pairs], [b for _, b in pairs], cpw, s_cap)
+    args = [torch.from_numpy(a).to(dev) for a in (lens, tw, qw)]
+    got = wg.gaps(spec, *args)
+    want = wg.gaps_plain(spec, *args)
+    _equal(got, want)
+    return got[0].cpu().numpy()
+
+
+@pytest.mark.parametrize("cpw", [16, 4])
+@pytest.mark.parametrize("opt", [Options(), Options(cigar=True)])
+def test_gaps_classes_match_plain_on_edges(dev, cpw, opt):
+    """Every width class of K3 with its edges: empty gaps (tl = 0 or ql =
+    0), tl + ql = 127, and sums at each class's edge (n = tl + ql + 1 of
+    8 | 9, 16 | 17, 32 | 33, 64 | 65), many gaps a warp and ragged
+    warps."""
+    pairs = list(EDGE_PAIRS) * 3
+    for a, b in ((3, 4), (4, 4), (10, 5), (8, 8), (20, 11), (16, 16),
+                 (40, 23), (32, 32), (60, 67), (0, 7), (7, 0)):
+        pairs.append((b"ACGT" * (a // 4) + b"A" * (a % 4),
+                      b"AGCT" * (b // 4) + b"C" * (b % 4)))
+    out = _gaps_equal(pairs, opt, cpw, dev)
+    assert out[:, wg.GO_DONE].all()
+
+
+@pytest.mark.parametrize("opt", [Options(**SHRINK_PENS),
+                                 Options(cigar=True, **SHRINK_PENS)])
+def test_gaps_classes_shrink_pair(dev, opt):
+    """The shrink pair (s=294, past the 256-cycle shrink; n_iter 25924,
+    the JAX K3's and the lax engine's) in the 128-slot class beside small
+    gaps that end at once."""
+    pairs = [SHRINK_PAIR] * 3 + [(b"A", b"A"), (b"", b"AC")] * 5
+    out = _gaps_equal(pairs, opt, 16, dev)
+    assert out[:3, wg.GO_S].tolist() == [294] * 3
+    # K3's n_iter past the shrink is the lax engine's (ROADMAP fault 2)
+    assert out[:3, wg.GO_NI].tolist() == [25924] * 3
+
+
+def test_gaps_block_matches_the_wrapper(dev):
+    """The kernel's block of each class (shared memory, warps) against
+    ``block_of``, at three penalty sets."""
+    fn = build.load("gaps", "mwf_gaps_block",
+                    [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
+    for pens in (dict(x=4, o1=4, e1=2, o2=15, e2=1),
+                 dict(x=4, o1=4, e1=2, o2=100, e2=1), SHRINK_PENS):
+        spec = wg.GSpec(S_CAP=64, **pens)
+        for c in range(len(wg.CLASSES)):
+            smem, warps = ctypes.c_int(0), ctypes.c_int(0)
+            assert fn(c, *pens.values(), ctypes.addressof(smem),
+                      ctypes.addressof(warps)) == 0
+            assert (smem.value, warps.value) == wg.block_of(spec, c)

@@ -256,3 +256,80 @@ def test_gaps_rejects_bad_inputs():
     meta = torch.zeros((1, 2), dtype=torch.int32, device="meta")
     with pytest.raises((ValueError, NotImplementedError, RuntimeError)):
         wg.gaps(spec, meta, words.to("meta"), words.to("meta"))
+
+
+def _goldens_gaps():
+    """Every gap fill of at most 127 bp in the chain plans of the goldens
+    (the card tests' ``_golden_gaps``)."""
+    import json
+    import os
+    from miniwfa_tpu_torch.models import chain
+    with open(os.path.join(os.path.dirname(__file__), "data",
+                           "goldens.json")) as f:
+        cases = json.load(f)["cases"]
+    out = []
+    for c in cases:
+        t, q = c["t"].encode("latin1"), c["q"].encode("latin1")
+        kinds, x0, x1, y0, y1 = chain._plan_segments(t, q, Options())
+        for i in (kinds == chain.K_ALIGN).nonzero()[0]:
+            if x1[i] - x0[i] + y1[i] - y0[i] <= wg.MAX_TOT:
+                out.append((t[x0[i]:x1[i]], q[y0[i]:y1[i]]))
+    return out
+
+
+# sums tl + ql at each class edge: n = tl + ql + 1 of 8 | 9, 16 | 17, 32 |
+# 33, 64 | 65 and 128
+_EDGES = [(3, 4), (4, 4), (10, 5), (8, 8), (20, 11), (16, 16), (40, 23),
+          (32, 32), (60, 67), (0, 0), (0, 7)]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_plan_groups_gaps_by_width_class(seed):
+    """``plan``: a permutation of the gaps, class by class (the smallest
+    window of CLASSES that holds tl + ql + 1 slots), each class in input
+    order, with each class's first index and count."""
+    rng = np.random.default_rng(seed)
+    tot = rng.integers(0, wg.MAX_TOT + 1, 200)
+    tl = rng.integers(0, tot + 1)
+    lens = np.stack([tl, tot - tl], 1).astype(np.int32)
+    lens = np.concatenate([lens, np.array(_EDGES, np.int32)])
+    perm, bounds = wg.plan(lens)
+    plan = np.array(bounds)
+    assert perm.dtype == np.int32 and plan.shape == (len(wg.CLASSES), 2)
+    assert sorted(perm.tolist()) == list(range(len(lens)))
+    n = lens.sum(1) + 1
+    want = np.searchsorted(np.array(wg.CLASSES), n)
+    assert plan[:, 1].tolist() == np.bincount(
+        want, minlength=len(wg.CLASSES)).tolist()
+    assert plan[:, 0].tolist() == (np.cumsum(plan[:, 1])
+                                   - plan[:, 1]).tolist()
+    for c, (first, count) in enumerate(plan):
+        idx = perm[first:first + count]
+        assert (want[idx] == c).all()
+        assert (np.diff(idx) > 0).all()           # input order kept
+        assert (n[idx] <= wg.CLASSES[c]).all()
+        if c:
+            assert (n[idx] > wg.CLASSES[c - 1]).all()
+
+
+@pytest.mark.parametrize("cpw", [16, 4])
+@pytest.mark.parametrize("opt", [Options(), Options(cigar=True),
+                                 Options(cigar=True, max_s=12)])
+@pytest.mark.parametrize("source", ["goldens", "random"])
+def test_gaps_by_class_equals_gaps_plain(source, opt, cpw):
+    """``gaps`` on the CPU dispatches through ``plan``, the plain version
+    class by class, and returns every output and traceback byte of
+    gaps_plain over the whole dispatch, in input order."""
+    pairs = _goldens_gaps() if source == "goldens" else \
+        _pairs(23, 40, maxn=120) + EDGE + [
+            (b"A" * a, b"C" * b) for a, b in _EDGES]
+    if cpw == 4:
+        pairs.append((b"ACGTNacgt", b"ACGTnACGT"))
+    spec, lens, tw, qw = _inputs(opt, pairs, cpw, 512)
+    args = [torch.from_numpy(a) for a in (lens, tw, qw)]
+    _, bounds = wg.plan(lens)
+    assert sum(n > 0 for _, n in bounds) >= 3   # several classes
+    got = wg.gaps(spec, *args)
+    want = wg.gaps_plain(spec, *args)
+    for g, w in zip(got, want):
+        assert (g is None and w is None) or torch.equal(g, w)

@@ -8,6 +8,7 @@ holds under many threads noting at once (the sharded path notes from one
 thread per card).  Tolerance: exact equality of byte counts.
 """
 
+import contextlib
 import itertools
 import sys
 import threading
@@ -21,7 +22,10 @@ from miniwfa_tpu_torch import Options
 from miniwfa_tpu_torch.models import exact
 from miniwfa_tpu_torch.models.exact import align_batch
 from miniwfa_tpu_torch.models.tiny import align_tiny_batch
+from miniwfa_tpu_torch.models import tiny
+from miniwfa_tpu_torch.ops import wavefront_gaps as wg
 from miniwfa_tpu_torch.ops import wavefront_kernel as wk
+from miniwfa_tpu_torch.ops import wavefront_multi as wm
 from miniwfa_tpu_torch.parallel.batch import align_batch_sharded
 from miniwfa_tpu_torch.parallel.mesh import make_mesh
 from miniwfa_tpu_torch.tools.pairs import make_pairs
@@ -121,6 +125,60 @@ def test_kernel_note_counts_planes_and_outputs(mode):
                if x is not None) + planes
     assert hbm.peak() == (want, f"kernel mode={mode} B=1 W=1024 "
                                 f"S_CAP=2048")
+
+
+def _nb(*bufs):
+    return sum(x.numel() * x.element_size() for x in bufs if x is not None)
+
+
+@pytest.mark.parametrize("mode", [wk.MODE_SCORE, wk.MODE_TB])
+def test_multi_smem_note_has_no_planes(monkeypatch, mode):
+    """K4's smem variant notes what its launch allocates: the inputs, out,
+    tb and bands (TB) and the lane counter, and no planes (the rings live
+    in shared memory).
+    Its launch path runs here with CPU tensors and a stand-in for the
+    kernel's entry point."""
+    (t, q), = _pair_2kb()
+    opt = Options(cigar=mode == wk.MODE_TB)
+    spec, lanes, tw, qw = exact.kernel_inputs(opt, mode, 512, 1024,
+                                              [t.encode()] * 3,
+                                              [q.encode()] * 3)
+    lanes, tw, qw = (torch.from_numpy(x) for x in (lanes, tw, qw))
+    calls = []
+
+    class _Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(wm.build, "load",
+                        lambda *a: lambda *args: calls.append(args) or 0)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: _Stream())
+    hbm.reset()
+    out, tb, bands, snap = wm._launch_smem(spec, lanes, tw, qw, None, 2)
+    assert len(calls) == 1 and snap is None
+    counter = 4
+    want = _nb(lanes, tw, qw, out, tb, bands) + counter
+    assert hbm.peak() == (want, f"kernel mode={mode} B=3 W=512 S_CAP=1024")
+    # K1's note of the same dispatch adds exactly the planes
+    hbm.reset()
+    wk.wavefront(spec, lanes, tw, qw)
+    assert hbm.peak()[0] - want + counter == \
+        wk.plane_count(spec) * spec.W * 4 * 3
+
+
+def test_gaps_note_counts_the_class_plan():
+    """K3 notes its inputs, the class permutation (perm int32 [G]) and its
+    outputs, exactly; no rings (shared memory)."""
+    pairs = [(b"ACGT" * k, b"ACGA" * k) for k in (1, 3, 7, 15)]
+    opt = Options(cigar=True)
+    spec, lens, tw, qw = tiny.dispatch_inputs(
+        opt, [a for a, _ in pairs], [b for _, b in pairs], 16, 128)
+    args = [torch.from_numpy(a) for a in (lens, tw, qw)]
+    hbm.reset()
+    out, tb = wg.gaps(spec, *args)
+    want = _nb(*args, out, tb) + 4 * len(pairs)
+    assert hbm.peak() == (want, f"gaps mode={wk.MODE_TB} G=4 S_CAP=128")
 
 
 @pytest.fixture

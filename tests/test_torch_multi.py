@@ -244,3 +244,69 @@ def test_one_lane_batches_stay_on_k1(routes):
     t, q = _pair("t3")
     r = exact.align_batch([(t, q)], Options(cigar=True), device="cpu")[0]
     assert r.s == 155 and routes and all(g == 1 for _, g in routes)
+
+
+# the H100's opt-in shared memory a block (227 KB); the smem variant's
+# kernel has no static shared memory
+H100_SMEM = 232448
+O2_100 = dict(x=4, o1=4, e1=2, o2=100, e2=1)
+
+
+@pytest.mark.parametrize("W,pens,want", [
+    (512, PENS, 57488),       # 27 ring planes + lastv, registry 2 x 17
+    (64, PENS, 7312),
+    (2074, PENS, 232432),     # the widest window one lane fits
+    (512, O2_100, 232240),    # 112 ring planes + lastv, registry 2 x 102
+    (512, dict(x=1, o1=0, e1=1, o2=0, e2=1), 22544)])   # edit distance
+def test_lane_smem(W, pens, want):
+    """A lane's shared memory in the smem variant: plane_count planes of W
+    int32 (the rings and lastv) and the 2 x RH registry, rounded up to 16
+    bytes (csrc/wavefront_multi.cu lane_ints)."""
+    spec = wk.KSpec(W=W, S_CAP=64, **pens)
+    assert wm.lane_smem(spec) == want
+    assert want % 16 == 0
+    assert want >= 4 * (wk.plane_count(spec) * W + 2 * spec.rings[0])
+
+
+@pytest.mark.parametrize("W,B,sms,pens,smem,want", [
+    (512, 2048, 132, PENS, H100_SMEM, ("smem", 4)),      # the gap fills
+    (512, 16, 132, PENS, H100_SMEM, ("smem", 1)),        # spread over SMs
+    (512, 300, 132, PENS, H100_SMEM, ("smem", 3)),
+    (512, 132, 132, PENS, H100_SMEM, ("smem", 1)),       # a lane an SM
+    (512, 133, 132, PENS, H100_SMEM, ("smem", 2)),
+    (64, 2048, 132, PENS, H100_SMEM, ("smem", 8)),       # LPB_MAX
+    (64, 2048, 1, PENS, H100_SMEM, ("smem", 8)),
+    (64, 5, 1, PENS, H100_SMEM, ("smem", 5)),            # the whole batch
+    (2074, 2048, 132, PENS, H100_SMEM, ("smem", 1)),     # the edge: fits
+    (2075, 2048, 132, PENS, H100_SMEM, ("global", 0)),   # one slot past
+    (512, 2048, 132, O2_100, H100_SMEM, ("smem", 1)),
+    (520, 2048, 132, O2_100, H100_SMEM, ("global", 0)),
+    (512, 2048, 132, PENS, 101376, ("smem", 1)),         # a 99 KB card
+    (512, 2048, 132, PENS, 57487, ("global", 0)),        # a byte short
+    (4096, 2048, 132, PENS, H100_SMEM, ("global", 0)),   # bench8k's W
+    (65536, 16, 132, PENS, H100_SMEM, ("global", 0))])   # the main shape
+def test_pick_variant(W, B, sms, pens, smem, want):
+    """smem while one lane's state fits the budget, with as many lanes a
+    block as it allows, at most LPB_MAX and ceil(B / sms); else the
+    global variant (at pick_g's G)."""
+    for mode in (wk.MODE_SCORE, wk.MODE_TB):
+        spec = wk.KSpec(W=W, S_CAP=64, mode=mode, **pens)
+        v, n = wm.pick_variant(spec, B, sms, smem)
+        assert (v, n) == want
+        if v == "smem":
+            assert 1 <= n <= wm.LPB_MAX
+            assert n * wm.lane_smem(spec) <= smem
+
+
+@pytest.mark.parametrize("G", [2, 4, 8])
+def test_every_g_gives_the_plain_outputs_on_the_cpu(G):
+    """On the CPU every G runs the plain version: the outputs equal
+    wavefront_plain's, in TB mode with and without checkpoints."""
+    ts, qs = zip(*(_pair(n) for n in ("t3", "ins4", "mixed")))
+    spec, lanes, tw, qw = exact.kernel_inputs(
+        Options(cigar=True), wk.MODE_TB, 512, 512, list(ts), list(qs))
+    args = [torch.from_numpy(a) for a in (lanes, tw, qw)]
+    got = wm.wavefront_multi(spec, G, *args)
+    want = wk.wavefront_plain(spec, *args)
+    for g, w in zip(got, want):
+        assert (g is None and w is None) or torch.equal(g, w)
