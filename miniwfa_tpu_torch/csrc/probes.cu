@@ -21,15 +21,25 @@
 //     volatile shared memory, so `acc += 1` is a load, an add and a store
 //     per iteration, as the TPU's VMEM round trip is;
 //   * tables a TPU tile keeps in VMEM sit in shared memory when they fit
-//     (one gather row of at most 64 KB, one [G, R, L] multi tile of 128-144
-//     KB, with the kernel opted in past 48 KB); larger ones stay in global
-//     memory (the [512, 128] sublane table, P5's 13 planes, the 3-slot
-//     multi rings);
+//     (a gather loop's table rows or column strip, one [G, R, L] multi
+//     tile of 128-144 KB, with the kernel opted in past 48 KB); P5's 13
+//     planes stay on chip across a thread-block cluster, each CTA holding
+//     its lanes' rows; larger tables stay in global memory (the [512, 128]
+//     sublane table, the 3-slot multi rings);
+//   * the two costliest loops use the whole card where one block did: a
+//     gather loop's elements spread over >= 132 blocks where there are
+//     enough of them, several chains a thread; P5's chunks side by side
+//     over the cluster, one cluster barrier a round of chunks;
 //   * dynamic slices clamp their start into range, as the reference's
 //     interpret mode does (lax.dynamic_slice / dynamic_update_slice).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <limits.h>
+
+#include "bulk.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -58,71 +68,79 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
 // gather3, P6b gather_flat.  out = take_along_axis(tab, idx, AXIS) of 2-D
 // arrays, iterated `iters` times: chain=0 re-gathers at idx + (v & zero)
 // (the fake dependence), chain=1 at floor_mod(v, lim) (the real one).
-// AXIS 1: a block holds `per` whole table rows in shared memory; AXIS 0: a
-// strip of `per` columns of every row.  Each thread runs 4 chains at once.
+//
+// A loop of gathers is latency-bound: each op is one shared-memory load
+// and one or two ALU steps on a dependent chain.  So the work is spread
+// over every SM, with as many chains in flight on each as the elements
+// allow (the plan of ops/probes.py::gather_plan):
+//   * a group is `per` whole table rows (AXIS 1) or a strip of `per`
+//     columns of every row (AXIS 0), staged in shared memory;
+//   * `splits` blocks share a group, each staging all of it and owning
+//     one contiguous share, ceil(n / splits), of the group's n idx
+//     elements (AXIS 1: row-major over the group's rows; AXIS 0:
+//     row-major over the strip), so a [8, 16384] table runs on 256
+//     blocks, not 8;
+//   * each thread runs CH independent chains at once (CH = 1, 2, 4, 8).
 // A loop of one gather takes gather_once_kernel instead.
 constexpr int GATHER_THREADS = 256;
 
-template <int AXIS>
+template <int AXIS, int CH>
 __global__ void __launch_bounds__(GATHER_THREADS)
     gather_kernel(const int* __restrict__ tab, const int* __restrict__ idx,
                   int* __restrict__ out, int Rt, int Mt, int Ri, int Mi,
-                  int per, int iters, int chain, int lim, int zero) {
+                  int per, int splits, int iters, int chain, int lim,
+                  int zero) {
   extern __shared__ int s_tab[];
   const int tid = threadIdx.x;
-  int n;  // elements of idx this block owns
+  const int u0 = (blockIdx.x / splits) * per;  // the group's first row/col
+  int n, w;  // the group's idx elements; the width they are laid out in
   if (AXIS == 1) {
-    const int r0 = blockIdx.x * per;
-    const int rows = min(per, Rt - r0);
-    for (int k = tid; k < rows * Mt; k += blockDim.x)
-      s_tab[k] = tab[(long long)r0 * Mt + k];
-    n = min(per, Ri - r0) * Mi;
+    const int rows = min(per, Rt - u0);
+    for (int k = tid; k < rows * Mt; k += GATHER_THREADS)
+      s_tab[k] = tab[(long long)u0 * Mt + k];
+    n = rows * Mi;
+    w = Mi;
   } else {
-    const int c0 = blockIdx.x * per;
-    const int cols = min(per, Mt - c0);
-    for (int k = tid; k < Rt * per; k += blockDim.x) {
-      const int r = k / per, cc = k % per;
-      if (cc < cols) s_tab[k] = tab[(long long)r * Mt + c0 + cc];
-    }
-    n = Ri * per;
+    const int cols = min(per, Mt - u0);
+    for (int k = tid; k < Rt * cols; k += GATHER_THREADS)
+      s_tab[k] = tab[(long long)(k / cols) * Mt + u0 + k % cols];
+    n = Ri * cols;
+    w = cols;
   }
+  const int share = (n + splits - 1) / splits;
+  const int e0 = min(n, (blockIdx.x % splits) * share);
+  const int e1 = min(n, e0 + share);
+  const int hi = (AXIS == 1 ? Mt : Rt) - 1;
+  const int stride = AXIS == 1 ? 1 : w;
   __syncthreads();
-  const int stride = AXIS == 1 ? 1 : per;
-  for (int base = tid; base < n; base += 4 * blockDim.x) {
-    int cur[4], i0[4], off[4], v[4];
-    long long at[4];
-    bool ok[4];
+  for (int base = e0 + tid; base < e1; base += CH * GATHER_THREADS) {
+    int cur[CH], i0[CH], off[CH], v[CH];
+    long long at[CH];
+    bool ok[CH];
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int e = base + u * blockDim.x;
-      ok[u] = e < n;
-      v[u] = 0;
-      if (AXIS == 1) {
-        const int r = e / Mi, c = e % Mi;
-        off[u] = r * Mt;
-        at[u] = ((long long)blockIdx.x * per + r) * Mi + c;
-      } else {
-        const int r = e / per, cc = e % per;
-        const int c = blockIdx.x * per + cc;
-        ok[u] = ok[u] && c < Mi;
-        off[u] = cc;
-        at[u] = (long long)r * Mi + c;
-      }
+    for (int u = 0; u < CH; ++u) {
+      const int e = base + u * GATHER_THREADS;
+      ok[u] = e < e1;
+      // a chain past the share runs on element e0 and stores nothing
+      const int r = (ok[u] ? e : e0) / w, c = (ok[u] ? e : e0) % w;
+      off[u] = AXIS == 1 ? r * Mt : c;
+      at[u] = AXIS == 1 ? (long long)(u0 + r) * Mi + c
+                        : (long long)r * Mi + u0 + c;
       // clamped into the table once, outside the loop: a memory-safety
       // guard the plain version's torch.gather has as a raise
-      i0[u] = ok[u] ? clampi(idx[at[u]], 0, (AXIS == 1 ? Mt : Rt) - 1) : 0;
+      i0[u] = clampi(idx[at[u]], 0, hi);
       cur[u] = i0[u];
+      v[u] = 0;
     }
     for (int it = 0; it < iters; ++it) {
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        if (!ok[u]) continue;
+      for (int u = 0; u < CH; ++u) {
         v[u] = s_tab[off[u] + cur[u] * stride];
         cur[u] = chain ? floor_mod(v[u], lim) : i0[u] + (v[u] & zero);
       }
     }
 #pragma unroll
-    for (int u = 0; u < 4; ++u)
+    for (int u = 0; u < CH; ++u)
       if (ok[u]) out[at[u]] = chain ? cur[u] : v[u];
   }
 }
@@ -291,88 +309,241 @@ __global__ void refill_kernel(const int* __restrict__ tab, int NW,
 
 // ------------------------------------------------------- chunk sweep (P5)
 // microbench_chunk.build: T cycles of K1's sweep skeleton on 13 planes of
-// [WR + 8, 128] int32 in global memory (rA..rG read, tA..tE and vb
-// written), K1's 512-thread block.  Full sweep: one chunk of WR rows;
-// chunked: ceil(NR / CR) + (t & 1) chunks of CR rows.  Per row: 7 plane
-// loads, the transition-sized ALU block, 5 stores, the vb shift; 4
-// consecutive rows' bits are packed into one int32 (row 4k + j in byte j)
-// and stored to tb [64, WR / 4, 128] at row t % 64.  Each thread owns a
-// (4-row, lane) quad, so the packing needs no exchange.  Slice starts are
-// clamped into their buffers (the reference overruns them at its own
-// settings; its interpret mode clamps).  A block max-reduction per chunk
-// (two barriers) gives acc; the output is the last cycle's.
-constexpr int CHUNK_THREADS = 512;
+// [WR + 8, 128] int32 (rA..rG read, tA..tE and vb written).  Full sweep:
+// one chunk of WR rows a cycle; chunked: ceil(NR / CR) + (t & 1) chunks of
+// CR rows.  Per row: 7 plane loads, the transition-sized ALU block, 5
+// stores, the vb shift; 4 consecutive rows' bits are packed into one int32
+// (row 4k + j in byte j) and stored to tb [64, WR / 4, 128] at row t % 64.
+// Slice starts are clamped into their buffers (the reference overruns
+// them at its own settings; its interpret mode clamps).  acc is the last
+// cycle's sum over its chunks of max(h).
+//
+// The planes stay on chip, as the TPU kernel's VMEM scratch does: one
+// thread-block cluster of C CTAs, CTA `rank` holding lanes [rank * L,
+// rank * L + L) of all WR + 8 rows of the 13 planes in shared memory
+// (L = 128 / C; ops/probes.py::chunk_plan).  A plane is [L][LS] with the
+// rows of a lane contiguous, LS = (WR + 8) | 4 (an odd number of 16-byte
+// groups), so a thread moves its 4 rows of a plane as one 16-byte access
+// and the 8 lanes of a quarter-warp fall on distinct banks.  Thread item
+// i of a CTA is (quad q = i / L of store rows 4q..4q+3, lane i % L), the
+// same in every chunk and cycle, so the vb read-modify-write needs no
+// barrier.  Every chunk's load and store rows lie inside the CTA.
+//
+// A cycle's chunks are independent but for acc, so they run side by side:
+// each warp takes the chunks that cover its quads (a range computed from
+// the clamped starts), reduces each chunk's max over its lanes in one warp
+// instruction into the CTA's per-chunk maxima, and once per round of up to
+// CHUNK_ROUND chunks (one round a cycle at the tool's settings) a thread
+// per chunk sends the CTA's maximum into CTA 0's shared memory by st.async,
+// which completes on an mbarrier of CTA 0 (the bytes are counted there),
+// so no cluster-wide release fence is paid for them.  One cluster barrier
+// a round, relaxed, split into arrive and wait around the next round's
+// work, keeps the CTAs within a round of each other; CTA 0 waits for the
+// round's bytes and sums max over CTAs of each chunk into acc.  The
+// exchange slots and their mbarriers rotate over 3 rounds, so that no CTA
+// overwrites a round CTA 0 has not read (CTA 0's sum, which consumes the
+// slot's loads, precedes its arrive).  A release on the arrive would cost
+// each round a cluster-wide fence; the tb rows and planes need none, as
+// each is written by one CTA only.
+constexpr int CHUNK_MAX_THREADS = 768;
+constexpr int CHUNK_ROUND = 32;  // chunks one cluster exchange combines
 constexpr int N_PLANES = 13;
 
-__device__ __forceinline__ int block_max(int v, int* red) {
-  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
-  const int warp = threadIdx.x / 32, nw = blockDim.x / 32;
-  if ((threadIdx.x & 31) == 0) red[warp] = v;
-  __syncthreads();
-  int r = red[0];
-  for (int w = 1; w < nw; ++w) r = max(r, red[w]);
-  __syncthreads();
-  return r;
+// Shared-memory words of a CTA of the sweep at width WR, cluster size C
+// (ops/probes.py::chunk_smem): the planes, 3 mbarriers (8 words), this
+// CTA's chunk maxima of two rounds and CTA 0's exchange slots of three.
+inline long long chunk_words(int WR, int C) {
+  return (long long)N_PLANES * (128 / C) * ((WR + 8) | 4) + 8 +
+         2 * CHUNK_ROUND + 3 * CHUNK_ROUND * C;
 }
 
-__global__ void __launch_bounds__(CHUNK_THREADS)
-    chunk_kernel(int* __restrict__ acc_out, int* __restrict__ tb,
-                 int* __restrict__ planes, int WR, int CR, int T, int NR,
-                 int chunked) {
-  __shared__ int red[CHUNK_THREADS / 32];
-  const int WRP = WR + 8, WR4 = WR / 4;
-  const int plane = WRP * 128;
-  for (int k = threadIdx.x; k < N_PLANES * plane; k += blockDim.x)
-    planes[k] = k < 7 * plane ? 3 : 1;
-  __syncthreads();
-  const int cr = chunked ? CR : WR;
+// The round barrier: every thread of the cluster, whole warps; no memory
+// ordering (the exchange has its own, on mbarriers)
+__device__ __forceinline__ void cluster_arrive() {
+  __syncwarp();
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  __syncwarp();
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+}
+
+// The shared::cluster address of `p` (this CTA's shared memory) in CTA
+// `rank`.
+__device__ __forceinline__ unsigned cluster_addr(const void* p,
+                                                 unsigned rank) {
+  unsigned a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(a)
+               : "r"(mwf::smem_u32(p)), "r"(rank));
+  return a;
+}
+
+// Store v at shared::cluster address `addr`; its 4 bytes complete on the
+// mbarrier at shared::cluster address `bar` (both in one CTA).
+__device__ __forceinline__ void store_async(unsigned addr, int v,
+                                            unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
+      "[%2];" ::"r"(addr),
+      "r"(v), "r"(bar)
+      : "memory");
+}
+
+// CTA 0, warp 0: wait for round `round`'s maxima (n chunks from each of C
+// CTAs, 4 bytes each, on mbarrier `bar`), then add the round's chunks (the
+// max over the CTAs of each, exchange slots xs [CHUNK_ROUND][C]) to the
+// cycle's sum; after the cycle's last round the sum is acc.
+__device__ __forceinline__ void take_round(const int* xs,
+                                           unsigned long long* bar,
+                                           int round, int n, int C, int last,
+                                           int& sum, int& acc) {
+  if ((threadIdx.x & 31) == 0) mwf::bar_expect(bar, 4u * n * C);
+  __syncwarp();
+  mwf::bar_wait(bar, (round / 3) & 1);
+  int part = 0;
+  for (int c = threadIdx.x & 31; c < n; c += 32) {
+    int m = xs[c * C];
+    for (int q = 1; q < C; ++q) m = max(m, xs[c * C + q]);
+    part += m;
+  }
+  sum += __reduce_add_sync(0xffffffffu, part);
+  if (last) {
+    acc = sum;
+    sum = 0;
+  }
+}
+
+__global__ void __launch_bounds__(CHUNK_MAX_THREADS)
+    chunk_kernel(int* __restrict__ acc_out, int* __restrict__ tb, int WR,
+                 int CR, int T, int NR, int chunked, int L) {
+  extern __shared__ int4 sm4[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int rank = (int)cl.block_rank(), C = (int)cl.num_blocks();
+  const int tid = threadIdx.x, nthr = blockDim.x, lane = tid & 31;
+  const int WRP = WR + 8, WR4 = WR / 4, LS = WRP | 4;
+  const int PL = L * LS;      // words of one plane
+  const int lg = __ffs(L) - 1;  // L = 128 / C, a power of two
+  int* planes = (int*)sm4;
+  // [3] CTA 0's: the bytes of a round's exchange slot
+  unsigned long long* xbar = (unsigned long long*)(planes + N_PLANES * PL);
+  int* lmax = planes + N_PLANES * PL + 8;  // [2][CHUNK_ROUND]
+  int* xmax = lmax + 2 * CHUNK_ROUND;      // [3][CHUNK_ROUND][C], CTA 0's
+  const unsigned xmax0 = cluster_addr(xmax, 0), xbar0 = cluster_addr(xbar, 0);
+  for (int k = tid; k < N_PLANES * PL; k += nthr)
+    planes[k] = k < 7 * PL ? 3 : 1;
+  for (int k = tid; k < 2 * CHUNK_ROUND; k += nthr) lmax[k] = INT_MIN;
+  if (rank == 0 && tid == 0) {
+    for (int k = 0; k < 3; ++k) mwf::bar_init(xbar + k);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cl.sync();  // planes filled, mbarriers set, every CTA running
+
+  const int cr = chunked ? CR : WR, Q = cr / 4;
   // full sweep: loads from row 0 (r[:][:WR]); chunked: CR + 8 rows at ro
   const int ld_rows = chunked ? CR + 8 : WRP;
-  int acc = 0;
+  const int s4max = (WRP - cr) / 4;  // the last store quad a chunk starts at
+  const int items = (WRP / 4) * L;
+  int acc = 0, acc_c = 0;  // CTA 0, warp 0: acc, and the cycle's sum
+  int prev_n = 0, prev_last = 0, r = 0;
   for (int t = 0; t < T; ++t) {
     const int nc = chunked ? (NR + CR - 1) / CR + (t & 1) : 1;
-    int acc_t = 0;
-    for (int ci = 0; ci < nc; ++ci) {
-      const int ro = ci * cr;
-      const int ld = clampi(ro, 0, WRP - ld_rows);
-      const int st = clampi(ro, 0, WRP - cr);
-      const int tbs = clampi(ro / 4, 0, WR4 - cr / 4);
-      int hmax = INT_MIN;
-      for (int q = threadIdx.x; q < (cr / 4) * 128; q += blockDim.x) {
-        const int k = q / 128, l = q % 128;
-        int packed = 0;
+    for (int cb = 0; cb < nc; cb += CHUNK_ROUND, ++r) {
+      const int n = min(CHUNK_ROUND, nc - cb);
+      int* lm = lmax + (r & 1) * CHUNK_ROUND;
+      for (int w0 = tid - lane; w0 < items; w0 += nthr) {
+        const int i = w0 + lane;
+        const int qs = i >> lg, l = i & (L - 1);
+        // chunks whose store quads [s4, s4 + Q) meet this warp's [qa, qb]:
+        // s4 = min(ci * Q, s4max) grows with ci
+        const int qa = w0 >> lg, qb = min(w0 + 31, items - 1) >> lg;
+        if (s4max <= qa - Q) continue;
+        const int lo = max(cb, qa / Q);
+        const int hi = min(cb + n - 1, s4max <= qb ? INT_MAX : qb / Q);
+        for (int ci = lo; ci <= hi; ++ci) {
+          const int ro = ci * cr;
+          const int ld = clampi(ro, 0, WRP - ld_rows) / 4;
+          const int s4 = clampi(ro, 0, WRP - cr) / 4;
+          const int tbs = clampi(ro / 4, 0, WR4 - Q);
+          int hmax = INT_MIN;
+          if (i < items && qs >= s4 && qs < s4 + Q) {
+            const int k = qs - s4;
+            int x[7][4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int ri = (ld + 4 * k + j) * 128 + l;
-          const int so = (st + 4 * k + j) * 128 + l;
-          const int a = planes[0 * plane + ri], b = planes[1 * plane + ri];
-          const int c = planes[2 * plane + ri], d = planes[3 * plane + ri];
-          const int e = planes[4 * plane + ri], f = planes[5 * plane + ri];
-          const int g = planes[6 * plane + ri];
-          const int e1 = max(a, b) + t;
-          const int e2 = max(c, d) + 1;
-          const int f1 = max(e, f) + 1;
-          const int f2 = max(g, a) + 1;
-          int z = e1 >= e2 ? 1 : 3;
-          const int h = max(max(e1, e2), max(f1, f2));
-          z = a + 1 >= h ? 0 : z;
-          const int bits = ((e1 < e2 ? 1 : 0) << 3) | z;
-          planes[7 * plane + so] = h;
-          planes[8 * plane + so] = e1;
-          planes[9 * plane + so] = f1;
-          planes[10 * plane + so] = e2;
-          planes[11 * plane + so] = f2;
-          planes[12 * plane + so] = (planes[12 * plane + so] << 1) & 0xFFFF;
-          packed |= bits << (8 * j);
-          hmax = max(hmax, h);
+            for (int p = 0; p < 7; ++p) {
+              const int4 v =
+                  *(const int4*)(planes + p * PL + l * LS + 4 * (ld + k));
+              x[p][0] = v.x;
+              x[p][1] = v.y;
+              x[p][2] = v.z;
+              x[p][3] = v.w;
+            }
+            int o[5][4];
+            int packed = 0;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int a = x[0][j], b = x[1][j], c = x[2][j], d = x[3][j];
+              const int e = x[4][j], f = x[5][j], g = x[6][j];
+              const int e1 = max(a, b) + t;
+              const int e2 = max(c, d) + 1;
+              const int f1 = max(e, f) + 1;
+              const int f2 = max(g, a) + 1;
+              int z = e1 >= e2 ? 1 : 3;
+              const int h = max(max(e1, e2), max(f1, f2));
+              z = a + 1 >= h ? 0 : z;
+              const int bits = ((e1 < e2 ? 1 : 0) << 3) | z;
+              o[0][j] = h;
+              o[1][j] = e1;
+              o[2][j] = f1;
+              o[3][j] = e2;
+              o[4][j] = f2;
+              packed |= bits << (8 * j);
+              hmax = max(hmax, h);
+            }
+            const int so = l * LS + 4 * qs;
+#pragma unroll
+            for (int p = 0; p < 5; ++p)
+              *(int4*)(planes + (7 + p) * PL + so) =
+                  make_int4(o[p][0], o[p][1], o[p][2], o[p][3]);
+            int4* vb = (int4*)(planes + 12 * PL + so);
+            int4 y = *vb;
+            y.x = (y.x << 1) & 0xFFFF;
+            y.y = (y.y << 1) & 0xFFFF;
+            y.z = (y.z << 1) & 0xFFFF;
+            y.w = (y.w << 1) & 0xFFFF;
+            *vb = y;
+            tb[((long long)(t % 64) * WR4 + tbs + k) * 128 + rank * L + l] =
+                packed;
+          }
+          hmax = __reduce_max_sync(0xffffffffu, hmax);
+          if (lane == 0) atomicMax(lm + ci - cb, hmax);
         }
-        tb[((long long)(t % 64) * WR4 + tbs + k) * 128 + l] = packed;
       }
-      acc_t += block_max(hmax, red);
+      __syncthreads();
+      if (tid < n) {
+        store_async(xmax0 + 4 * (((r % 3) * CHUNK_ROUND + tid) * C + rank),
+                    lm[tid], xbar0 + 8 * (r % 3));
+        lm[tid] = INT_MIN;
+      }
+      if (r > 0) {
+        cluster_wait();
+        if (rank == 0 && tid < 32)
+          take_round(xmax + ((r - 1) % 3) * CHUNK_ROUND * C,
+                     xbar + (r - 1) % 3, r - 1, prev_n, C, prev_last, acc_c,
+                     acc);
+      }
+      cluster_arrive();
+      prev_n = n;
+      prev_last = cb + CHUNK_ROUND >= nc;
     }
-    acc = acc_t;
   }
-  if (threadIdx.x == 0) acc_out[0] = acc;
+  cluster_wait();
+  if (rank == 0 && tid < 32) {
+    take_round(xmax + ((r - 1) % 3) * CHUNK_ROUND * C, xbar + (r - 1) % 3,
+               r - 1, prev_n, C, prev_last, acc_c, acc);
+    if (tid == 0) acc_out[0] = acc;
+  }
 }
 
 // ----------------------------------------------------- multi probes (P6-P8)
@@ -584,16 +755,58 @@ int dispatch_multi(int probe, const MultiParams& p, int smem,
   }
 }
 
+template <int AXIS, int CH>
+int launch_gather(const int* tab, const int* idx, int* out, int Rt, int Mt,
+                  int Ri, int Mi, int blocks, int per, int splits, int smem,
+                  int iters, int chain, int lim, int zero, cudaStream_t s) {
+  cudaError_t err = opt_in((const void*)gather_kernel<AXIS, CH>, smem);
+  if (err != cudaSuccess) return (int)err;
+  gather_kernel<AXIS, CH><<<blocks, GATHER_THREADS, smem, s>>>(
+      tab, idx, out, Rt, Mt, Ri, Mi, per, splits, iters, chain, lim, zero);
+  return (int)cudaGetLastError();
+}
+
+template <int AXIS>
+int launch_gather_ch(int chains, const int* tab, const int* idx, int* out,
+                     int Rt, int Mt, int Ri, int Mi, int blocks, int per,
+                     int splits, int smem, int iters, int chain, int lim,
+                     int zero, cudaStream_t s) {
+  switch (chains) {
+    case 1:
+      return launch_gather<AXIS, 1>(tab, idx, out, Rt, Mt, Ri, Mi, blocks,
+                                    per, splits, smem, iters, chain, lim,
+                                    zero, s);
+    case 2:
+      return launch_gather<AXIS, 2>(tab, idx, out, Rt, Mt, Ri, Mi, blocks,
+                                    per, splits, smem, iters, chain, lim,
+                                    zero, s);
+    case 4:
+      return launch_gather<AXIS, 4>(tab, idx, out, Rt, Mt, Ri, Mi, blocks,
+                                    per, splits, smem, iters, chain, lim,
+                                    zero, s);
+    case 8:
+      return launch_gather<AXIS, 8>(tab, idx, out, Rt, Mt, Ri, Mi, blocks,
+                                    per, splits, smem, iters, chain, lim,
+                                    zero, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // ----------------------------------------------------------- entry points
 // Each launches on `stream` and returns cudaGetLastError(); shapes the
 // kernel does not take return cudaErrorInvalidValue before any launch.
 
+// A loop (iters > 1) runs on the plan (blocks, per, chains) of
+// ops/probes.py::gather_plan: groups of `per` table rows (axis 1) or
+// columns (axis 0), blocks / groups blocks a group, `chains` chains a
+// thread (1, 2, 4 or 8).  One gather (iters == 1) takes no plan.
 extern "C" int mwf_probe_gather(const int* tab, int Rt, int Mt,
                                 const int* idx, int Ri, int Mi, int* out,
                                 int axis, int iters, int chain, int lim,
-                                int zero, void* stream) {
+                                int zero, int blocks, int per, int chains,
+                                void* stream) {
   if (Rt < 1 || Mt < 1 || Ri < 1 || Mi < 1 || iters < 1 || lim < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -611,22 +824,21 @@ extern "C" int mwf_probe_gather(const int* tab, int Rt, int Mt,
           tab, idx, out, Rt, Mt, Ri, Mi, chain, lim);
     return (int)cudaGetLastError();
   }
-  if (axis == 1) {
-    const int per = max(1, min(Rt, 8192 / Mt));
-    const int smem = per * Mt * (int)sizeof(int);
-    cudaError_t err = opt_in((const void*)gather_kernel<1>, smem);
-    if (err != cudaSuccess) return (int)err;
-    gather_kernel<1><<<(Rt + per - 1) / per, GATHER_THREADS, smem, s>>>(
-        tab, idx, out, Rt, Mt, Ri, Mi, per, iters, chain, lim, zero);
-  } else {
-    const int per = max(1, min(Mt, min(128, 8192 / Rt)));
-    const int smem = Rt * per * (int)sizeof(int);
-    cudaError_t err = opt_in((const void*)gather_kernel<0>, smem);
-    if (err != cudaSuccess) return (int)err;
-    gather_kernel<0><<<(Mt + per - 1) / per, GATHER_THREADS, smem, s>>>(
-        tab, idx, out, Rt, Mt, Ri, Mi, per, iters, chain, lim, zero);
-  }
-  return (int)cudaGetLastError();
+  // units: what a group is cut from (table rows, or columns); unit: the
+  // words of one of them
+  const int units = axis == 1 ? Rt : Mt, unit = axis == 1 ? Mt : Rt;
+  if (per < 1 || per > units || blocks < 1) return (int)cudaErrorInvalidValue;
+  const int groups = (units + per - 1) / per;
+  if (blocks % groups) return (int)cudaErrorInvalidValue;
+  const long long smem = (long long)per * unit * (long long)sizeof(int);
+  if (smem > SMEM_CAP) return (int)cudaErrorInvalidValue;
+  if (axis == 1)
+    return launch_gather_ch<1>(chains, tab, idx, out, Rt, Mt, Ri, Mi, blocks,
+                               per, blocks / groups, (int)smem, iters, chain,
+                               lim, zero, s);
+  return launch_gather_ch<0>(chains, tab, idx, out, Rt, Mt, Ri, Mi, blocks,
+                             per, blocks / groups, (int)smem, iters, chain,
+                             lim, zero, s);
 }
 
 extern "C" int mwf_probe_varshift(const int* x, const int* sh, int* out,
@@ -709,13 +921,42 @@ extern "C" int mwf_probe_refill(const int* tab, int NW, const int* bases,
   return (int)cudaGetLastError();
 }
 
-extern "C" int mwf_probe_chunk(int* acc, int* tb, int* planes, int WR, int CR,
-                               int T, int NR, int chunked, void* stream) {
+// The sweep on one cluster of C CTAs (1, 2, 4, 8 or 16; past 8 a
+// non-portable size) of L = 128 / C lanes each, the plan of
+// ops/probes.py::chunk_plan; a WR whose planes do not fit a CTA's shared
+// memory at that C is refused.
+extern "C" int mwf_probe_chunk(int* acc, int* tb, int WR, int CR, int T,
+                               int NR, int chunked, int C, int L,
+                               void* stream) {
   if (WR < 4 || WR % 4 || T < 1 ||
       (chunked && (CR < 4 || CR % 4 || CR > WR || NR < 1)))
     return (int)cudaErrorInvalidValue;
-  chunk_kernel<<<1, CHUNK_THREADS, 0, (cudaStream_t)stream>>>(
-      acc, tb, planes, WR, CR, T, NR, chunked);
+  if (C < 1 || C > 16 || (C & (C - 1)) || L != 128 / C)
+    return (int)cudaErrorInvalidValue;
+  const long long smem = chunk_words(WR, C) * (long long)sizeof(int);
+  if (smem > SMEM_CAP) return (int)cudaErrorInvalidValue;
+  const void* fn = (const void*)chunk_kernel;
+  cudaError_t err = opt_in(fn, (int)smem);
+  if (err == cudaSuccess && C > 8)
+    err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return (int)err;
+  const int items = (WR + 8) / 4 * L;
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(C);
+  cfg.blockDim = dim3(min(CHUNK_MAX_THREADS, (items + 31) / 32 * 32));
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  void* args[] = {&acc, &tb, &WR, &CR, &T, &NR, &chunked, &L};
+  err = cudaLaunchKernelExC(&cfg, fn, args);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

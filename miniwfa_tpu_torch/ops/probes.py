@@ -35,6 +35,7 @@ port reproduces:
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -46,6 +47,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # GPU cycles of the spin queued before a timed launch (~100 us), so that
 # the host's own launch cost falls inside the spin, not the timing
 SPIN_CYCLES = 200_000
+# the dynamic shared memory a block may opt in to on Hopper (csrc SMEM_CAP;
+# the kernels of csrc/probes.cu have no static shared memory)
+SMEM_OPTIN = 232448
 
 
 def _device(*tensors: torch.Tensor) -> torch.device:
@@ -110,17 +114,98 @@ def _counted(fn):
 
 # ------------------------------------------------------------------ gathers
 
+GATHER_THREADS = 256        # threads a block of the gather loop
+GATHER_CHAINS = (1, 2, 4, 8)  # independent chains a thread
+GATHER_MIN_SHARE = 32       # elements a block at least (a warp's)
+# blocks an SM holds at once: its threads' limit, and its shared memory
+# (Hopper: SMEM_OPTIN plus the 1 KB each block reserves)
+GATHER_BLOCKS_SM = 2048 // GATHER_THREADS
+BLOCK_RESERVED = 1024
+SM_SMEM = SMEM_OPTIN + BLOCK_RESERVED
+
+
+@functools.lru_cache(maxsize=None)
+def gather_plan(Rt: int, Mt: int, Ri: int, Mi: int, axis: int, sms: int,
+                smem: int) -> Tuple[int, int, int]:
+    """(blocks, per, chains) of the gather loop on tab [Rt, Mt], idx [Ri,
+    Mi] along ``axis`` on a card of ``sms`` SMs and ``smem`` bytes of
+    shared memory a block.  A group is ``per`` table rows (axis 1) or a
+    strip of ``per`` columns of every row (axis 0), staged whole by each
+    of the ``blocks / groups`` blocks that share its idx elements.
+
+    An op costs an SM its elements' loads, so the plan takes the (per,
+    splits) whose busiest SM runs the fewest warps of elements (the blocks
+    it holds at once x a block's share), then the fewest staged bytes an
+    SM, the fewest staged a block, the fewest blocks; the grid reaches
+    ``sms`` blocks wherever the shares can stay a warp or more.
+    ``chains`` is the fewest chains a thread (of ``GATHER_CHAINS``) that
+    cover a share in one pass."""
+    units, unit = (Rt, Mt) if axis == 1 else (Mt, Rt)
+    each = Mi if axis == 1 else Ri  # idx elements of one unit
+    if 4 * unit > smem:
+        raise ValueError(f"one table {'row' if axis == 1 else 'column'} of "
+                         f"{unit} int32 does not fit {smem} bytes of shared "
+                         f"memory")
+    best = None
+    # the least per of each group count: a larger one only adds work
+    pers = sorted({-(-units // g) for g in range(1, units + 1)})
+    for per in [p for p in pers if p <= smem // (4 * unit)]:
+        groups = -(-units // per)
+        n = per * each
+        top = max(1, n // GATHER_MIN_SHARE)
+        lo = min(top, -(-sms // groups))
+        staged = 4 * per * unit
+        held = min(GATHER_BLOCKS_SM, SM_SMEM // (staged + BLOCK_RESERVED))
+        for splits in range(lo, top + 1):
+            k = -(-groups * splits // sms)  # blocks the busiest SM holds
+            if k > held:
+                break
+            warps = -(-n // (splits * 32))  # of a block's share
+            cost = (k * warps, k * staged, per, groups * splits)
+            if best is None or cost < best[0]:
+                best = (cost, groups * splits, per, -(-n // splits))
+    _, blocks, per, share = best
+    chains = next((c for c in GATHER_CHAINS
+                   if c * GATHER_THREADS >= share), GATHER_CHAINS[-1])
+    return blocks, per, chains
+
+
+def check_gather_plan(plan, Rt: int, Mt: int, axis: int, smem: int) -> None:
+    """Raise ValueError unless ``plan`` is one the gather loop takes: whole
+    groups of ``per`` rows or columns, the same number of blocks a group,
+    a chain count of ``GATHER_CHAINS``, the staged group within ``smem``
+    bytes (the kernel's own checks, made before a launch)."""
+    blocks, per, chains = plan
+    units, unit = (Rt, Mt) if axis == 1 else (Mt, Rt)
+    if not 1 <= per <= units or blocks < 1 or blocks % -(-units // per):
+        raise ValueError(f"gather plan {plan}: per in [1, {units}] and "
+                         f"blocks a multiple of the groups")
+    if chains not in GATHER_CHAINS:
+        raise ValueError(f"gather plan {plan}: chains in {GATHER_CHAINS}")
+    if 4 * per * unit > smem:
+        raise ValueError(f"gather plan {plan}: {4 * per * unit} bytes of "
+                         f"shared memory past {smem}")
+
+
 def _gather2d(wrapper, tab, idx, axis: int, iters: int, chain: bool,
-              lim: int = 1) -> torch.Tensor:
-    """Launch the shared gather kernel on 2-D ``tab`` and ``idx``."""
+              lim: int = 1, plan=None) -> torch.Tensor:
+    """Launch the shared gather kernel on 2-D ``tab`` and ``idx``; a loop
+    (iters > 1) on ``plan``, by default ``gather_plan``'s for the card."""
     dev = _device(tab, idx)
     if tab.dim() != 2 or idx.dim() != 2:
         raise ValueError("the gather kernel takes 2-D tab and idx")
+    (Rt, Mt), (Ri, Mi) = tab.shape, idx.shape
+    if iters == 1:
+        plan = (0, 0, 0)  # one gather takes no plan
+    else:
+        if plan is None:
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            plan = gather_plan(Rt, Mt, Ri, Mi, axis, sms, SMEM_OPTIN)
+        check_gather_plan(plan, Rt, Mt, axis, SMEM_OPTIN)
     out = torch.zeros(idx.shape, dtype=torch.int32, device=dev)
-    _launch(wrapper, dev, "gather", [_P, _I, _I, _P, _I, _I, _P] + [_I] * 5,
-            tab.data_ptr(), tab.shape[0], tab.shape[1], idx.data_ptr(),
-            idx.shape[0], idx.shape[1], out.data_ptr(), axis, iters,
-            int(chain), lim, 0)
+    _launch(wrapper, dev, "gather", [_P, _I, _I, _P, _I, _I, _P] + [_I] * 8,
+            tab.data_ptr(), Rt, Mt, idx.data_ptr(), Ri, Mi, out.data_ptr(),
+            axis, iters, int(chain), lim, 0, *plan)
     return out
 
 
@@ -431,6 +516,31 @@ def refill(tab, bases):
 
 # ------------------------------------------------------- chunk sweep (P5)
 
+CHUNK_ROUND = 32             # chunks one cluster exchange combines
+CHUNK_CLUSTERS = (8, 16)     # cluster sizes chunk_plan tries, in order
+
+
+def chunk_smem(WR: int, C: int) -> int:
+    """Shared-memory bytes of a CTA of the sweep at width WR on a cluster
+    of C CTAs (csrc ``chunk_words``): the 13 planes of its 128 / C lanes,
+    a lane's WR + 8 rows padded to an odd number of 16-byte groups, 3
+    mbarriers, its chunk maxima of two rounds and CTA 0's exchange slots
+    of three."""
+    return 4 * (13 * (128 // C) * ((WR + 8) | 4) + 8 + 2 * CHUNK_ROUND
+                + 3 * CHUNK_ROUND * C)
+
+
+def chunk_plan(WR: int, smem: int) -> Tuple[int, int]:
+    """(C, lanes a CTA) of the sweep at width WR: the first cluster size of
+    ``CHUNK_CLUSTERS`` whose CTAs hold their lanes' planes in ``smem``
+    bytes; a WR that fits none raises ValueError."""
+    for C in CHUNK_CLUSTERS:
+        if chunk_smem(WR, C) <= smem:
+            return C, 128 // C
+    raise ValueError(f"chunk: the planes of WR={WR} fit no cluster of "
+                     f"{CHUNK_CLUSTERS} CTAs in {smem} bytes a CTA")
+
+
 def _chunk_check(WR: int, CR: int, NR: int, chunked: bool) -> None:
     if WR < 4 or WR % 4 or (chunked and (CR < 4 or CR % 4 or CR > WR
                                          or NR < 1)):
@@ -498,19 +608,31 @@ def chunk(WR: int, CR: int, T: int, NR: int, chunked: bool,
     shift; 4 rows' tb bytes packed per int32 (row 4k + j in byte j) into
     ``tb[t % 64, ro/4 : ro/4 + CR/4]``.  Returns (acc [1, 1]: the last
     cycle's sum of its chunks' max(h); tb [64, WR/4, 128]).  Slice starts
-    clamp into their buffers (module docstring).  On the card: K1's
-    512-thread block, the 13 planes in global memory."""
+    clamp into their buffers (module docstring).  On the card: one
+    thread-block cluster (``chunk_plan``), each CTA holding its lanes' 13
+    planes in shared memory, a cycle's chunks side by side and one
+    cluster exchange of their maxima a round."""
     dev = torch.device(device)
     if dev.type == "cpu":
         return chunk_plain(WR, CR, T, NR, chunked, dev)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     _chunk_check(WR, CR, NR, chunked)
+    return _launch_chunk(WR, CR, T, NR, chunked, *chunk_plan(WR, SMEM_OPTIN),
+                         dev)
+
+
+def _launch_chunk(WR: int, CR: int, T: int, NR: int, chunked: bool, C: int,
+                  lanes: int, dev) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the sweep on one cluster of C CTAs of ``lanes`` lanes each
+    (a power of two C <= 16, lanes = 128 / C); a plan whose planes the
+    card's CTAs cannot hold is refused by the kernel and raises."""
+    if C not in (1, 2, 4, 8, 16) or lanes != 128 // C:
+        raise ValueError(f"chunk plan C={C} lanes={lanes}: C a power of two "
+                         f"up to 16, lanes = 128 / C")
     acc = torch.zeros((1, 1), dtype=torch.int32, device=dev)
     tb = torch.full((64, WR // 4, 128), INT_MIN, dtype=torch.int32,
                     device=dev)
-    planes = torch.empty((13, WR + 8, 128), dtype=torch.int32, device=dev)
-    _launch(chunk, dev, "chunk", [_P, _P, _P] + [_I] * 5,
-            acc.data_ptr(), tb.data_ptr(), planes.data_ptr(), WR, CR, T, NR,
-            int(chunked))
+    _launch(chunk, dev, "chunk", [_P, _P] + [_I] * 7, acc.data_ptr(),
+            tb.data_ptr(), WR, CR, T, NR, int(chunked), C, lanes)
     return acc, tb

@@ -359,6 +359,74 @@ def test_probe_kernel_matches_plain(dev, k):
     assert mb.max_abs_err(got, want) == 0, (c.pid, c.label)
 
 
+@pytest.mark.parametrize("T", [63, 64, 65, 129])
+@pytest.mark.parametrize("CR,NR,chunked", [(8, 16, True), (8, 184, True),
+                                           (32, 16, True), (32, 184, True),
+                                           (0, 184, False)])
+def test_probe_chunk_matches_plain_across_the_ring(dev, T, CR, NR, chunked):
+    """P5 at the tool's WR on chunk_plan's cluster: acc and tb equal the
+    plain version's where the 64-slot tb ring wraps and at odd T (one
+    chunk more on odd cycles)."""
+    before = pb.chunk.launches
+    got = pb.chunk(184, CR, T, NR, chunked, device=dev)
+    assert pb.chunk.launches == before + 1
+    want = pb.chunk_plain(184, CR, T, NR, chunked)
+    assert mb.max_abs_err([g.cpu() for g in got], want) == 0
+
+
+@pytest.mark.parametrize("WR,C", [(16, 1), (16, 2), (16, 4), (16, 8),
+                                  (16, 16), (184, 16), (264, 16)])
+def test_probe_chunk_at_forced_clusters(dev, WR, C):
+    """The sweep at every cluster size whose CTAs hold their planes (a
+    round of more than 32 chunks at NR=300), against the plain version."""
+    for CR, T, NR, chunked in [(8, 5, 16, True), (4, 3, 300, True),
+                               (0, 3, WR, False)]:
+        got = pb._launch_chunk(WR, CR, T, NR, chunked, C, 128 // C, dev)
+        want = pb.chunk_plain(WR, CR, T, NR, chunked)
+        assert mb.max_abs_err([g.cpu() for g in got], want) == 0, (CR, NR)
+
+
+def test_probe_chunk_refuses_what_a_cluster_cannot_hold(dev):
+    """No fallback: a WR past chunk_plan's limit raises, and a plan whose
+    planes a CTA cannot hold is refused by the kernel's launcher."""
+    big = 4 + max(w for w in range(4, 2000, 4)
+                  if pb.chunk_smem(w, 16) <= pb.SMEM_OPTIN)
+    with pytest.raises(ValueError):
+        pb.chunk(big, 8, 2, 16, True, device=dev)
+    before = pb.chunk.launches
+    with pytest.raises(RuntimeError):
+        pb._launch_chunk(big, 8, 2, 16, True, 16, 8, dev)
+    with pytest.raises(RuntimeError):   # 16 lanes x 4: 326 KB a CTA
+        pb._launch_chunk(184, 8, 2, 16, True, 4, 32, dev)
+    assert pb.chunk.launches == before
+
+
+@pytest.mark.parametrize("R,M,axis,plan", [
+    (8, 2048, 1, (24, 1, 1)),      # 3 blocks a row, the last 682 of 683
+    (8, 16384, 1, (8, 1, 8)),      # a block a row, 8 passes of 8 chains
+    (64, 2048, 0, (1366, 3, 2)),   # strips of 3 columns, the last of 2
+    (512, 128, 0, (384, 1, 4))])   # 3 blocks a column, 171/171/170
+@pytest.mark.parametrize("chain", [False, True])
+def test_probe_gather_at_forced_plans(dev, R, M, axis, plan, chain):
+    """The gather loop at plans with partial last shares and groups, for
+    the fake dependence (P1a, P1b) and the real chain (P2, P4a)."""
+    rng = np.random.default_rng(R + M)
+    tab = torch.from_numpy(rng.integers(0, 1 << 20, (R, M), dtype=np.int32))
+    idx = torch.from_numpy(rng.integers(0, (R, M)[axis], (R, M),
+                                        dtype=np.int32))
+    it = 16
+    if chain:
+        wrapper, lim = pb.gather_chain, (R, M)[axis]
+        want = pb.gather_chain_plain(tab, idx, axis, it)
+    else:
+        wrapper, lim = (pb.bench_gather if axis else pb.bench_gather_ax0), 1
+        want = (pb.bench_gather_plain if axis else
+                pb.bench_gather_ax0_plain)(tab, idx, it)
+    got = pb._gather2d(wrapper, tab.to(dev), idx.to(dev), axis, it, chain,
+                       lim, plan=plan)
+    assert torch.equal(got.cpu(), want)
+
+
 def test_probe_wrappers_raise_past_their_shapes(dev):
     """A shape the kernel does not take raises; it never falls back."""
     x = torch.zeros((1, 2050), dtype=torch.int32, device=dev)

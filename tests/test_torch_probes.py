@@ -10,6 +10,7 @@ CPU tensors (their plain versions).
 """
 
 import functools
+import re
 
 import jax
 import numpy as np
@@ -344,3 +345,132 @@ def test_probe_wrappers_refuse_bad_inputs():
     with pytest.raises(ValueError):
         pb.take_along(torch.zeros((2, 3, 4), dtype=torch.int32),
                       torch.zeros((2, 3, 4), dtype=torch.int32), 1)
+
+
+# ------------------------------------------------ the kernels' host plans
+
+def _gather_shapes():
+    """(Rt, Mt, Ri, Mi, axis) of every looped gather case the tool runs
+    (P1a, P1b, P2, P4a), then tails: an element count that no share
+    divides, and groups cut short at the end."""
+    shapes = []
+    for c in mb.all_cases():
+        if c.pid in ("P1a", "P1b", "P2", "P4a"):
+            x, _ = mb.inputs(c, 0, 1, "cpu")
+            axis = int(re.search(r"ax(\d)", c.label).group(1))
+            shapes.append((*x[0].shape, *x[1].shape, axis))
+    assert len(shapes) == 13
+    shapes += [(8, 1000, 8, 1000, 1), (7, 777, 7, 777, 1),
+               (300, 5, 300, 3, 1), (133, 9, 133, 9, 1),
+               (64, 2047, 5, 2047, 0), (3, 1001, 17, 1001, 0),
+               (1000, 3, 1, 3, 0)]
+    return shapes
+
+
+def _owned(plan, Rt, Mt, Ri, Mi, axis):
+    """The idx elements (flat) each block of the gather loop owns, by the
+    index math of csrc/probes.cu gather_kernel."""
+    blocks, per, _ = plan
+    units = Rt if axis == 1 else Mt
+    splits = blocks // -(-units // per)
+    owned = []
+    for b in range(blocks):
+        u0 = (b // splits) * per
+        w = Mi if axis == 1 else min(per, Mt - u0)
+        n = (min(per, Rt - u0) if axis == 1 else Ri) * w
+        share = -(-n // splits)
+        e0 = min(n, (b % splits) * share)
+        e = np.arange(e0, min(n, e0 + share))
+        r, c = e // w, e % w
+        owned.append((u0 + r) * Mi + c if axis == 1 else r * Mi + u0 + c)
+    return owned
+
+
+@pytest.mark.parametrize("shape", _gather_shapes())
+@pytest.mark.parametrize("sms", [132, 8])
+def test_gather_plan_owns_every_element_once(shape, sms):
+    Rt, Mt, Ri, Mi, axis = shape
+    smem = pb.SMEM_OPTIN
+    plan = pb.gather_plan(Rt, Mt, Ri, Mi, axis, sms, smem)
+    pb.check_gather_plan(plan, Rt, Mt, axis, smem)
+    blocks, per, chains = plan
+    assert 4 * per * (Mt if axis == 1 else Rt) <= smem
+    owned = _owned(plan, Rt, Mt, Ri, Mi, axis)
+    assert len(owned) == blocks
+    flat = np.concatenate(owned)
+    assert np.array_equal(np.sort(flat), np.arange(Ri * Mi))
+    # a share runs in one pass where CHAINS allow, and is a warp at least
+    # wherever the grid was cut for the SMs
+    most = max(len(o) for o in owned)
+    assert most <= chains * pb.GATHER_THREADS or chains == 8
+    if blocks > -(-(Rt if axis == 1 else Mt) // per):
+        assert min(len(o) for o in owned) >= 1
+
+
+def test_gather_plan_fills_the_card():
+    """The tool's largest loops run on every SM of an H100, as many blocks
+    on each: P1a [8, 16384] on 32 blocks a row (2 an SM), P1b [512, 128]
+    on 2 a column."""
+    assert pb.gather_plan(8, 16384, 8, 16384, 1, 132, pb.SMEM_OPTIN) \
+        == (256, 1, 2)
+    assert pb.gather_plan(512, 128, 512, 128, 0, 132, pb.SMEM_OPTIN) \
+        == (256, 1, 1)
+    for shape in _gather_shapes()[:13]:
+        Rt, Mt, Ri, Mi, axis = shape
+        blocks = pb.gather_plan(*shape, 132, pb.SMEM_OPTIN)[0]
+        if Ri * Mi >= 132 * pb.GATHER_MIN_SHARE:
+            assert blocks >= 132, shape
+
+
+@pytest.mark.parametrize("smem", [pb.SMEM_OPTIN, 48 * 1024, 4 * 2048])
+def test_gather_plan_stays_in_its_budget(smem):
+    for Rt, Mt, Ri, Mi, axis in _gather_shapes():
+        unit = Mt if axis == 1 else Rt
+        if 4 * unit > smem:
+            with pytest.raises(ValueError):
+                pb.gather_plan(Rt, Mt, Ri, Mi, axis, 132, smem)
+            continue
+        blocks, per, _ = pb.gather_plan(Rt, Mt, Ri, Mi, axis, 132, smem)
+        assert 4 * per * unit <= smem
+
+
+def test_gather_plan_check_refuses_bad_plans():
+    ok = pb.gather_plan(8, 2048, 8, 2048, 1, 132, pb.SMEM_OPTIN)
+    pb.check_gather_plan(ok, 8, 2048, 1, pb.SMEM_OPTIN)
+    for bad in [(0, 1, 1), (24, 0, 1), (24, 9, 1), (25, 1, 1), (24, 1, 3)]:
+        with pytest.raises(ValueError):
+            pb.check_gather_plan(bad, 8, 2048, 1, pb.SMEM_OPTIN)
+    with pytest.raises(ValueError):   # 8 rows of 2048: 64 KB
+        pb.check_gather_plan((1, 8, 1), 8, 2048, 1, 48 * 1024)
+
+
+def test_chunk_plan_fits_and_refuses():
+    # the tool's WR: a cluster of 8 CTAs, 16 lanes each, its planes in
+    # shared memory
+    assert pb.chunk_plan(184, 232448) == (8, 16)
+    assert pb.chunk_smem(184, 8) <= 232448
+    # past a cluster of 8, one of 16 (8 lanes a CTA); past that, refused
+    wr8 = max(w for w in range(4, 2000, 4) if pb.chunk_smem(w, 8) <= 232448)
+    assert pb.chunk_plan(wr8 + 4, 232448) == (16, 8)
+    wr16 = max(w for w in range(4, 2000, 4)
+               if pb.chunk_smem(w, 16) <= 232448)
+    assert wr16 >= 2 * 184
+    with pytest.raises(ValueError):
+        pb.chunk_plan(wr16 + 4, 232448)
+    assert pb.chunk_plan(184, 100_000) == (16, 8)
+    with pytest.raises(ValueError):
+        pb.chunk_plan(184, 80_000)
+    # a lane's rows padded to an odd number of 16-byte groups
+    for WR in (4, 8, 184, 188):
+        assert (((WR + 8) | 4) // 4) % 2 == 1
+
+
+@pytest.mark.parametrize("R,M,axis,plan", [
+    (8, 2048, 1, (24, 1, 1)), (8, 16384, 1, (8, 1, 8)),
+    (64, 2048, 0, (1366, 3, 2)), (512, 128, 0, (384, 1, 4))])
+def test_forced_gather_plans_own_every_element_once(R, M, axis, plan):
+    """The card tests' forced plans (partial last shares and groups) pass
+    the launcher's check and cover idx once."""
+    pb.check_gather_plan(plan, R, M, axis, pb.SMEM_OPTIN)
+    flat = np.concatenate(_owned(plan, R, M, R, M, axis))
+    assert np.array_equal(np.sort(flat), np.arange(R * M))
