@@ -189,46 +189,149 @@ __global__ void popcount_kernel(const int* __restrict__ x,
 
 // ------------------------------------------------------ row write (P1e)
 // bench_hbm_row_write: iteration t writes uint8(x + t) into row t % S of
-// out [S, W].  One block; each thread packs 4 bytes into one 32-bit plain
-// store; __threadfence() and a block barrier per row make the row visible
-// device-wide before the next starts (the TPU's DMA start + wait; K1 writes
-// its tb rows with plain stores the same way).
-__global__ void row_write_kernel(const int* __restrict__ x,
-                                 unsigned* __restrict__ out, int S, int W,
-                                 int iters) {
-  const int words = W / 4;
-  for (int t = 0; t < iters; ++t) {
-    unsigned* row = out + (long long)(t % S) * words;
-    for (int w = threadIdx.x; w < words; w += blockDim.x) {
-      unsigned word = 0;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        word |= (unsigned)((x[4 * w + j] + t) & 0xFF) << (8 * j);
-      row[w] = word;
-    }
-    __threadfence();
-    __syncthreads();
+// out [S, W].  The TPU's DMA start and wait per row become the card's own
+// bulk copy engine on every SM (the plan of ops/probes.py::row_write_plan):
+//   * a row is cut into segments of 16 bytes a thread; block b owns one
+//     segment (b % segs) of the rows r with r % rb == b / segs, and runs
+//     their iterations t = r, r + S, r + 2S, ... in increasing t, every
+//     one of them (a row that a later t overwrites included);
+//   * a thread packs the 16 bytes of x under its part of the segment once
+//     (x is the input, loop-invariant) and adds t to each byte (__vadd4)
+//     per iteration, into slot k % D of a ring of D segments in shared
+//     memory (k: the block's iteration count);
+//   * fence.proxy.async and one block barrier, then thread 0 stores the
+//     slot to the row by cp.async.bulk and commits it as a bulk group
+//     (where W % 16 != 0, a segment's unaligned ends, at most 12 bytes
+//     each, go out by plain stores of the threads that build them: a
+//     row's bytes always from the same thread, so in order);
+//     Before that barrier it waits until at most D - 2 groups are pending
+//     (full completion): the slot the next iteration fills has been read,
+//     and a row the block rewrites (its own rows later; the plan keeps
+//     D - 2 below them) has landed before the next write to it goes out.
+// No __threadfence: nothing waits on a row but the row's own next write.
+constexpr int ROW_RING_MAX = 8;
+
+// Wait until at most `pending` bulk groups of this thread are pending.
+__device__ __forceinline__ void bulk_wait(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.bulk.wait_group 0;" ::: "memory"); break;
+    case 1: asm volatile("cp.async.bulk.wait_group 1;" ::: "memory"); break;
+    case 2: asm volatile("cp.async.bulk.wait_group 2;" ::: "memory"); break;
+    case 3: asm volatile("cp.async.bulk.wait_group 3;" ::: "memory"); break;
+    case 4: asm volatile("cp.async.bulk.wait_group 4;" ::: "memory"); break;
+    case 5: asm volatile("cp.async.bulk.wait_group 5;" ::: "memory"); break;
+    default: asm volatile("cp.async.bulk.wait_group 6;" ::: "memory");
   }
 }
 
+__global__ void __launch_bounds__(1024)
+    row_write_kernel(const int* __restrict__ x, unsigned char* __restrict__ out,
+                     int S, int W, int iters, int rb, int D) {
+  extern __shared__ __align__(16) unsigned char ring[];
+  const int segs = gridDim.x / rb;
+  const int cls = blockIdx.x / segs;
+  const int seg_bytes = 16 * blockDim.x;
+  const int c0 = (blockIdx.x % segs) * seg_bytes;
+  const int len = min(seg_bytes, W - c0);  // bytes of each row this block owns
+  const int q = 16 * threadIdx.x;          // this thread's first byte of them
+  unsigned xw[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    xw[j] = 0;
+    if (q + 4 * j < len)
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        xw[j] |= (unsigned)(x[c0 + q + 4 * j + b] & 0xFF) << (8 * b);
+  }
+  int k = 0;
+  for (long long base = 0; base < iters; base += S) {
+    for (int r = cls; r < S && base + r < iters; r += rb, ++k) {
+      const unsigned tt = (unsigned)((base + r) & 0xFF) * 0x01010101u;
+      // the segment's bytes [g, g + len) of out; [g0, g1) the 16-byte
+      // aligned part the bulk copy stores, the rest plain 32-bit stores;
+      // segment byte b sits at slot byte b + pre
+      const long long g = (long long)r * W + c0;
+      const int pre = (int)(g & 15);
+      const long long g0 = (g + 15) & ~15LL;
+      const long long g1 = max(g0, (g + len) & ~15LL);
+      unsigned char* slot = ring + (k % D) * (seg_bytes + 16);
+      unsigned v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = __vadd4(xw[j], tt);
+      if (pre == 0 && g + q + 16 <= g1) {
+        *reinterpret_cast<uint4*>(slot + q) = make_uint4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const long long a = g + q + 4 * j;
+          if (q + 4 * j >= len) continue;
+          if (a >= g0 && a < g1)
+            *reinterpret_cast<unsigned*>(slot + q + 4 * j + pre) = v[j];
+          else
+            *reinterpret_cast<unsigned*>(out + a) = v[j];
+        }
+      }
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      if (threadIdx.x == 0) bulk_wait(D - 2);
+      __syncthreads();
+      if (threadIdx.x == 0 && g1 > g0) {
+        asm volatile(
+            "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
+                out + g0),
+            "r"(mwf::smem_u32(slot + (g0 - g) + pre)), "r"((int)(g1 - g0))
+            : "memory");
+        asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+      }
+    }
+  }
+  if (threadIdx.x == 0) bulk_wait(0);
+}
+
 // ------------------------------------------------------ while loop (P1f)
-// bench_while_scalar: state [8, M] in (volatile) shared memory, `iters`
-// rounds of acc += 1; SYNC adds a block barrier per round (K1 pays one per
-// phase of its cycle), so the two instantiations price that barrier.
+// bench_while_scalar: `iters` rounds of acc += 1 on the state [8, M], kept
+// on chip as the TPU keeps it in VMEM scratch.  The state is spread over
+// every SM (the plan of ops/probes.py::while_plan): each block holds a
+// contiguous slice in its own shared memory, WHILE_PER (4) elements a
+// thread, the last thread's and block's padded.  Every round each thread
+// loads its 16 bytes of state, adds 1 to each element and stores them
+// back, by ld/st.volatile.shared.v4 that nvcc can neither fold nor hoist:
+// one dependent shared-memory round trip a round.  SYNC adds a block
+// barrier a round among the threads that share the block's state (K1 pays
+// one per phase), so the two instantiations price that barrier at the
+// plan's block size.
+constexpr int WHILE_PER = 4;
+
 template <bool SYNC>
-__global__ void __launch_bounds__(512)
+__global__ void __launch_bounds__(1024)
     while_kernel(const int* __restrict__ x, int* __restrict__ out, int n,
                  int iters) {
-  extern __shared__ int st_raw[];
-  volatile int* st = st_raw;
-  for (int e = threadIdx.x; e < n; e += blockDim.x) st[e] = x[e];
-  __syncthreads();
+  extern __shared__ int4 st[];
+  const long long e0 =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) * WHILE_PER;
+  int v[WHILE_PER];
+#pragma unroll
+  for (int j = 0; j < WHILE_PER; ++j) v[j] = e0 + j < n ? x[e0 + j] : 0;
+  const unsigned a = mwf::smem_u32(st + threadIdx.x);
+  asm volatile("st.volatile.shared.v4.s32 [%0], {%1, %2, %3, %4};" ::"r"(a),
+               "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3])
+               : "memory");
   for (int c = 0; c < iters; ++c) {
-    for (int e = threadIdx.x; e < n; e += blockDim.x) st[e] = st[e] + 1;
+    asm volatile("ld.volatile.shared.v4.s32 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
+                 : "r"(a)
+                 : "memory");
+    asm volatile("st.volatile.shared.v4.s32 [%0], {%1, %2, %3, %4};" ::"r"(a),
+                 "r"(v[0] + 1), "r"(v[1] + 1), "r"(v[2] + 1), "r"(v[3] + 1)
+                 : "memory");
     if (SYNC) __syncthreads();
   }
-  __syncthreads();
-  for (int e = threadIdx.x; e < n; e += blockDim.x) out[e] = st[e];
+  asm volatile("ld.volatile.shared.v4.s32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
+               : "r"(a)
+               : "memory");
+#pragma unroll
+  for (int j = 0; j < WHILE_PER; ++j)
+    if (e0 + j < n) out[e0 + j] = v[j];
 }
 
 // ----------------------------------------------------- mosaic3 (P4b-e)
@@ -857,26 +960,49 @@ extern "C" int mwf_probe_popcount(const int* x, int* out, int n, int iters,
   return (int)cudaGetLastError();
 }
 
+// P1e on the plan (blocks, threads, D) of ops/probes.py::row_write_plan:
+// segments of 16 * threads bytes, blocks a multiple of the segments a row
+// (rb = blocks / segs row classes, at most S), a ring of D segments with D
+// - 2 below the fewest rows a block owns.
 extern "C" int mwf_probe_row_write(const int* x, unsigned char* out, int S,
-                                   int W, int iters, void* stream) {
+                                   int W, int iters, int blocks, int threads,
+                                   int D, void* stream) {
   if (S < 1 || W < 4 || W % 4) return (int)cudaErrorInvalidValue;
-  row_write_kernel<<<1, 512, 0, (cudaStream_t)stream>>>(
-      x, (unsigned*)out, S, W, iters);
+  if ((unsigned long long)out % 16) return (int)cudaErrorInvalidValue;
+  if (threads < 32 || threads > 1024 || threads % 32 || blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  const int seg_bytes = 16 * threads;
+  const int segs = (W + seg_bytes - 1) / seg_bytes;
+  if (blocks % segs || blocks / segs > S) return (int)cudaErrorInvalidValue;
+  const int rb = blocks / segs;
+  if (D < 2 || D > ROW_RING_MAX || D - 2 >= S / rb)
+    return (int)cudaErrorInvalidValue;
+  const int smem = D * (seg_bytes + 16);
+  cudaError_t err = opt_in((const void*)row_write_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  row_write_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+      x, out, S, W, iters, rb, D);
   return (int)cudaGetLastError();
 }
 
+// P1f on the plan (blocks, threads, per) of ops/probes.py::while_plan:
+// per == WHILE_PER elements a thread, threads a multiple of 32 up to 1024,
+// exactly the blocks that n needs.
 extern "C" int mwf_probe_while(const int* x, int* out, int n, int iters,
-                               int sync, void* stream) {
-  const int smem = n * (int)sizeof(int);
-  const void* fn = sync ? (const void*)while_kernel<true>
-                        : (const void*)while_kernel<false>;
-  if (n < 1) return (int)cudaErrorInvalidValue;
-  cudaError_t err = opt_in(fn, smem);
-  if (err != cudaSuccess) return (int)err;
+                               int sync, int blocks, int threads, int per,
+                               void* stream) {
+  if (n < 1 || per != WHILE_PER || threads < 32 || threads > 1024 ||
+      threads % 32)
+    return (int)cudaErrorInvalidValue;
+  const long long slice = (long long)threads * per;
+  if (blocks != (n + slice - 1) / slice) return (int)cudaErrorInvalidValue;
+  const int smem = threads * WHILE_PER * (int)sizeof(int);
   if (sync)
-    while_kernel<true><<<1, 512, smem, (cudaStream_t)stream>>>(x, out, n, iters);
+    while_kernel<true><<<blocks, threads, smem, (cudaStream_t)stream>>>(
+        x, out, n, iters);
   else
-    while_kernel<false><<<1, 512, smem, (cudaStream_t)stream>>>(x, out, n, iters);
+    while_kernel<false><<<blocks, threads, smem, (cudaStream_t)stream>>>(
+        x, out, n, iters);
   return (int)cudaGetLastError();
 }
 

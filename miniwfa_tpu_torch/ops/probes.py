@@ -360,6 +360,65 @@ def bench_popcount(x, iters: int):
 
 # ------------------------------------------------------------ row writes
 
+ROW_RING_MAX = 8    # segments in a row-write block's ring (csrc ROW_RING_MAX)
+MAX_THREADS = 1024  # threads a block
+
+
+def row_write_smem(threads: int, D: int) -> int:
+    """Shared-memory bytes of a row-write block: D ring slots of a segment
+    (16 bytes a thread) and 16 bytes to align a row's unaligned start."""
+    return D * (16 * threads + 16)
+
+
+def row_write_plan(S: int, W: int, sms: int, smem: int) -> Tuple[int, int,
+                                                                 int]:
+    """(blocks, threads, D) of the row write into [S, W] on a card of
+    ``sms`` SMs and ``smem`` bytes of shared memory a block.  A row is cut
+    into segments of 16 bytes a thread (one segment up to W = 16 KB);
+    block b owns segment b % segs of the rows r with r % rb == b // segs
+    (rb = blocks // segs row classes), and keeps a ring of D segments in
+    shared memory.  rb is the fewest classes, at most ``sms // segs`` and
+    S, that give the busiest block no more rows than the most classes
+    would; D the deepest ring, up to ``ROW_RING_MAX``, whose pending bulk
+    groups (D - 2) stay below the fewest rows a block owns (so a row's
+    earlier write has landed before it is rewritten) and whose segments
+    fit ``smem``."""
+    quads = -(-W // 16)
+    threads = min(MAX_THREADS, 32 * -(-quads // 32))
+    segs = -(-quads // threads)
+    most = max(1, min(S, sms // segs))
+    rb = -(-S // -(-S // most))
+    D = min(ROW_RING_MAX, smem // row_write_smem(threads, 1), S // rb + 1)
+    if D < 2:
+        raise ValueError(f"row write: two segments of {16 * threads} bytes "
+                         f"do not fit {smem} bytes of shared memory")
+    return rb * segs, threads, D
+
+
+def check_row_write_plan(plan, S: int, W: int, smem: int) -> None:
+    """Raise ValueError unless the row write takes ``plan`` (the kernel's
+    own checks, made before a launch): whole warps up to 1024 threads,
+    blocks a multiple of the segments a row and at most S row classes, a
+    ring of 2 to ``ROW_RING_MAX`` segments within ``smem`` whose pending
+    groups stay below the fewest rows a block owns."""
+    blocks, threads, D = plan
+    if not (32 <= threads <= MAX_THREADS and threads % 32 == 0):
+        raise ValueError(f"row write plan {plan}: threads a multiple of 32 "
+                         f"up to {MAX_THREADS}")
+    segs = -(-W // (16 * threads))
+    if blocks < 1 or blocks % segs or blocks // segs > S:
+        raise ValueError(f"row write plan {plan}: blocks a multiple of the "
+                         f"{segs} segments a row, at most {S} row classes")
+    rb = blocks // segs
+    if not 2 <= D <= ROW_RING_MAX or D - 2 >= S // rb:
+        raise ValueError(f"row write plan {plan}: D in [2, {ROW_RING_MAX}], "
+                         f"D - 2 below the {S // rb} rows a block owns")
+    if row_write_smem(threads, D) > smem:
+        raise ValueError(f"row write plan {plan}: "
+                         f"{row_write_smem(threads, D)} bytes of shared "
+                         f"memory past {smem}")
+
+
 def bench_hbm_row_write_plain(x, S: int, iters: int):
     out = torch.zeros((S, x.shape[-1]), dtype=torch.uint8, device=x.device)
     for t in range(iters):
@@ -372,17 +431,56 @@ def bench_hbm_row_write(x, S: int, iters: int):
     """P1e. ``tools/microbench_mosaic.py:134`` ``bench_hbm_row_write``
     (pallas_call :148): iteration t writes ``uint8(x + t)`` (x [1, W])
     into row ``t % S`` of a uint8 [S, W] output; rows no t reaches stay 0.
-    On the card: plain 32-bit stores of 4 packed bytes, then
-    ``__threadfence()`` and a block barrier per row (the TPU's DMA start
-    and wait)."""
+    On the card every SM writes rows (``row_write_plan``): a block builds
+    each of its rows' iterations in a ring of segments in shared memory
+    and stores it by one bulk copy (the TPU's DMA start), waiting on the
+    copy engine only before a ring slot or a row is reused (its wait)."""
     dev = _device(x)
     if dev.type == "cpu":
         return bench_hbm_row_write_plain(x, S, iters)
+    return _row_write(x, S, iters)
+
+
+def _row_write(x, S: int, iters: int, plan=None) -> torch.Tensor:
+    """Launch the row write on ``plan``, by default ``row_write_plan``'s
+    for the card; shapes it does not take are refused by the kernel."""
+    dev = x.device
     W = x.shape[-1]
+    if plan is None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = row_write_plan(S, W, sms, SMEM_OPTIN)
+    check_row_write_plan(plan, S, W, SMEM_OPTIN)
     out = torch.zeros((S, W), dtype=torch.uint8, device=dev)
-    _launch(bench_hbm_row_write, dev, "row_write", [_P, _P, _I, _I, _I],
-            x.data_ptr(), out.data_ptr(), S, W, iters)
+    _launch(bench_hbm_row_write, dev, "row_write", [_P, _P] + [_I] * 6,
+            x.data_ptr(), out.data_ptr(), S, W, iters, *plan)
     return out
+
+
+# ------------------------------------------------------------- while loop
+
+WHILE_PER = 4  # elements a thread: one 16-byte access (csrc WHILE_PER)
+
+
+def while_plan(n: int, sms: int) -> Tuple[int, int, int]:
+    """(blocks, threads, per) of the while loop on n elements on a card of
+    ``sms`` SMs: ``per`` = 4 elements a thread, the fewest warps a block
+    (up to 32) that put every warp on an SM of its own where the warps
+    allow, and the blocks that cover n (the last one partial)."""
+    warps = -(-n // (32 * WHILE_PER))
+    threads = 32 * min(MAX_THREADS // 32, -(-warps // sms))
+    return -(-n // (threads * WHILE_PER)), threads, WHILE_PER
+
+
+def check_while_plan(plan, n: int) -> None:
+    """Raise ValueError unless the while loop takes ``plan`` (the kernel's
+    own checks): ``WHILE_PER`` elements a thread, whole warps up to 1024
+    threads, exactly the blocks that cover n."""
+    blocks, threads, per = plan
+    if (per != WHILE_PER or not 32 <= threads <= MAX_THREADS
+            or threads % 32 or blocks != -(-n // (threads * per))):
+        raise ValueError(f"while plan {plan} for n={n}: per = {WHILE_PER}, "
+                         f"threads a multiple of 32 up to {MAX_THREADS}, "
+                         f"ceil(n / (threads * per)) blocks")
 
 
 def bench_while_scalar_plain(x, iters: int, sync: bool = False):
@@ -399,14 +497,28 @@ def bench_while_scalar_plain(x, iters: int, sync: bool = False):
 def bench_while_scalar(x, iters: int, sync: bool = False):
     """P1f. ``tools/microbench_mosaic.py:167`` ``bench_while_scalar``
     (pallas_call :184): a while loop of ``iters`` rounds of ``acc += 1``
-    on [8, M] kept in shared memory.  ``sync`` adds a block barrier per
-    round on the card (the TPU loop has none; K1 pays one per phase)."""
+    on [8, M].  On the card the state is spread over every SM
+    (``while_plan``), each block's slice in its shared memory, and every
+    round loads and stores all of it (16 bytes a thread); ``sync`` adds a
+    block barrier per round (the TPU loop has none; K1 pays one per
+    phase)."""
     dev = _device(x)
     if dev.type == "cpu":
         return bench_while_scalar_plain(x, iters)
+    return _while(x, iters, sync)
+
+
+def _while(x, iters: int, sync: bool, plan=None) -> torch.Tensor:
+    """Launch the while loop on ``plan``, by default ``while_plan``'s for
+    the card."""
+    dev = x.device
+    if plan is None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = while_plan(x.numel(), sms)
+    check_while_plan(plan, x.numel())
     out = torch.zeros_like(x)
-    _launch(bench_while_scalar, dev, "while", [_P, _P, _I, _I, _I],
-            x.data_ptr(), out.data_ptr(), x.numel(), iters, int(sync))
+    _launch(bench_while_scalar, dev, "while", [_P, _P] + [_I] * 6,
+            x.data_ptr(), out.data_ptr(), x.numel(), iters, int(sync), *plan)
     return out
 
 

@@ -436,6 +436,93 @@ def test_probe_wrappers_raise_past_their_shapes(dev):
         pb.chunk(184, 10, 2, 16, True, device=dev)   # CR % 4 != 0
 
 
+@pytest.mark.parametrize("n", [16384, 16385])
+@pytest.mark.parametrize("iters", [0, 1, 17, 1000])
+@pytest.mark.parametrize("sync", [False, True])
+def test_probe_while_matches_plain(dev, n, iters, sync):
+    """P1f on while_plan's blocks, with and without the barrier, against
+    the plain version on random state: a whole last block and a partial
+    one (16,385 = 128 x 128 + 1)."""
+    rng = np.random.default_rng(n + iters)
+    x = torch.from_numpy(rng.integers(-(1 << 30), 1 << 30, (1, n),
+                                      dtype=np.int32))
+    before = pb.bench_while_scalar.launches
+    got = pb.bench_while_scalar(x.to(dev), iters, sync)
+    assert pb.bench_while_scalar.launches == before + 1
+    assert torch.equal(got.cpu(), pb.bench_while_scalar_plain(x, iters))
+
+
+@pytest.mark.parametrize("n,plan", [(1, None), (31, None), (8 * 2048, (4, 1024, 4)),
+                                    (16385, (5, 1024, 4)), (16385, (65, 64, 4))])
+@pytest.mark.parametrize("sync", [False, True])
+def test_probe_while_at_forced_plans(dev, n, plan, sync):
+    """P1f at one partial thread, at blocks of many warps (the plan of a
+    card of one SM) and at a partial last block of two warps."""
+    x = torch.arange(n, dtype=torch.int32).reshape(1, n) * 7 - 3
+    got = pb._while(x.to(dev), 33, sync, plan)
+    assert torch.equal(got.cpu(), pb.bench_while_scalar_plain(x, 33))
+
+
+@pytest.mark.parametrize("S,iters", [(8, 3 * 8 + 5), (1024, 2500), (1, 9),
+                                     (1025, 1000)])
+@pytest.mark.parametrize("W", [2048, 2052])
+def test_probe_row_write_matches_plain(dev, S, iters, W):
+    """P1e on row_write_plan's blocks against the plain version, with
+    random x and rows rewritten (iters > S: the later write lands last),
+    at W = 2052 too (no multiple of 16), torch.equal."""
+    rng = np.random.default_rng(S + iters + W)
+    x = torch.from_numpy(rng.integers(-(1 << 31), (1 << 31) - 1, (1, W),
+                                      dtype=np.int32))
+    before = pb.bench_hbm_row_write.launches
+    got = pb.bench_hbm_row_write(x.to(dev), S, iters)
+    assert pb.bench_hbm_row_write.launches == before + 1
+    assert torch.equal(got.cpu(), pb.bench_hbm_row_write_plain(x, S, iters))
+
+
+@pytest.mark.parametrize("S,W,iters,plan", [
+    (1024, 2048, 2500, (1, 128, 8)),      # one block writes every row
+    (1024, 2048, 2500, (128, 128, 2)),    # the shallowest ring
+    (64, 2048, 200, (32, 64, 3)),         # 2 segments a row, 16 classes
+    (7, 40000, 40, (21, 1024, 2)),        # 3 segments, the last partial
+    (3, 40000, 10, (3, 1024, 3))])        # 3 rows in one class
+def test_probe_row_write_at_forced_plans(dev, S, W, iters, plan):
+    """P1e at plans with one block, the shallowest ring, several segments
+    a row and a partial last segment, against the plain version."""
+    rng = np.random.default_rng(W)
+    x = torch.from_numpy(rng.integers(0, 1 << 20, (1, W), dtype=np.int32))
+    got = pb._row_write(x.to(dev), S, iters, plan)
+    assert torch.equal(got.cpu(), pb.bench_hbm_row_write_plain(x, S, iters))
+
+
+def test_probe_while_and_row_write_refuse_bad_plans(dev, monkeypatch):
+    """No fallback: a plan the host check refuses raises ValueError, and
+    past that check the kernel's own entry refuses it (RuntimeError)."""
+    x = torch.zeros((8, 2048), dtype=torch.int32, device=dev)
+    xr = torch.zeros((1, 2048), dtype=torch.int32, device=dev)
+    bad_while = [(128, 32, 8), (127, 32, 4), (128, 48, 4)]
+    bad_rows = [(64, 2048, 200, (32, 64, 6)),   # D - 2 not below 4 rows
+                (1024, 2048, 3, (128, 128, 9)),
+                (1024, 2048, 3, (2048, 128, 2))]
+    for plan in bad_while:
+        with pytest.raises(ValueError):
+            pb._while(x, 3, True, plan)
+    for S, W, it, plan in bad_rows:
+        with pytest.raises(ValueError):
+            pb._row_write(xr, S, it, plan)
+    monkeypatch.setattr(pb, "check_while_plan", lambda *a: None)
+    monkeypatch.setattr(pb, "check_row_write_plan", lambda *a: None)
+    before = (pb.bench_while_scalar.launches,
+              pb.bench_hbm_row_write.launches)
+    for plan in bad_while:
+        with pytest.raises(RuntimeError):
+            pb._while(x, 3, True, plan)
+    for S, W, it, plan in bad_rows:
+        with pytest.raises(RuntimeError):
+            pb._row_write(xr, S, it, plan)
+    assert (pb.bench_while_scalar.launches,
+            pb.bench_hbm_row_write.launches) == before
+
+
 # K1 at every cluster size: CTAs per lane, 16 where the card holds one
 # cluster of 16 (a non-portable size)
 K1_CS = (1, 2, 4, 8, 16)

@@ -474,3 +474,131 @@ def test_forced_gather_plans_own_every_element_once(R, M, axis, plan):
     pb.check_gather_plan(plan, R, M, axis, pb.SMEM_OPTIN)
     flat = np.concatenate(_owned(plan, R, M, R, M, axis))
     assert np.array_equal(np.sort(flat), np.arange(R * M))
+
+
+def _while_owned(plan, n):
+    """The state elements each block of the while loop owns, by the index
+    math of csrc/probes.cu while_kernel (WHILE_PER a thread, the padding
+    past n stored nowhere)."""
+    blocks, threads, per = plan
+    owned = []
+    for b in range(blocks):
+        e = (b * threads + np.arange(threads))[:, None] * per + np.arange(per)
+        owned.append(e[e < n])
+    return owned
+
+
+@pytest.mark.parametrize("n", [1, 31, 16384, 16385])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_while_plan_owns_every_element_once(n, sms):
+    plan = pb.while_plan(n, sms)
+    pb.check_while_plan(plan, n)
+    blocks, threads, per = plan
+    owned = _while_owned(plan, n)
+    assert np.array_equal(np.sort(np.concatenate(owned)), np.arange(n))
+    # every block holds state (the last one partial), within 16 KB
+    assert min(len(o) for o in owned) >= 1
+    assert threads * per * 4 <= 16384
+
+
+def _row_owned(plan, S, W):
+    """(row, first byte, bytes) of every row segment each block of the row
+    write owns, by the index math of csrc/probes.cu row_write_kernel."""
+    blocks, threads, _ = plan
+    seg = 16 * threads
+    segs = -(-W // seg)
+    rb = blocks // segs
+    return [[(r, (b % segs) * seg, min(seg, W - (b % segs) * seg))
+             for r in range(b // segs, S, rb)] for b in range(blocks)]
+
+
+def _row_write_schedule(plan, S, W, iters):
+    """Each block's iterations t in the kernel's order."""
+    blocks, threads, _ = plan
+    rb = blocks // -(-W // (16 * threads))
+    out = []
+    for b in range(blocks):
+        cls = b // (blocks // rb)
+        out.append([base + r for base in range(0, iters, S)
+                    for r in range(cls, S, rb) if base + r < iters])
+    return out
+
+
+@pytest.mark.parametrize("S", [1, 7, 1024, 1025])
+@pytest.mark.parametrize("W", [2048, 2052, 40000])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_row_write_plan_owns_every_row_once(S, W, sms):
+    plan = pb.row_write_plan(S, W, sms, pb.SMEM_OPTIN)
+    pb.check_row_write_plan(plan, S, W, pb.SMEM_OPTIN)
+    blocks, threads, D = plan
+    owned = _row_owned(plan, S, W)
+    assert len(owned) == blocks and min(len(o) for o in owned) >= 1
+    cover = np.zeros((S, W), np.int32)
+    for segs in owned:
+        for r, c0, n in segs:
+            cover[r, c0:c0 + n] += 1
+    assert (cover == 1).all()
+    # the pending bulk groups at a rewrite (D - 2) stay below the rows each
+    # block owns; its ring within the budget
+    assert D - 2 < min(len(o) for o in owned)
+    assert pb.row_write_smem(threads, D) <= pb.SMEM_OPTIN
+
+
+@pytest.mark.parametrize("S,iters", [(1, 9), (7, 40), (8, 29), (1025, 2600)])
+def test_row_write_ring_never_overtakes_a_row(S, iters):
+    """Simulate each block's iterations: a row is rewritten only after D -
+    1 of the block's own iterations, so the kernel's wait (at most D - 2
+    groups pending) has seen its earlier write land; every t runs once."""
+    plan = pb.row_write_plan(S, 2048, 132, pb.SMEM_OPTIN)
+    D = plan[2]
+    sched = _row_write_schedule(plan, S, 2048, iters)
+    assert sorted(t for ts in sched for t in ts) == list(range(iters))
+    for ts in sched:
+        assert ts == sorted(ts)
+        last = {}
+        for k, t in enumerate(ts):
+            if t % S in last:
+                assert k - last[t % S] >= D - 1
+            last[t % S] = k
+
+
+@pytest.mark.parametrize("smem", [pb.SMEM_OPTIN, 48 * 1024, 4096])
+def test_row_write_plan_stays_in_its_budget(smem):
+    for S, W in [(1024, 2048), (1025, 2052), (8, 40000), (3, 1 << 20)]:
+        threads = pb.row_write_plan(S, W, 132, pb.SMEM_OPTIN)[1]
+        if pb.row_write_smem(threads, 2) > smem:
+            with pytest.raises(ValueError):
+                pb.row_write_plan(S, W, 132, smem)
+            continue
+        plan = pb.row_write_plan(S, W, 132, smem)
+        pb.check_row_write_plan(plan, S, W, smem)
+        assert pb.row_write_smem(plan[1], plan[2]) <= smem
+
+
+def test_probe_plans_fill_the_card():
+    """The tool's shapes on every SM of an H100: P1f [8, 2048] on 128
+    blocks of a warp, P1e [1024, 2048] on 128 blocks of 8 rows each."""
+    assert pb.while_plan(8 * 2048, 132) == (128, 32, 4)
+    assert pb.row_write_plan(1024, 2048, 132, pb.SMEM_OPTIN) == (128, 128, 8)
+
+
+def test_while_and_row_write_plan_checks_refuse_bad_plans():
+    pb.check_while_plan((128, 32, 4), 16384)
+    for bad in [(128, 32, 8), (128, 48, 4), (127, 32, 4), (129, 32, 4),
+                (1, 2048, 4)]:
+        with pytest.raises(ValueError):
+            pb.check_while_plan(bad, 16384)
+    pb.check_row_write_plan((128, 128, 8), 1024, 2048, pb.SMEM_OPTIN)
+    for bad in [(128, 48, 8), (128, 128, 1), (128, 128, 9),
+                (128, 128, 10), (2048, 128, 2), (0, 128, 2)]:
+        with pytest.raises(ValueError):
+            pb.check_row_write_plan(bad, 1024, 2048, pb.SMEM_OPTIN)
+    # 3 segments a row: blocks a multiple of 3; 8 rows on 4 classes:
+    # D - 2 below 2
+    with pytest.raises(ValueError):
+        pb.check_row_write_plan((4, 32, 2), 8, 1500, pb.SMEM_OPTIN)
+    with pytest.raises(ValueError):
+        pb.check_row_write_plan((12, 32, 4), 8, 1500, pb.SMEM_OPTIN)
+    pb.check_row_write_plan((12, 32, 3), 8, 1500, pb.SMEM_OPTIN)
+    with pytest.raises(ValueError):   # 8 segments of 16 KB: 128 KB
+        pb.check_row_write_plan((128, 1024, 8), 1024, 1 << 20, 100_000)
