@@ -243,48 +243,23 @@ __global__ void __launch_bounds__(1024)
       for (int b = 0; b < 4; ++b)
         xw[j] |= (unsigned)(x[c0 + q + 4 * j + b] & 0xFF) << (8 * b);
   }
-  int k = 0;
   for (long long base = 0; base < iters; base += S) {
-    for (int r = cls; r < S && base + r < iters; r += rb, ++k) {
+    for (int r = cls; r < S && base + r < iters; r += rb) {
       const unsigned tt = (unsigned)((base + r) & 0xFF) * 0x01010101u;
-      // the segment's bytes [g, g + len) of out; [g0, g1) the 16-byte
-      // aligned part the bulk copy stores, the rest plain 32-bit stores;
-      // segment byte b sits at slot byte b + pre
-      const long long g = (long long)r * W + c0;
-      const int pre = (int)(g & 15);
-      const long long g0 = (g + 15) & ~15LL;
-      const long long g1 = max(g0, (g + len) & ~15LL);
-      unsigned char* slot = ring + (k % D) * (seg_bytes + 16);
+      const long long g = (long long)r * W + c0 + q;
       unsigned v[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) v[j] = __vadd4(xw[j], tt);
-      if (pre == 0 && g + q + 16 <= g1) {
-        *reinterpret_cast<uint4*>(slot + q) = make_uint4(v[0], v[1], v[2], v[3]);
+      if ((g & 15) == 0 && q + 16 <= len) {
+        *reinterpret_cast<uint4*>(out + g) = make_uint4(v[0], v[1], v[2], v[3]);
       } else {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const long long a = g + q + 4 * j;
-          if (q + 4 * j >= len) continue;
-          if (a >= g0 && a < g1)
-            *reinterpret_cast<unsigned*>(slot + q + 4 * j + pre) = v[j];
-          else
-            *reinterpret_cast<unsigned*>(out + a) = v[j];
-        }
-      }
-      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-      if (threadIdx.x == 0) bulk_wait(D - 2);
-      __syncthreads();
-      if (threadIdx.x == 0 && g1 > g0) {
-        asm volatile(
-            "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
-                out + g0),
-            "r"(mwf::smem_u32(slot + (g0 - g) + pre)), "r"((int)(g1 - g0))
-            : "memory");
-        asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+        for (int j = 0; j < 4; ++j)
+          if (q + 4 * j < len)
+            *reinterpret_cast<unsigned*>(out + g + 4 * j) = v[j];
       }
     }
   }
-  if (threadIdx.x == 0) bulk_wait(0);
 }
 
 // ------------------------------------------------------ while loop (P1f)
@@ -978,9 +953,8 @@ extern "C" int mwf_probe_row_write(const int* x, unsigned char* out, int S,
   if (D < 2 || D > ROW_RING_MAX || D - 2 >= S / rb)
     return (int)cudaErrorInvalidValue;
   const int smem = D * (seg_bytes + 16);
-  cudaError_t err = opt_in((const void*)row_write_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  row_write_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+  if (smem > SMEM_CAP) return (int)cudaErrorInvalidValue;
+  row_write_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       x, out, S, W, iters, rb, D);
   return (int)cudaGetLastError();
 }
