@@ -18,18 +18,23 @@
 //     dependence `acc[0, 0] & 0` (microbench_mosaic.py:37) becomes
 //     `carry & zero` with `zero` a kernel argument (always 0), so nvcc can
 //     neither fold it nor hoist the gather; the while probe's state is
-//     volatile shared memory, so `acc += 1` is a load, an add and a store
-//     per iteration, as the TPU's VMEM round trip is;
+//     read and written every round by volatile 16-byte shared-memory
+//     accesses (inline PTX), so `acc += 1` is a load, an add and a store
+//     per iteration, as the TPU's VMEM round trip is; the row write
+//     builds and stores every iteration's row, rewritten ones included;
 //   * tables a TPU tile keeps in VMEM sit in shared memory when they fit
 //     (a gather loop's table rows or column strip, one [G, R, L] multi
 //     tile of 128-144 KB, with the kernel opted in past 48 KB); P5's 13
 //     planes stay on chip across a thread-block cluster, each CTA holding
 //     its lanes' rows; larger tables stay in global memory (the [512, 128]
 //     sublane table, the 3-slot multi rings);
-//   * the two costliest loops use the whole card where one block did: a
-//     gather loop's elements spread over >= 132 blocks where there are
-//     enough of them, several chains a thread; P5's chunks side by side
-//     over the cluster, one cluster barrier a round of chunks;
+//   * the loops that ran on one block use the whole card: a gather
+//     loop's elements spread over >= 132 blocks where there are enough of
+//     them, several chains a thread; P5's chunks side by side over the
+//     cluster, one cluster barrier a round of chunks; the while loop's
+//     state over 128 blocks of one warp (16 bytes a thread in each
+//     block's shared memory); the row write's rows over 128 blocks, 16
+//     bytes a thread a row by plain stores with no fence;
 //   * dynamic slices clamp their start into range, as the reference's
 //     interpret mode does (lax.dynamic_slice / dynamic_update_slice).
 
@@ -189,51 +194,33 @@ __global__ void popcount_kernel(const int* __restrict__ x,
 
 // ------------------------------------------------------ row write (P1e)
 // bench_hbm_row_write: iteration t writes uint8(x + t) into row t % S of
-// out [S, W].  The TPU's DMA start and wait per row become the card's own
-// bulk copy engine on every SM (the plan of ops/probes.py::row_write_plan):
+// out [S, W].  The rows are spread over every SM (the plan of
+// ops/probes.py::row_write_plan), with every iteration's row written:
 //   * a row is cut into segments of 16 bytes a thread; block b owns one
 //     segment (b % segs) of the rows r with r % rb == b / segs, and runs
 //     their iterations t = r, r + S, r + 2S, ... in increasing t, every
 //     one of them (a row that a later t overwrites included);
-//   * a thread packs the 16 bytes of x under its part of the segment once
-//     (x is the input, loop-invariant) and adds t to each byte (__vadd4)
-//     per iteration, into slot k % D of a ring of D segments in shared
-//     memory (k: the block's iteration count);
-//   * fence.proxy.async and one block barrier, then thread 0 stores the
-//     slot to the row by cp.async.bulk and commits it as a bulk group
-//     (where W % 16 != 0, a segment's unaligned ends, at most 12 bytes
-//     each, go out by plain stores of the threads that build them: a
-//     row's bytes always from the same thread, so in order);
-//     Before that barrier it waits until at most D - 2 groups are pending
-//     (full completion): the slot the next iteration fills has been read,
-//     and a row the block rewrites (its own rows later; the plan keeps
-//     D - 2 below them) has landed before the next write to it goes out.
-// No __threadfence: nothing waits on a row but the row's own next write.
-constexpr int ROW_RING_MAX = 8;
-
-// Wait until at most `pending` bulk groups of this thread are pending.
-__device__ __forceinline__ void bulk_wait(int pending) {
-  switch (pending) {
-    case 0: asm volatile("cp.async.bulk.wait_group 0;" ::: "memory"); break;
-    case 1: asm volatile("cp.async.bulk.wait_group 1;" ::: "memory"); break;
-    case 2: asm volatile("cp.async.bulk.wait_group 2;" ::: "memory"); break;
-    case 3: asm volatile("cp.async.bulk.wait_group 3;" ::: "memory"); break;
-    case 4: asm volatile("cp.async.bulk.wait_group 4;" ::: "memory"); break;
-    case 5: asm volatile("cp.async.bulk.wait_group 5;" ::: "memory"); break;
-    default: asm volatile("cp.async.bulk.wait_group 6;" ::: "memory");
-  }
-}
-
+//   * a thread packs the 16 bytes of x under its part of the segment into
+//     registers once (x is the input, loop-invariant) and adds t to each
+//     byte per iteration (__vadd4), then stores them with one coalesced
+//     16-byte plain store (four 32-bit ones where the row is not 16-byte
+//     aligned, W % 16 != 0);
+//   * no fence and no barrier: a byte of a row is always written by the
+//     same thread, so two writes to it land in program order, and nothing
+//     else waits on a row.  The TPU's DMA start and wait per row thus
+//     become stores that the card keeps in flight by the thousand.
+// On an H100 (80GB HBM3, 700 W) at [1024, 2048]: one block with a
+// __threadfence a row took 0.94 us a row; each row stored from a ring of
+// shared-memory segments by cp.async.bulk on every SM, 0.0024; these
+// stores 0.0007 (PERF.md section 6).
 __global__ void __launch_bounds__(1024)
     row_write_kernel(const int* __restrict__ x, unsigned char* __restrict__ out,
-                     int S, int W, int iters, int rb, int D) {
-  extern __shared__ __align__(16) unsigned char ring[];
+                     int S, int W, int iters, int rb) {
   const int segs = gridDim.x / rb;
   const int cls = blockIdx.x / segs;
-  const int seg_bytes = 16 * blockDim.x;
-  const int c0 = (blockIdx.x % segs) * seg_bytes;
-  const int len = min(seg_bytes, W - c0);  // bytes of each row this block owns
-  const int q = 16 * threadIdx.x;          // this thread's first byte of them
+  const int c0 = (blockIdx.x % segs) * 16 * blockDim.x;
+  const int len = min(16 * (int)blockDim.x, W - c0);  // a row's bytes here
+  const int q = 16 * threadIdx.x;  // this thread's first byte of them
   unsigned xw[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
@@ -243,20 +230,20 @@ __global__ void __launch_bounds__(1024)
       for (int b = 0; b < 4; ++b)
         xw[j] |= (unsigned)(x[c0 + q + 4 * j + b] & 0xFF) << (8 * b);
   }
+  if (q >= len) return;
   for (long long base = 0; base < iters; base += S) {
     for (int r = cls; r < S && base + r < iters; r += rb) {
       const unsigned tt = (unsigned)((base + r) & 0xFF) * 0x01010101u;
-      const long long g = (long long)r * W + c0 + q;
+      unsigned char* p = out + (long long)r * W + c0 + q;
       unsigned v[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) v[j] = __vadd4(xw[j], tt);
-      if ((g & 15) == 0 && q + 16 <= len) {
-        *reinterpret_cast<uint4*>(out + g) = make_uint4(v[0], v[1], v[2], v[3]);
+      if (((unsigned long long)p & 15) == 0 && q + 16 <= len) {
+        *reinterpret_cast<uint4*>(p) = make_uint4(v[0], v[1], v[2], v[3]);
       } else {
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          if (q + 4 * j < len)
-            *reinterpret_cast<unsigned*>(out + g + 4 * j) = v[j];
+          if (q + 4 * j < len) *reinterpret_cast<unsigned*>(p + 4 * j) = v[j];
       }
     }
   }
@@ -935,27 +922,19 @@ extern "C" int mwf_probe_popcount(const int* x, int* out, int n, int iters,
   return (int)cudaGetLastError();
 }
 
-// P1e on the plan (blocks, threads, D) of ops/probes.py::row_write_plan:
+// P1e on the plan (blocks, threads) of ops/probes.py::row_write_plan:
 // segments of 16 * threads bytes, blocks a multiple of the segments a row
-// (rb = blocks / segs row classes, at most S), a ring of D segments with D
-// - 2 below the fewest rows a block owns.
+// and at most S row classes (rb = blocks / segs).
 extern "C" int mwf_probe_row_write(const int* x, unsigned char* out, int S,
                                    int W, int iters, int blocks, int threads,
-                                   int D, void* stream) {
+                                   void* stream) {
   if (S < 1 || W < 4 || W % 4) return (int)cudaErrorInvalidValue;
-  if ((unsigned long long)out % 16) return (int)cudaErrorInvalidValue;
   if (threads < 32 || threads > 1024 || threads % 32 || blocks < 1)
     return (int)cudaErrorInvalidValue;
-  const int seg_bytes = 16 * threads;
-  const int segs = (W + seg_bytes - 1) / seg_bytes;
+  const int segs = (W + 16 * threads - 1) / (16 * threads);
   if (blocks % segs || blocks / segs > S) return (int)cudaErrorInvalidValue;
-  const int rb = blocks / segs;
-  if (D < 2 || D > ROW_RING_MAX || D - 2 >= S / rb)
-    return (int)cudaErrorInvalidValue;
-  const int smem = D * (seg_bytes + 16);
-  if (smem > SMEM_CAP) return (int)cudaErrorInvalidValue;
   row_write_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      x, out, S, W, iters, rb, D);
+      x, out, S, W, iters, blocks / segs);
   return (int)cudaGetLastError();
 }
 

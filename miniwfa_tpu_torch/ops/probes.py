@@ -360,48 +360,29 @@ def bench_popcount(x, iters: int):
 
 # ------------------------------------------------------------ row writes
 
-ROW_RING_MAX = 8    # segments in a row-write block's ring (csrc ROW_RING_MAX)
 MAX_THREADS = 1024  # threads a block
 
 
-def row_write_smem(threads: int, D: int) -> int:
-    """Shared-memory bytes of a row-write block: D ring slots of a segment
-    (16 bytes a thread) and 16 bytes to align a row's unaligned start."""
-    return D * (16 * threads + 16)
-
-
-def row_write_plan(S: int, W: int, sms: int, smem: int) -> Tuple[int, int,
-                                                                 int]:
-    """(blocks, threads, D) of the row write into [S, W] on a card of
-    ``sms`` SMs and ``smem`` bytes of shared memory a block.  A row is cut
-    into segments of 16 bytes a thread (one segment up to W = 16 KB);
-    block b owns segment b % segs of the rows r with r % rb == b // segs
-    (rb = blocks // segs row classes), and keeps a ring of D segments in
-    shared memory.  rb is the fewest classes, at most ``sms // segs`` and
-    S, that give the busiest block no more rows than the most classes
-    would; D the deepest ring, up to ``ROW_RING_MAX``, whose pending bulk
-    groups (D - 2) stay below the fewest rows a block owns (so a row's
-    earlier write has landed before it is rewritten) and whose segments
-    fit ``smem``."""
+def row_write_plan(S: int, W: int, sms: int) -> Tuple[int, int]:
+    """(blocks, threads) of the row write into [S, W] on a card of ``sms``
+    SMs.  A row is cut into segments of 16 bytes a thread (one segment up
+    to W = 16 KB); block b owns segment b % segs of the rows r with r % rb
+    == b // segs (rb = blocks // segs row classes).  rb is the fewest
+    classes, at most ``sms // segs`` and S, that give the busiest block no
+    more rows than the most classes would."""
     quads = -(-W // 16)
     threads = min(MAX_THREADS, 32 * -(-quads // 32))
     segs = -(-quads // threads)
     most = max(1, min(S, sms // segs))
     rb = -(-S // -(-S // most))
-    D = min(ROW_RING_MAX, smem // row_write_smem(threads, 1), S // rb + 1)
-    if D < 2:
-        raise ValueError(f"row write: two segments of {16 * threads} bytes "
-                         f"do not fit {smem} bytes of shared memory")
-    return rb * segs, threads, D
+    return rb * segs, threads
 
 
-def check_row_write_plan(plan, S: int, W: int, smem: int) -> None:
+def check_row_write_plan(plan, S: int, W: int) -> None:
     """Raise ValueError unless the row write takes ``plan`` (the kernel's
     own checks, made before a launch): whole warps up to 1024 threads,
-    blocks a multiple of the segments a row and at most S row classes, a
-    ring of 2 to ``ROW_RING_MAX`` segments within ``smem`` whose pending
-    groups stay below the fewest rows a block owns."""
-    blocks, threads, D = plan
+    blocks a multiple of the segments a row and at most S row classes."""
+    blocks, threads = plan
     if not (32 <= threads <= MAX_THREADS and threads % 32 == 0):
         raise ValueError(f"row write plan {plan}: threads a multiple of 32 "
                          f"up to {MAX_THREADS}")
@@ -409,14 +390,6 @@ def check_row_write_plan(plan, S: int, W: int, smem: int) -> None:
     if blocks < 1 or blocks % segs or blocks // segs > S:
         raise ValueError(f"row write plan {plan}: blocks a multiple of the "
                          f"{segs} segments a row, at most {S} row classes")
-    rb = blocks // segs
-    if not 2 <= D <= ROW_RING_MAX or D - 2 >= S // rb:
-        raise ValueError(f"row write plan {plan}: D in [2, {ROW_RING_MAX}], "
-                         f"D - 2 below the {S // rb} rows a block owns")
-    if row_write_smem(threads, D) > smem:
-        raise ValueError(f"row write plan {plan}: "
-                         f"{row_write_smem(threads, D)} bytes of shared "
-                         f"memory past {smem}")
 
 
 def bench_hbm_row_write_plain(x, S: int, iters: int):
@@ -431,10 +404,11 @@ def bench_hbm_row_write(x, S: int, iters: int):
     """P1e. ``tools/microbench_mosaic.py:134`` ``bench_hbm_row_write``
     (pallas_call :148): iteration t writes ``uint8(x + t)`` (x [1, W])
     into row ``t % S`` of a uint8 [S, W] output; rows no t reaches stay 0.
-    On the card every SM writes rows (``row_write_plan``): a block builds
-    each of its rows' iterations in a ring of segments in shared memory
-    and stores it by one bulk copy (the TPU's DMA start), waiting on the
-    copy engine only before a ring slot or a row is reused (its wait)."""
+    On the card every SM writes rows (``row_write_plan``): a block runs
+    every iteration of its rows in order, 16 bytes a thread by one plain
+    store, with no fence and no barrier (the TPU's DMA start and wait per
+    row become stores kept in flight; a byte of a row is always written
+    by the same thread, so its writes land in order)."""
     dev = _device(x)
     if dev.type == "cpu":
         return bench_hbm_row_write_plain(x, S, iters)
@@ -448,10 +422,10 @@ def _row_write(x, S: int, iters: int, plan=None) -> torch.Tensor:
     W = x.shape[-1]
     if plan is None:
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        plan = row_write_plan(S, W, sms, SMEM_OPTIN)
-    check_row_write_plan(plan, S, W, SMEM_OPTIN)
+        plan = row_write_plan(S, W, sms)
+    check_row_write_plan(plan, S, W)
     out = torch.zeros((S, W), dtype=torch.uint8, device=dev)
-    _launch(bench_hbm_row_write, dev, "row_write", [_P, _P] + [_I] * 6,
+    _launch(bench_hbm_row_write, dev, "row_write", [_P, _P] + [_I] * 5,
             x.data_ptr(), out.data_ptr(), S, W, iters, *plan)
     return out
 

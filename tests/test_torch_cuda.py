@@ -480,14 +480,14 @@ def test_probe_row_write_matches_plain(dev, S, iters, W):
 
 
 @pytest.mark.parametrize("S,W,iters,plan", [
-    (1024, 2048, 2500, (1, 128, 8)),      # one block writes every row
-    (1024, 2048, 2500, (128, 128, 2)),    # the shallowest ring
-    (64, 2048, 200, (32, 64, 3)),         # 2 segments a row, 16 classes
-    (7, 40000, 40, (21, 1024, 2)),        # 3 segments, the last partial
-    (3, 40000, 10, (3, 1024, 3))])        # 3 rows in one class
+    (1024, 2048, 2500, (1, 128)),     # one block writes every row
+    (1024, 2048, 2500, (1024, 32)),   # a block a row, 4 segments a row
+    (64, 2052, 200, (40, 32)),        # 5 segments, the last one word
+    (7, 40000, 40, (21, 1024)),       # 3 segments, the last partial
+    (3, 40000, 10, (3, 1024))])       # 3 rows in one class
 def test_probe_row_write_at_forced_plans(dev, S, W, iters, plan):
-    """P1e at plans with one block, the shallowest ring, several segments
-    a row and a partial last segment, against the plain version."""
+    """P1e at plans with one block, a block a row, several segments a row
+    and a partial last segment, against the plain version."""
     rng = np.random.default_rng(W)
     x = torch.from_numpy(rng.integers(0, 1 << 20, (1, W), dtype=np.int32))
     got = pb._row_write(x.to(dev), S, iters, plan)
@@ -500,9 +500,9 @@ def test_probe_while_and_row_write_refuse_bad_plans(dev, monkeypatch):
     x = torch.zeros((8, 2048), dtype=torch.int32, device=dev)
     xr = torch.zeros((1, 2048), dtype=torch.int32, device=dev)
     bad_while = [(128, 32, 8), (127, 32, 4), (128, 48, 4)]
-    bad_rows = [(64, 2048, 200, (32, 64, 6)),   # D - 2 not below 4 rows
-                (1024, 2048, 3, (128, 128, 9)),
-                (1024, 2048, 3, (2048, 128, 2))]
+    bad_rows = [(64, 2048, 200, (33, 64)),   # 2 segments a row
+                (1024, 2048, 3, (128, 48)),
+                (1024, 2048, 3, (2048, 128))]   # more classes than rows
     for plan in bad_while:
         with pytest.raises(ValueError):
             pb._while(x, 3, True, plan)

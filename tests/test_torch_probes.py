@@ -504,7 +504,7 @@ def test_while_plan_owns_every_element_once(n, sms):
 def _row_owned(plan, S, W):
     """(row, first byte, bytes) of every row segment each block of the row
     write owns, by the index math of csrc/probes.cu row_write_kernel."""
-    blocks, threads, _ = plan
+    blocks, threads = plan
     seg = 16 * threads
     segs = -(-W // seg)
     rb = blocks // segs
@@ -514,72 +514,69 @@ def _row_owned(plan, S, W):
 
 def _row_write_schedule(plan, S, W, iters):
     """Each block's iterations t in the kernel's order."""
-    blocks, threads, _ = plan
-    rb = blocks // -(-W // (16 * threads))
-    out = []
-    for b in range(blocks):
-        cls = b // (blocks // rb)
-        out.append([base + r for base in range(0, iters, S)
-                    for r in range(cls, S, rb) if base + r < iters])
-    return out
+    blocks, threads = plan
+    segs = -(-W // (16 * threads))
+    rb = blocks // segs
+    return [[base + r for base in range(0, iters, S)
+             for r in range(b // segs, S, rb) if base + r < iters]
+            for b in range(blocks)]
 
 
 @pytest.mark.parametrize("S", [1, 7, 1024, 1025])
 @pytest.mark.parametrize("W", [2048, 2052, 40000])
 @pytest.mark.parametrize("sms", [1, 132])
 def test_row_write_plan_owns_every_row_once(S, W, sms):
-    plan = pb.row_write_plan(S, W, sms, pb.SMEM_OPTIN)
-    pb.check_row_write_plan(plan, S, W, pb.SMEM_OPTIN)
-    blocks, threads, D = plan
+    plan = pb.row_write_plan(S, W, sms)
+    pb.check_row_write_plan(plan, S, W)
+    blocks, threads = plan
     owned = _row_owned(plan, S, W)
     assert len(owned) == blocks and min(len(o) for o in owned) >= 1
     cover = np.zeros((S, W), np.int32)
     for segs in owned:
         for r, c0, n in segs:
+            assert n <= 16 * threads   # 16 bytes a thread cover a segment
             cover[r, c0:c0 + n] += 1
     assert (cover == 1).all()
-    # the pending bulk groups at a rewrite (D - 2) stay below the rows each
-    # block owns; its ring within the budget
-    assert D - 2 < min(len(o) for o in owned)
-    assert pb.row_write_smem(threads, D) <= pb.SMEM_OPTIN
+    # the busiest block owns as few rows as the card's SMs allow
+    segs = -(-W // (16 * threads))
+    most = max(1, min(S, sms // segs))
+    assert max(len(o) for o in owned) == -(-S // most)
 
 
 @pytest.mark.parametrize("S,iters", [(1, 9), (7, 40), (8, 29), (1025, 2600)])
-def test_row_write_ring_never_overtakes_a_row(S, iters):
-    """Simulate each block's iterations: a row is rewritten only after D -
-    1 of the block's own iterations, so the kernel's wait (at most D - 2
-    groups pending) has seen its earlier write land; every t runs once."""
-    plan = pb.row_write_plan(S, 2048, 132, pb.SMEM_OPTIN)
-    D = plan[2]
+def test_row_write_schedule_runs_every_iteration_in_order(S, iters):
+    """Simulate each block's iterations: every t runs once, each block's
+    in increasing t, and a row's iterations all in one block, so a byte's
+    writes come from one thread in program order (the later lands last)."""
+    plan = pb.row_write_plan(S, 2048, 132)
     sched = _row_write_schedule(plan, S, 2048, iters)
     assert sorted(t for ts in sched for t in ts) == list(range(iters))
-    for ts in sched:
+    rows = {}
+    for b, ts in enumerate(sched):
         assert ts == sorted(ts)
-        last = {}
-        for k, t in enumerate(ts):
-            if t % S in last:
-                assert k - last[t % S] >= D - 1
-            last[t % S] = k
+        for t in ts:
+            assert rows.setdefault(t % S, b) == b
 
 
-@pytest.mark.parametrize("smem", [pb.SMEM_OPTIN, 48 * 1024, 4096])
-def test_row_write_plan_stays_in_its_budget(smem):
-    for S, W in [(1024, 2048), (1025, 2052), (8, 40000), (3, 1 << 20)]:
-        threads = pb.row_write_plan(S, W, 132, pb.SMEM_OPTIN)[1]
-        if pb.row_write_smem(threads, 2) > smem:
-            with pytest.raises(ValueError):
-                pb.row_write_plan(S, W, 132, smem)
-            continue
-        plan = pb.row_write_plan(S, W, 132, smem)
-        pb.check_row_write_plan(plan, S, W, smem)
-        assert pb.row_write_smem(plan[1], plan[2]) <= smem
+@pytest.mark.parametrize("sms", [1, 8, 132])
+def test_row_write_plan_stays_on_the_card(sms):
+    """Blocks of whole warps up to 1024 threads, no more blocks than SMs
+    where the rows allow, at any W the kernel takes (1 MB rows: 64
+    segments of 16 KB)."""
+    for S, W in [(1024, 2048), (1025, 2052), (8, 40000), (3, 1 << 20),
+                 (1, 4)]:
+        blocks, threads = pb.row_write_plan(S, W, sms)
+        assert 32 <= threads <= 1024 and threads % 32 == 0
+        segs = -(-W // (16 * threads))
+        assert blocks <= max(sms, segs)
+        pb.check_row_write_plan((blocks, threads), S, W)
 
 
 def test_probe_plans_fill_the_card():
     """The tool's shapes on every SM of an H100: P1f [8, 2048] on 128
     blocks of a warp, P1e [1024, 2048] on 128 blocks of 8 rows each."""
     assert pb.while_plan(8 * 2048, 132) == (128, 32, 4)
-    assert pb.row_write_plan(1024, 2048, 132, pb.SMEM_OPTIN) == (128, 128, 8)
+    assert pb.row_write_plan(1024, 2048, 132) == (128, 128)
 
 
 def test_while_and_row_write_plan_checks_refuse_bad_plans():
@@ -588,17 +585,12 @@ def test_while_and_row_write_plan_checks_refuse_bad_plans():
                 (1, 2048, 4)]:
         with pytest.raises(ValueError):
             pb.check_while_plan(bad, 16384)
-    pb.check_row_write_plan((128, 128, 8), 1024, 2048, pb.SMEM_OPTIN)
-    for bad in [(128, 48, 8), (128, 128, 1), (128, 128, 9),
-                (128, 128, 10), (2048, 128, 2), (0, 128, 2)]:
+    pb.check_row_write_plan((128, 128), 1024, 2048)
+    for bad in [(128, 48), (128, 2048), (2048, 128), (0, 128)]:
         with pytest.raises(ValueError):
-            pb.check_row_write_plan(bad, 1024, 2048, pb.SMEM_OPTIN)
-    # 3 segments a row: blocks a multiple of 3; 8 rows on 4 classes:
-    # D - 2 below 2
-    with pytest.raises(ValueError):
-        pb.check_row_write_plan((4, 32, 2), 8, 1500, pb.SMEM_OPTIN)
-    with pytest.raises(ValueError):
-        pb.check_row_write_plan((12, 32, 4), 8, 1500, pb.SMEM_OPTIN)
-    pb.check_row_write_plan((12, 32, 3), 8, 1500, pb.SMEM_OPTIN)
-    with pytest.raises(ValueError):   # 8 segments of 16 KB: 128 KB
-        pb.check_row_write_plan((128, 1024, 8), 1024, 1 << 20, 100_000)
+            pb.check_row_write_plan(bad, 1024, 2048)
+    # 3 segments a row: blocks a multiple of 3, at most 8 row classes
+    for bad in [(4, 32), (27, 32)]:
+        with pytest.raises(ValueError):
+            pb.check_row_write_plan(bad, 8, 1500)
+    pb.check_row_write_plan((24, 32), 8, 1500)
