@@ -209,10 +209,10 @@ __global__ void popcount_kernel(const int* __restrict__ x,
 //     same thread, so two writes to it land in program order, and nothing
 //     else waits on a row.  The TPU's DMA start and wait per row thus
 //     become stores that the card keeps in flight by the thousand.
-// On an H100 (80GB HBM3, 700 W) at [1024, 2048]: one block with a
-// __threadfence a row took 0.94 us a row; each row stored from a ring of
-// shared-memory segments by cp.async.bulk on every SM, 0.0024; these
-// stores 0.0007 (PERF.md section 6).
+// Why not the copy engine: a cp.async.bulk of each row from a ring of
+// shared-memory segments ran 3.4x slower on an H100 (PERF.md section 6),
+// since bulk copies are unordered among themselves and each had to
+// complete before its row was rewritten, behind a block barrier a row.
 __global__ void __launch_bounds__(1024)
     row_write_kernel(const int* __restrict__ x, unsigned char* __restrict__ out,
                      int S, int W, int iters, int rb) {

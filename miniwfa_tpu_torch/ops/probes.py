@@ -107,6 +107,10 @@ def _launch(wrapper, dev: torch.device, fn: str, argtypes, *args) -> None:
     wrapper.launches += 1
 
 
+def _sms(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def _counted(fn):
     fn.launches = 0
     return fn
@@ -199,8 +203,7 @@ def _gather2d(wrapper, tab, idx, axis: int, iters: int, chain: bool,
         plan = (0, 0, 0)  # one gather takes no plan
     else:
         if plan is None:
-            sms = torch.cuda.get_device_properties(dev).multi_processor_count
-            plan = gather_plan(Rt, Mt, Ri, Mi, axis, sms, SMEM_OPTIN)
+            plan = gather_plan(Rt, Mt, Ri, Mi, axis, _sms(dev), SMEM_OPTIN)
         check_gather_plan(plan, Rt, Mt, axis, SMEM_OPTIN)
     out = torch.zeros(idx.shape, dtype=torch.int32, device=dev)
     _launch(wrapper, dev, "gather", [_P, _I, _I, _P, _I, _I, _P] + [_I] * 8,
@@ -421,8 +424,7 @@ def _row_write(x, S: int, iters: int, plan=None) -> torch.Tensor:
     dev = x.device
     W = x.shape[-1]
     if plan is None:
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        plan = row_write_plan(S, W, sms)
+        plan = row_write_plan(S, W, _sms(dev))
     check_row_write_plan(plan, S, W)
     out = torch.zeros((S, W), dtype=torch.uint8, device=dev)
     _launch(bench_hbm_row_write, dev, "row_write", [_P, _P] + [_I] * 5,
@@ -487,8 +489,7 @@ def _while(x, iters: int, sync: bool, plan=None) -> torch.Tensor:
     the card."""
     dev = x.device
     if plan is None:
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        plan = while_plan(x.numel(), sms)
+        plan = while_plan(x.numel(), _sms(dev))
     check_while_plan(plan, x.numel())
     out = torch.zeros_like(x)
     _launch(bench_while_scalar, dev, "while", [_P, _P] + [_I] * 6,
