@@ -23,18 +23,20 @@
 //     per iteration, as the TPU's VMEM round trip is; the row write
 //     builds and stores every iteration's row, rewritten ones included;
 //   * tables a TPU tile keeps in VMEM sit in shared memory when they fit
-//     (a gather loop's table rows or column strip, one [G, R, L] multi
-//     tile of 128-144 KB, with the kernel opted in past 48 KB); P5's 13
-//     planes stay on chip across a thread-block cluster, each CTA holding
-//     its lanes' rows; larger tables stay in global memory (the [512, 128]
-//     sublane table, the 3-slot multi rings);
+//     (a gather loop's table rows or column strip, the multi probes' ring
+//     slots and registry, with the kernel opted in past 48 KB once per
+//     kernel, card and size); P5's 13 planes stay on chip across a
+//     thread-block cluster, each CTA holding its lanes' rows; larger
+//     tables stay in global memory (the [512, 128] sublane table);
 //   * the loops that ran on one block use the whole card: a gather
 //     loop's elements spread over >= 132 blocks where there are enough of
 //     them, several chains a thread; P5's chunks side by side over the
 //     cluster, one cluster barrier a round of chunks; the while loop's
 //     state over 128 blocks of one warp (16 bytes a thread in each
 //     block's shared memory); the row write's rows over 128 blocks, 16
-//     bytes a thread a row by plain stores with no fence;
+//     bytes a thread a row by plain stores with no fence; the multi
+//     probes' lanes over CTAs of their own, each holding its words in
+//     registers, the lanes of a cross-lane probe in one cluster;
 //   * dynamic slices clamp their start into range, as the reference's
 //     interpret mode does (lax.dynamic_slice / dynamic_update_slice).
 
@@ -50,12 +52,23 @@ namespace {
 
 constexpr int SMEM_DEFAULT = 48 * 1024;
 constexpr int SMEM_CAP = 232448;  // shared memory one block may use
+constexpr int MAX_DEVICES = 64;
 
-inline cudaError_t opt_in(const void* fn, int bytes) {
+// Opt `fn` in to `bytes` of dynamic shared memory past 48 KB.  The call
+// is made once per kernel, card and size: `cache` (one per kernel, a
+// host-side flag per card) keeps the largest size set on each card, and a
+// launch within it pays no cudaFuncSetAttribute.  Its error is returned.
+inline cudaError_t opt_in(const void* fn, int bytes, int* cache) {
   if (bytes > SMEM_CAP) return cudaErrorInvalidValue;
   if (bytes <= SMEM_DEFAULT) return cudaSuccess;
-  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              bytes);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < MAX_DEVICES && cache[dev] >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess && dev < MAX_DEVICES) cache[dev] = bytes;
+  return err;
 }
 
 __device__ __forceinline__ int floor_mod(int a, int m) {
@@ -299,30 +312,79 @@ __global__ void __launch_bounds__(1024)
 // ----------------------------------------------------- mosaic3 (P4b-e)
 // P4b dynamic roll: acc = roll(acc, acc[0, 0] & 0xFF, axis 1) + 1, with
 // out[i] = acc[(i - sh) mod M] (pltpu.roll's direction in the reference's
-// interpret mode, the shift taken mod M).  Double buffer in shared memory,
-// a block barrier per iteration: every element depends on acc[0, 0].
-__global__ void roll_kernel(const int* __restrict__ x, int* __restrict__ out,
-                            int R, int M, int iters) {
+// interpret mode, the shift taken mod M).  One CTA: every element of a
+// round depends on acc[0, 0] of the round before, so a grid or cluster
+// barrier a round (~1 us) would cost more than the round.  Inside it, on
+// the plan (threads, PER) of ops/probes.py::roll_plan:
+//   * thread t owns elements e = t + k * threads (k < PER), so a warp's
+//     loads and stores hit 32 consecutive words, conflict-free (a thread
+//     owning 4 consecutive destinations would store them by one v4 store,
+//     but its 4 loads would then fall 4-way on the same banks: shared
+//     memory's 128 bytes a clock bound a round, 16 KB at [8, 256]);
+//   * SAME_COL (threads a multiple of M, the plan's choice wherever M <=
+//     1024): a thread's elements share one column, computed once before
+//     the loop, so a round reads the shift once (a broadcast of acc[0, 0]),
+//     reduces it mod M by a multiply-high (no division: sh < 256), turns
+//     it into one source offset d = sh - (col < sh ? M : 0), and each
+//     element is a shared load at e - d, an add and a store; otherwise
+//     (M > 1024) each element's column steps on from the one before by
+//     threads mod M, a compare and subtract, no division;
+//   * a thread issues its loads of a round, up to ROLL_CHUNK (8) at a
+//     time, before their first store (nvcc cannot tell the two halves of
+//     the buffer apart, and would otherwise keep each load behind the
+//     store before it: ~100 clocks an element at 8 a thread); the plan's
+//     4 a thread at 512 threads measured fastest on an H100 (PERF.md);
+//   * double buffer (offsets into one shared array, so every access is a
+//     shared-memory one), one barrier a round.  Every round rolls the whole
+//     tile: the loop is not folded into a shift sum and one gather.
+constexpr int ROLL_CHUNK = 8;  // loads a thread issues before its stores
+
+template <int PER, bool SAME_COL>
+__global__ void __launch_bounds__(1024)
+    roll_kernel(const int* __restrict__ x, int* __restrict__ out, int R,
+                int M, int iters) {
   extern __shared__ int buf[];
-  const int n = R * M;
-  int* a = buf;
-  int* b = buf + n;
-  for (int e = threadIdx.x; e < n; e += blockDim.x) a[e] = x[e];
+  const int n = R * M, T = blockDim.x, tid = threadIdx.x;
+  const int col0 = tid % M, step = T % M;
+#pragma unroll
+  for (int k = 0; k < PER; ++k)
+    if (tid + k * T < n) buf[tid + k * T] = x[tid + k * T];
+  // ceil(2^32 / M): __umulhi(v, magic) is v / M for v < 256 and M < 2^24
+  const unsigned magic = M > 1 ? (unsigned)(0xFFFFFFFFull / M + 1) : 0u;
+  int src = 0;  // the round's source half of buf (0 or n)
   __syncthreads();
   for (int it = 0; it < iters; ++it) {
-    const int sh = (a[0] & 0xFF) % M;
-    for (int e = threadIdx.x; e < n; e += blockDim.x) {
-      const int r = e / M, i = e % M;
-      int src = i - sh;
-      if (src < 0) src += M;
-      b[e] = a[r * M + src] + 1;
+    const unsigned v = (unsigned)buf[src] & 0xFFu;
+    const int sh = M > 1 ? (int)(v - __umulhi(v, magic) * (unsigned)M) : 0;
+    const int* a = buf + src;
+    int* b = buf + (n - src);
+    const int d = sh - (col0 < sh ? M : 0);  // SAME_COL's source offset
+    int col = col0;
+#pragma unroll
+    for (int k0 = 0; k0 < PER; k0 += ROLL_CHUNK) {
+      constexpr int CH = PER < ROLL_CHUNK ? PER : ROLL_CHUNK;
+      int got[CH];  // a chunk's loads, all before its first store
+#pragma unroll
+      for (int k = 0; k < CH; ++k) {
+        const int e = tid + (k0 + k) * T;
+        if (SAME_COL) {
+          if (e < n) got[k] = a[e - d];
+        } else {
+          if (e < n) got[k] = a[e - sh + (col < sh ? M : 0)];
+          col += step;
+          if (col >= M) col -= M;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < CH; ++k)
+        if (tid + (k0 + k) * T < n) b[tid + (k0 + k) * T] = got[k] + 1;
     }
     __syncthreads();
-    int* t = a;
-    a = b;
-    b = t;
+    src = n - src;
   }
-  for (int e = threadIdx.x; e < n; e += blockDim.x) out[e] = a[e];
+#pragma unroll
+  for (int k = 0; k < PER; ++k)
+    if (tid + k * T < n) out[tid + k * T] = buf[src + tid + k * T];
 }
 
 // P4c dynamic lane slice: acc[128] += tab[s[n] : s[n] + 128] from a [1, NW]
@@ -423,7 +485,8 @@ inline long long chunk_words(int WR, int C) {
 }
 
 // The round barrier: every thread of the cluster, whole warps; no memory
-// ordering (the exchange has its own, on mbarriers)
+// ordering (the exchange has its own, on mbarriers).  The multi probes use
+// its wait too.
 __device__ __forceinline__ void cluster_arrive() {
   __syncwarp();
   asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
@@ -612,11 +675,42 @@ __global__ void __launch_bounds__(CHUNK_MAX_THREADS)
 }
 
 // ----------------------------------------------------- multi probes (P6-P8)
-// K4's lowering questions on x [G, R, L]: one 512-thread block of G groups
-// of 512 / G threads, group g owning lane g with its own named barrier
-// (bar.sync 1 + g), as K4 does.  The group's x tile sits in dynamic shared
-// memory (RX rows: R, or R + 8 for the ring probes' padded input); the
-// 3-slot rings [3, G, R + 8, L] are global memory.
+// K4's lowering questions on x [G, RX, L] (RX = R + 8 for the ring probes'
+// padded input), out [G, R, L].  What bounds them: each moves its tile in
+// and out once (64 KB at the tools' [4, 64, 128]), 0.08 us at 3.35 TB/s,
+// so a launch is its fixed cost, one round trip for the lane's tile, and
+// the barriers its reductions need.  The design, on the plan (C, threads,
+// nv) of ops/probes_multi.py::multi_plan:
+//   * the lanes spread over CTAs: lane g is CTAs g * C .. g * C + C - 1,
+//     CTA c holding words [c * span, c * span + span) of the lane's domain
+//     (R * L words; the padded tile for RING4), span = C's share rounded up
+//     to 4 words.  A probe with no lane reduction takes as many CTAs a lane
+//     as the card's SMs allow (at least 1024 words each); one with a
+//     reduction within its lane the fewest that hold the lane, on few full
+//     warps (each warp costs its barrier); the two that span the lanes as
+//     many as one cluster of 8 allows (measured on an H100, PERF.md);
+//   * no staging: thread t holds vectors k < nv, words c0 + 4 (t + k
+//     threads) .. + 3, in registers, loaded by 16-byte loads all issued
+//     before the first use (4 scalar loads where the lane is not 16-byte
+//     aligned or a vector runs past the CTA's words: L % 4 != 0 takes
+//     that tail); SUB's rows 16..23 and SHIFT3's left neighbour at a warp's
+//     edge (one word, read from global memory with the rest, where a
+//     shared-memory step would cost a barrier) are loaded with them;
+//   * a reduction within a lane is a warp `redux`, one shared-memory step
+//     and one CTA barrier; where a lane spans C > 1 CTAs they are one
+//     thread-block cluster and exchange their partials through distributed
+//     shared memory, one cluster barrier each;
+//   * MAX_MIN and WHILE_G11 span the lanes: all G * C CTAs are one cluster
+//     (at most 8, a portable size), and every CTA reads every CTA's
+//     partial after one cluster barrier a reduction (a round of the while
+//     loop, its exit tested on every lane's flag each round);
+//   * the rings stay on chip, as the TPU keeps them in VMEM: a CTA's share
+//     of the [3, RX, L] ring in its shared memory, [3][span]; the five
+//     writes stay writes (volatile 16-byte stores); each thread then reads
+//     slot 1 back where it wrote it, so no barrier is needed (RING4's out
+//     row r is padded row r + 8: the thread holding that word stores it);
+//   * REGISTRY: each CTA writes its own [3, 8, L] registry copy (its lane's
+//     row and rows G..7, five times), since only reg[1][g][0] is read.
 enum MultiProbe {
   LANE_MASK,    // P6c lane_mask
   SHIFT3,       // P6d shift3
@@ -635,196 +729,391 @@ enum MultiProbe {
   N_MULTI
 };
 
-constexpr int MULTI_THREADS = 512;
-constexpr int SR = 8;  // multi3's sub-window rows
+constexpr int SR = 8;            // multi3's sub-window rows
+constexpr int MULTI_VECS = 4;    // int4 vectors a thread holds, at most
+constexpr int MULTI_CLUSTER = 8;  // CTAs a cluster, at most (portable)
+constexpr int NEG30 = -(1 << 30);
+
+constexpr bool multi_reduces(int P) {
+  return P == LANE_MASK || P == MIN_MASK || P == MAX_OUT || P == ANY_MASK ||
+         P == STACK || P == REGISTRY || P == MAX_MIN || P == WHILE_G11;
+}
+constexpr bool multi_cross(int P) { return P == MAX_MIN || P == WHILE_G11; }
 
 struct MultiParams {
   const int* x;    // [G, RX, L]
-  const int* aux;  // BND: [8, L] bound plane; ADD_SCALAR: [G] scalars
+  const int* aux;  // BND: [>= G, L] bound plane; ADD_SCALAR: [G] scalars
   int* out;        // [G, R, L]
   int* s_out;      // LANE_MASK, MAX_OUT: [G]; MAX_MIN: [G + 1]
-  int* ring;       // RING4, RING_WRITE: [3, G, R + 8, L]
   int G, R, L, RX;
+  int C, span, nv, cl;  // CTAs a lane, words a CTA, vectors a thread,
+                        // cluster size
 };
 
-__device__ __forceinline__ void group_sync(int g, int tpg) {
-  asm volatile("bar.sync %0, %1;" ::"r"(g + 1), "r"(tpg) : "memory");
-}
+// The shared memory a multi kernel declares itself (red, part)
+constexpr int MULTI_STATIC_SMEM = (2 * 32 + 2) * (int)sizeof(int);
 
 struct MinOp {
+  static constexpr int id = INT_MAX;
   __device__ int operator()(int a, int b) const { return min(a, b); }
+  __device__ int warp(int v) const { return __reduce_min_sync(~0u, v); }
 };
 struct MaxOp {
+  static constexpr int id = INT_MIN;
   __device__ int operator()(int a, int b) const { return max(a, b); }
+  __device__ int warp(int v) const { return __reduce_max_sync(~0u, v); }
 };
 struct SumOp {
+  static constexpr int id = 0;
   __device__ int operator()(int a, int b) const { return a + b; }
+  __device__ int warp(int v) const { return __reduce_add_sync(~0u, v); }
 };
 
-// Reduce v over the group's threads; every thread of the group gets it.
-template <class Op>
-__device__ int group_reduce(int v, Op op, int* red, int g, int lt, int tpg) {
-  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, o));
-  if ((lt & 31) == 0) red[g * 16 + lt / 32] = v;
-  group_sync(g, tpg);
-  int r = red[g * 16];
-  for (int w = 1; w < tpg / 32; ++w) r = op(r, red[g * 16 + w]);
-  group_sync(g, tpg);  // red is reused by the next reduction
+__device__ __forceinline__ int word(const int4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ int4 add4(int4 v, int s) {
+  return make_int4(v.x + s, v.y + s, v.z + s, v.w + s);
+}
+
+// Words w..w+3 of p, those at lim or past it 0: one 16-byte load where
+// `vec` (p 16-byte aligned; w is a multiple of 4) and all four lie below
+// lim, else scalar loads.
+__device__ __forceinline__ int4 ld4(const int* p, int w, int lim, bool vec) {
+  if (vec && w + 4 <= lim) return __ldg(reinterpret_cast<const int4*>(p + w));
+  int4 r = make_int4(0, 0, 0, 0);
+  if (w < lim) r.x = __ldg(p + w);
+  if (w + 1 < lim) r.y = __ldg(p + w + 1);
+  if (w + 2 < lim) r.z = __ldg(p + w + 2);
+  if (w + 3 < lim) r.w = __ldg(p + w + 3);
   return r;
 }
 
-template <int P>
-__global__ void __launch_bounds__(MULTI_THREADS) multi_kernel(MultiParams p) {
-  extern __shared__ int sm[];
-  const int G = p.G, R = p.R, L = p.L, RX = p.RX;
-  const int tpg = MULTI_THREADS / G;
-  const int g = threadIdx.x / tpg, lt = threadIdx.x % tpg;
-  int* xs = sm;                           // [G, RX, L]
-  int* red = xs + G * RX * L;             // [8, 16] warp partials
-  int* lane_val = red + 8 * 16;           // [8] one value per lane
-  int* reg = lane_val + 8;                // REGISTRY: [3, 8, L]
-  const int* xg = xs + g * RX * L;
-  int* og = p.out + (long long)g * R * L;
-  const int n = R * L;
-  for (int e = lt; e < RX * L; e += tpg) xs[g * RX * L + e] = p.x[g * RX * L + e];
-  group_sync(g, tpg);
+// Store the words of v below lim at p[w..w+3], as ld4 loads them.
+__device__ __forceinline__ void st4(int* p, int w, int lim, bool vec,
+                                    int4 v) {
+  if (vec && w + 4 <= lim) {
+    *reinterpret_cast<int4*>(p + w) = v;
+    return;
+  }
+  if (w < lim) p[w] = v.x;
+  if (w + 1 < lim) p[w + 1] = v.y;
+  if (w + 2 < lim) p[w + 2] = v.z;
+  if (w + 3 < lim) p[w + 3] = v.w;
+}
 
-  if (P == LANE_MASK || P == MIN_MASK || P == STACK || P == REGISTRY) {
-    int lo = INT_MAX;
-    for (int e = lt; e < n; e += tpg) lo = min(lo, xg[e]);
-    lo = group_reduce(lo, MinOp(), red, g, lt, tpg);
-    if (P == LANE_MASK || P == MIN_MASK) {
-      int m = -(1 << 30);
-      for (int e = lt; e < n; e += tpg) {
-        const int v = xg[e];
-        const bool keep = v >= lo + 5;
-        og[e] = keep ? v : -1;
-        m = max(m, keep ? v : -(1 << 30));
-      }
-      if (P == LANE_MASK) {
-        m = group_reduce(m, MaxOp(), red, g, lt, tpg);
-        if (lt == 0) p.s_out[g] = m;
-      }
-    } else if (P == STACK) {
-      const int a = clampi(floor_mod(lo, R - SR), 0, R - SR);
-      for (int e = lt; e < n; e += tpg) {
-        const int r = e / L;
-        og[e] = (r >= a && r < a + SR) ? xg[e] * 2 : xg[e];
-      }
-    } else {  // REGISTRY
-      for (int j = 0; j < 5; ++j) {
-        int* slot = reg + (j % 3) * 8 * L;
-        for (int l = lt; l < L; l += tpg) {
-          slot[g * L + l] = lo + j;
-          if (g == 0)
-            for (int r = G; r < 8; ++r) slot[r * L + l] = j;
-        }
-      }
-      group_sync(g, tpg);
-      const int got = reg[1 * 8 * L + g * L];
-      for (int e = lt; e < n; e += tpg) og[e] = xg[e] + got;
-    }
-  } else if (P == MAX_OUT || P == MAX_MIN) {
-    int m = INT_MIN;
-    for (int e = lt; e < n; e += tpg) {
-      m = max(m, xg[e]);
-      og[e] = xg[e];
-    }
-    m = group_reduce(m, MaxOp(), red, g, lt, tpg);
-    if (lt == 0) {
-      p.s_out[g] = m;
-      lane_val[g] = m;
-    }
-    if (P == MAX_MIN) {
-      __syncthreads();
-      if (threadIdx.x == 0) {
-        int lo = lane_val[0];
-        for (int k = 1; k < G; ++k) lo = min(lo, lane_val[k]);
-        p.s_out[G] = lo;
-      }
-    }
-  } else if (P == ANY_MASK) {
-    int any = 0;
-    for (int e = lt; e < n; e += tpg) any = max(any, xg[e] > 50 ? 1 : 0);
-    any = group_reduce(any, MaxOp(), red, g, lt, tpg);
-    for (int e = lt; e < n; e += tpg) og[e] = any > 0 ? xg[e] : 0;
-  } else if (P == SHIFT3) {
-    for (int e = lt; e < n; e += tpg) {
-      const int r = e / L, l = e % L;
-      og[e] = l > 0 ? xg[e - 1] : (r > 0 ? xg[(r - 1) * L + L - 1] : -9);
-    }
-  } else if (P == RING4 || P == RING_WRITE) {
-    // RING4 writes the whole padded tile into slot j % 3; RING_WRITE rows
-    // 0..R-1 of it at rows 8..8+R of the slot.  Both read slot 1's rows
-    // 8..8+R after the fifth write.
-    const long long slot_sz = (long long)G * RX * L;
-    int* lane_ring = p.ring + (long long)g * RX * L;
-    for (int j = 0; j < 5; ++j) {
-      int* dst = lane_ring + (j % 3) * slot_sz;
-      if (P == RING4) {
-        for (int e = lt; e < RX * L; e += tpg) dst[e] = xg[e] + j;
-      } else {
-        for (int e = lt; e < n; e += tpg) dst[8 * L + e] = xg[e] + j;
-      }
-    }
-    group_sync(g, tpg);
-    for (int e = lt; e < n; e += tpg) og[e] = lane_ring[slot_sz + 8 * L + e];
-  } else if (P == BND) {
-    const int bl = p.aux[g * L];
-    for (int e = lt; e < n; e += tpg) og[e] = xg[e] >= bl ? xg[e] : -3;
-  } else if (P == SUB) {
-    for (int e = lt; e < n; e += tpg) {
-      const int r = e / L, l = e % L;
-      og[e] = r < 8 ? xg[(16 + r) * L + l] * 2 : xg[e];
-    }
-  } else if (P == ADD_SCALAR) {
-    const int s = p.aux[g];
-    for (int e = lt; e < n; e += tpg) og[e] = xg[e] + s;
-  } else if (P == WHILE_G11) {
-    // while t < 16 and not every lane done: the condition spans the lanes,
-    // so it takes two block barriers per round.
-    int t = 0, done = 0, acc = 0;
-    while (true) {
-      if (lt == 0) lane_val[g] = done;
-      __syncthreads();
-      int all = lane_val[0];
-      for (int k = 1; k < G; ++k) all = min(all, lane_val[k]);
-      __syncthreads();
-      if (!(t < 16 && all == 0)) break;
-      int cnt = 0;
-      for (int e = lt; e < n; e += tpg) cnt += floor_mod(xg[e] + t, 7) == 0;
-      acc += group_reduce(cnt, SumOp(), red, g, lt, tpg);
-      done = acc > 300 ? 1 : done;
-      ++t;
-    }
-    for (int e = lt; e < n; e += tpg) og[e] = acc;
+__device__ __forceinline__ void st_volatile4(int* p, int4 v) {
+  asm volatile("st.volatile.shared.v4.s32 [%0], {%1, %2, %3, %4};" ::"r"(
+                   mwf::smem_u32(p)),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+__device__ __forceinline__ int4 ld_volatile4(const int* p) {
+  int4 v;
+  asm volatile("ld.volatile.shared.v4.s32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(mwf::smem_u32(p))
+               : "memory");
+  return v;
+}
+
+// v over the CTA (whole warps), given to every thread: a warp redux, one
+// shared-memory step (red: this reduction's 32 slots), one barrier.
+template <class Op>
+__device__ __forceinline__ int cta_reduce(int v, Op op, int* red) {
+  v = op.warp(v);
+  const int lane = threadIdx.x & 31;
+  if (lane == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  return op.warp(lane < (int)(blockDim.x >> 5) ? red[lane] : Op::id);
+}
+
+// The cluster's CTAs' values of v (uniform in each CTA): after one cluster
+// barrier, lane i of every warp holds CTA rank i's (i < cl; `id` past it),
+// read from its shared memory.  part: this CTA's two exchange slots, used
+// in turn (`slot`), so that no post overwrites one a slower CTA has still
+// to read (the next exchange's barrier lies between).
+__device__ __forceinline__ int cluster_values(int v, int* part, int slot,
+                                              int cl, int id) {
+  const int lane = threadIdx.x & 31;
+  if (cl == 1) return lane == 0 ? v : id;
+  if (threadIdx.x == 0) part[slot] = v;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  return lane < cl ? *cluster.map_shared_rank(part + slot, lane) : id;
+}
+
+// v reduced over the lane (its cl CTAs; cl == C), given to every thread.
+template <class Op>
+__device__ __forceinline__ int lane_reduce(int v, Op op, int* red, int* part,
+                                           int slot, int cl) {
+  v = cta_reduce(v, op, red + 32 * slot);
+  if (cl == 1) return v;
+  return op.warp(cluster_values(v, part, slot, cl, Op::id));
+}
+
+// After a CTA's last read of another's shared memory: arrive, so that no
+// CTA of the cluster exits while one may still read it (the wait closes
+// the kernel).
+__device__ __forceinline__ void exit_arrive(int cl) {
+  if (cl > 1) {
+    __syncwarp();
+    asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
   }
 }
 
 template <int P>
-int launch_multi(const MultiParams& p, int smem, cudaStream_t stream) {
-  cudaError_t err = opt_in((const void*)multi_kernel<P>, smem);
+__global__ void __launch_bounds__(1024) multi_kernel(MultiParams p) {
+  extern __shared__ int4 dsm[];  // RING4/RING_WRITE: [3][span];
+                                 // REGISTRY: [3][8][L]
+  __shared__ int red[2 * 32];
+  __shared__ int part[2];
+  const int G = p.G, R = p.R, L = p.L, C = p.C, cl = p.cl, nv = p.nv;
+  const int g = blockIdx.x / C, c = blockIdx.x % C;
+  const int T = blockDim.x, lane = threadIdx.x & 31;
+  const int n = P == RING4 ? p.RX * L : R * L;  // the lane's domain
+  const int c0 = c * p.span, c1 = min(n, c0 + p.span);
+  const int* xg = p.x + (long long)g * p.RX * L;
+  int* og = p.out + (long long)g * R * L;
+  const bool xv = ((size_t)xg & 15) == 0, ov = ((size_t)og & 15) == 0;
+  auto first = [&](int k) { return c0 + 4 * ((int)threadIdx.x + k * T); };
+
+  int4 v[MULTI_VECS], y[MULTI_VECS];  // y: SUB's rows 16..23; SHIFT3's
+                                      // left neighbour (.x)
+  int aux = 0;
+  if (P == BND) aux = __ldg(p.aux + (long long)g * L);
+  if (P == ADD_SCALAR) aux = __ldg(p.aux + g);
+#pragma unroll
+  for (int k = 0; k < MULTI_VECS; ++k) {
+    v[k] = y[k] = make_int4(0, 0, 0, 0);
+    if (k < nv) {
+      const int w = first(k);
+      v[k] = ld4(xg, w, c1, xv);
+      if (P == SUB && w < 8 * L) y[k] = ld4(xg, w + 16 * L, c1 + 16 * L, xv);
+      if (P == SHIFT3)
+        y[k].x = w == 0 ? -9 : (lane == 0 && w < c1) ? __ldg(xg + w - 1) : 0;
+    }
+  }
+  // fold f(value, word) over the CTA's words
+  auto fold = [&](auto f) {
+#pragma unroll
+    for (int k = 0; k < MULTI_VECS; ++k) {
+      if (k < nv) {
+        const int w = first(k);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (w + j < c1) f(word(v[k], j), w + j);
+      }
+    }
+  };
+  // out[w] = f(value, w) for the CTA's words
+  auto map = [&](auto f) {
+#pragma unroll
+    for (int k = 0; k < MULTI_VECS; ++k) {
+      const int w = first(k);
+      if (k < nv && w < c1)
+        st4(og, w, c1, ov,
+            make_int4(f(v[k].x, w), f(v[k].y, w + 1), f(v[k].z, w + 2),
+                      f(v[k].w, w + 3)));
+    }
+  };
+
+  if constexpr (P == LANE_MASK || P == MIN_MASK || P == STACK ||
+                P == REGISTRY) {
+    int lo = INT_MAX;
+    fold([&](int x, int) { lo = min(lo, x); });
+    lo = lane_reduce(lo, MinOp(), red, part, 0, cl);
+    if constexpr (P == LANE_MASK || P == MIN_MASK) {
+      map([&](int x, int) { return x >= lo + 5 ? x : -1; });
+      if constexpr (P == LANE_MASK) {
+        int m = INT_MIN;
+        fold([&](int x, int) { m = max(m, x >= lo + 5 ? x : NEG30); });
+        m = lane_reduce(m, MaxOp(), red, part, 1, cl);
+        if (c == 0 && threadIdx.x == 0) p.s_out[g] = m;
+      }
+    } else if constexpr (P == STACK) {
+      const int a = clampi(floor_mod(lo, R - SR), 0, R - SR);
+      map([&](int x, int w) {
+        return w >= a * L && w < (a + SR) * L ? x * 2 : x;
+      });
+    } else {  // REGISTRY
+      // its lane's row and rows G..7, a word a thread: five writes each
+      int* reg = (int*)dsm;
+      for (int i = threadIdx.x; i < (9 - G) * L; i += T) {
+        const int rr = i / L, l = i - rr * L;
+        const int at = (rr == 0 ? g : G + rr - 1) * L + l;
+        const int base = rr == 0 ? lo : 0;
+        for (int j = 0; j < 5; ++j)
+          asm volatile("st.volatile.shared.s32 [%0], %1;" ::"r"(
+                           mwf::smem_u32(reg + (j % 3) * 8 * L + at)),
+                       "r"(base + j)
+                       : "memory");
+      }
+      __syncthreads();
+      int got;
+      asm volatile("ld.volatile.shared.s32 %0, [%1];"
+                   : "=r"(got)
+                   : "r"(mwf::smem_u32(reg + 1 * 8 * L + g * L))
+                   : "memory");
+      map([&](int x, int) { return x + got; });
+    }
+    exit_arrive(cl);
+  } else if constexpr (P == MAX_OUT || P == ANY_MASK) {
+    int m = P == MAX_OUT ? INT_MIN : 0;
+    fold([&](int x, int) { m = max(m, P == MAX_OUT ? x : (x > 50 ? 1 : 0)); });
+    m = lane_reduce(m, MaxOp(), red, part, 0, cl);
+    exit_arrive(cl);
+    if constexpr (P == MAX_OUT) {
+      if (c == 0 && threadIdx.x == 0) p.s_out[g] = m;
+      map([&](int x, int) { return x; });
+    } else {
+      map([&](int x, int) { return m > 0 ? x : 0; });
+    }
+  } else if constexpr (P == MAX_MIN) {
+    // every lane's max on CTA 0 of the cluster (the grid): lane j < G of
+    // its warp 0 takes lane j's (the max over its C CTAs) and writes
+    // s_out[j]; their min goes to s_out[G] from lane 0
+    int m = INT_MIN;
+    fold([&](int x, int) { m = max(m, x); });
+    m = cta_reduce(m, MaxOp(), red);
+    const int got = cluster_values(m, part, 0, cl, INT_MIN);
+    exit_arrive(cl);
+    if (blockIdx.x == 0 && threadIdx.x < 32) {
+      int mj = INT_MIN;
+      for (int k = 0; k < C; ++k)
+        mj = max(mj, __shfl_sync(~0u, got, (lane * C + k) & 31));
+      const int lo = __reduce_min_sync(~0u, lane < G ? mj : INT_MAX);
+      if (lane < G) p.s_out[lane] = mj;
+      if (lane == 0) p.s_out[G] = lo;
+    }
+    map([&](int x, int) { return x; });
+  } else if constexpr (P == WHILE_G11) {
+    // while t < 16 and not every lane done: lane j's acc is held by lane j
+    // of every warp of every CTA (all compute it alike from the round's
+    // partials), done = acc > 300 (acc never falls, so done stays done)
+    int acc_j = 0, t = 0;
+    while (t < 16 && !__all_sync(~0u, lane >= G || acc_j > 300)) {
+      int cnt = 0;
+      fold([&](int x, int) { cnt += floor_mod(x + t, 7) == 0; });
+      cnt = cta_reduce(cnt, SumOp(), red + 32 * (t & 1));
+      const int got = cluster_values(cnt, part, t & 1, cl, 0);
+      int s = 0;
+      for (int k = 0; k < C; ++k)
+        s += __shfl_sync(~0u, got, (lane * C + k) & 31);
+      acc_j += s;
+      ++t;
+    }
+    exit_arrive(cl);
+    const int acc = __shfl_sync(~0u, acc_j, g);
+    map([&](int, int) { return acc; });
+  } else if constexpr (P == SHIFT3) {
+    // out[w] = x[w - 1] over the lane's flat words, -9 at w = 0
+#pragma unroll
+    for (int k = 0; k < MULTI_VECS; ++k) {
+      if (k < nv) {
+        const int w = first(k);
+        const int up = __shfl_up_sync(~0u, v[k].w, 1);
+        const int prev = lane == 0 || w == 0 ? y[k].x : up;
+        if (w < c1)
+          st4(og, w, c1, ov, make_int4(prev, v[k].x, v[k].y, v[k].z));
+      }
+    }
+  } else if constexpr (P == SUB) {
+#pragma unroll
+    for (int k = 0; k < MULTI_VECS; ++k) {
+      const int w = first(k);
+      if (k < nv && w < c1) {
+        const int4 o = w < 8 * L ? make_int4(2 * y[k].x, 2 * y[k].y,
+                                             2 * y[k].z, 2 * y[k].w)
+                                 : v[k];
+        st4(og, w, c1, ov, o);
+      }
+    }
+  } else if constexpr (P == BND) {
+    map([&](int x, int) { return x >= aux ? x : -3; });
+  } else if constexpr (P == ADD_SCALAR) {
+    map([&](int x, int) { return x + aux; });
+  } else if constexpr (P == RING4 || P == RING_WRITE) {
+    // RING4 writes the padded tile into slot j % 3; RING_WRITE x's rows
+    // 0..R-1 at rows 8..8+R of it: ring position 8 L + w for word w of x,
+    // kept here at the word's own place in the CTA's share.  Both read slot
+    // 1's rows 8..8+R after the fifth write.
+    int* ring = (int*)dsm;
+    for (int j = 0; j < 5; ++j) {
+      int* slot = ring + (j % 3) * p.span;
+#pragma unroll
+      for (int k = 0; k < MULTI_VECS; ++k) {
+        const int w = first(k);
+        if (k < nv && w < c1) st_volatile4(slot + w - c0, add4(v[k], j));
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < MULTI_VECS; ++k) {
+      const int w = first(k);
+      if (k < nv && w < c1) {
+        const int4 r = ld_volatile4(ring + p.span + w - c0);
+        if (P == RING_WRITE)
+          st4(og, w, c1, ov, r);
+        else if (w >= 8 * L)
+          st4(og, w - 8 * L, c1 - 8 * L, ov, r);
+      }
+    }
+  }
+  if (cl > 1) cluster_wait();
+}
+
+// Dynamic shared memory of a multi launch: the CTA's ring share or the
+// registry copy (ops/probes_multi.py::multi_smem).
+inline long long multi_dyn_smem(int probe, int span, int L) {
+  if (probe == RING4 || probe == RING_WRITE) return 3LL * span * 4;
+  if (probe == REGISTRY) return 3LL * 8 * L * 4;
+  return 0;
+}
+
+template <int P>
+int launch_multi(const MultiParams& p, int threads, int smem,
+                 cudaStream_t stream) {
+  static int cache[MAX_DEVICES];
+  const void* fn = (const void*)multi_kernel<P>;
+  cudaError_t err = opt_in(fn, smem, cache);
   if (err != cudaSuccess) return (int)err;
-  multi_kernel<P><<<1, MULTI_THREADS, smem, stream>>>(p);
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(p.G * p.C);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = p.cl;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  MultiParams q = p;
+  void* args[] = {&q};
+  err = cudaLaunchKernelExC(&cfg, fn, args);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 template <int P>
-int dispatch_multi(int probe, const MultiParams& p, int smem,
+int dispatch_multi(int probe, const MultiParams& p, int threads, int smem,
                    cudaStream_t stream) {
   if constexpr (P < N_MULTI) {
-    if (probe == P) return launch_multi<P>(p, smem, stream);
-    return dispatch_multi<P + 1>(probe, p, smem, stream);
+    if (probe == P) return launch_multi<P>(p, threads, smem, stream);
+    return dispatch_multi<P + 1>(probe, p, threads, smem, stream);
   } else {
     return (int)cudaErrorInvalidValue;
   }
 }
-
 template <int AXIS, int CH>
 int launch_gather(const int* tab, const int* idx, int* out, int Rt, int Mt,
                   int Ri, int Mi, int blocks, int per, int splits, int smem,
                   int iters, int chain, int lim, int zero, cudaStream_t s) {
-  cudaError_t err = opt_in((const void*)gather_kernel<AXIS, CH>, smem);
+  static int cache[MAX_DEVICES];
+  cudaError_t err = opt_in((const void*)gather_kernel<AXIS, CH>, smem, cache);
   if (err != cudaSuccess) return (int)err;
   gather_kernel<AXIS, CH><<<blocks, GATHER_THREADS, smem, s>>>(
       tab, idx, out, Rt, Mt, Ri, Mi, per, splits, iters, chain, lim, zero);
@@ -959,21 +1248,53 @@ extern "C" int mwf_probe_while(const int* x, int* out, int n, int iters,
   return (int)cudaGetLastError();
 }
 
-extern "C" int mwf_probe_roll(const int* x, int* out, int R, int M,
-                              int iters, void* stream) {
-  const int smem = 2 * R * M * (int)sizeof(int);
-  if (R < 1 || M < 1) return (int)cudaErrorInvalidValue;
-  cudaError_t err = opt_in((const void*)roll_kernel, smem);
+template <int PER>
+int launch_roll(const int* x, int* out, int R, int M, int iters, int threads,
+                int smem, cudaStream_t s) {
+  static int cache[2][MAX_DEVICES];
+  const bool same = threads % M == 0;
+  const void* fn = same ? (const void*)roll_kernel<PER, true>
+                        : (const void*)roll_kernel<PER, false>;
+  cudaError_t err = opt_in(fn, smem, cache[same]);
   if (err != cudaSuccess) return (int)err;
-  roll_kernel<<<1, 256, smem, (cudaStream_t)stream>>>(x, out, R, M, iters);
+  if (same)
+    roll_kernel<PER, true><<<1, threads, smem, s>>>(x, out, R, M, iters);
+  else
+    roll_kernel<PER, false><<<1, threads, smem, s>>>(x, out, R, M, iters);
   return (int)cudaGetLastError();
+}
+
+// P4b on the plan (threads, per) of ops/probes.py::roll_plan: per (1, 2,
+// 4, ... 32) elements a thread, up to 1024 threads that cover the R * M
+// elements; the double buffer must fit one block's shared memory.
+extern "C" int mwf_probe_roll(const int* x, int* out, int R, int M,
+                              int iters, int threads, int per,
+                              void* stream) {
+  if (R < 1 || M < 1) return (int)cudaErrorInvalidValue;
+  const long long n = (long long)R * M, smem = 2 * n * (long long)sizeof(int);
+  if (smem > SMEM_CAP) return (int)cudaErrorInvalidValue;
+  if (threads < 1 || threads > 1024 || (long long)threads * per < n)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (per) {
+    case 1: return launch_roll<1>(x, out, R, M, iters, threads, (int)smem, s);
+    case 2: return launch_roll<2>(x, out, R, M, iters, threads, (int)smem, s);
+    case 4: return launch_roll<4>(x, out, R, M, iters, threads, (int)smem, s);
+    case 8: return launch_roll<8>(x, out, R, M, iters, threads, (int)smem, s);
+    case 16:
+      return launch_roll<16>(x, out, R, M, iters, threads, (int)smem, s);
+    case 32:
+      return launch_roll<32>(x, out, R, M, iters, threads, (int)smem, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int mwf_probe_lane_slice(const int* tab, int NW, const int* starts,
                                     int* out, int iters, void* stream) {
   const int smem = NW * (int)sizeof(int);
   if (NW < 128) return (int)cudaErrorInvalidValue;
-  cudaError_t err = opt_in((const void*)lane_slice_kernel, smem);
+  static int cache[MAX_DEVICES];
+  cudaError_t err = opt_in((const void*)lane_slice_kernel, smem, cache);
   if (err != cudaSuccess) return (int)err;
   lane_slice_kernel<<<1, 128, smem, (cudaStream_t)stream>>>(tab, NW, starts,
                                                             out, iters);
@@ -993,7 +1314,8 @@ extern "C" int mwf_probe_refill(const int* tab, int NW, const int* bases,
                                 int* out, int WR, void* stream) {
   if (NW < 128 || WR < 1) return (int)cudaErrorInvalidValue;
   const int smem = WR * (int)sizeof(int);
-  cudaError_t err = opt_in((const void*)refill_kernel, smem);
+  static int cache[MAX_DEVICES];
+  cudaError_t err = opt_in((const void*)refill_kernel, smem, cache);
   if (err != cudaSuccess) return (int)err;
   refill_kernel<<<1, 128, smem, (cudaStream_t)stream>>>(tab, NW, bases, out,
                                                         WR);
@@ -1015,7 +1337,8 @@ extern "C" int mwf_probe_chunk(int* acc, int* tb, int WR, int CR, int T,
   const long long smem = chunk_words(WR, C) * (long long)sizeof(int);
   if (smem > SMEM_CAP) return (int)cudaErrorInvalidValue;
   const void* fn = (const void*)chunk_kernel;
-  cudaError_t err = opt_in(fn, (int)smem);
+  static int cache[MAX_DEVICES];
+  cudaError_t err = opt_in(fn, (int)smem, cache);
   if (err == cudaSuccess && C > 8)
     err = cudaFuncSetAttribute(
         fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
@@ -1039,18 +1362,49 @@ extern "C" int mwf_probe_chunk(int* acc, int* tb, int WR, int CR, int T,
   return (int)cudaGetLastError();
 }
 
+// The multi probes on the plan (C, threads, nv) of
+// ops/probes_multi.py::multi_plan.  The shapes are those the single-block
+// kernel took before (G in 1, 2, 4, 8; its [G, RX, L] tile staged in one
+// block's shared memory), refused with the same error; the plan: C CTAs a
+// lane, each some words of it (span: its share rounded up to 4), nv <=
+// MULTI_VECS vectors a thread of whole warps up to 1024 that cover them,
+// no CTA empty, a cluster of at most MULTI_CLUSTER CTAs (a lane's C for a
+// lane reduction, the G * C of all lanes for MAX_MIN and WHILE_G11), the
+// ring's share within a block's shared memory.
 extern "C" int mwf_probe_multi(int probe, const int* x, const int* aux,
-                               int* out, int* s_out, int* ring, int G, int R,
-                               int L, int RX, void* stream) {
-  if (G < 1 || G > 8 || MULTI_THREADS % (32 * G) || R < 1 || L < 1 ||
-      RX < R)
+                               int* out, int* s_out, int G, int R, int L,
+                               int RX, int C, int threads, int nv,
+                               void* stream) {
+  if (probe < 0 || probe >= N_MULTI || G < 1 || G > 8 || (G & (G - 1)) ||
+      R < 1 || L < 1 || RX < R)
     return (int)cudaErrorInvalidValue;
   if ((probe == SUB && R < 24) || (probe == STACK && R <= SR) ||
       ((probe == RING4 || probe == RING_WRITE) && RX != R + 8))
     return (int)cudaErrorInvalidValue;
-  MultiParams p{x, aux, out, s_out, ring, G, R, L, RX};
-  const int smem =
-      (G * RX * L + 8 * 16 + 8 + (probe == REGISTRY ? 3 * 8 * L : 0)) *
-      (int)sizeof(int);
-  return dispatch_multi<0>(probe, p, smem, (cudaStream_t)stream);
+  const long long reg = probe == REGISTRY ? 24LL * L : 0;
+  const long long tile =
+      ((long long)G * RX * L + 8 * 16 + 8 + reg) * (long long)sizeof(int);
+  if (tile > SMEM_CAP) return (int)cudaErrorInvalidValue;
+  const int n = probe == RING4 ? RX * L : R * L;
+  if (C < 1 || nv < 1 || nv > MULTI_VECS || threads < 32 || threads > 1024 ||
+      threads % 32)
+    return (int)cudaErrorInvalidValue;
+  const int span = ((n + C - 1) / C + 3) / 4 * 4;
+  if (4LL * threads * nv < span || (long long)(C - 1) * span >= n)
+    return (int)cudaErrorInvalidValue;
+  const int cl = !multi_reduces(probe) ? 1 : multi_cross(probe) ? G * C : C;
+  if (cl > MULTI_CLUSTER) return (int)cudaErrorInvalidValue;
+  const long long smem = multi_dyn_smem(probe, span, L);
+  if (smem + MULTI_STATIC_SMEM > SMEM_CAP) return (int)cudaErrorInvalidValue;
+  MultiParams p{x, aux, out, s_out, G, R, L, RX, C, span, nv, cl};
+  return dispatch_multi<0>(probe, p, threads, (int)smem, (cudaStream_t)stream);
+}
+
+// The empty kernel: a probe launch's fixed cost (the floor every one-launch
+// probe is read against, tools/microbench.py), timed as a probe is.
+__global__ void empty_kernel() {}
+
+extern "C" int mwf_probe_empty(void* stream) {
+  empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
 }

@@ -116,6 +116,17 @@ def _counted(fn):
     return fn
 
 
+@_counted
+def empty(dev) -> None:
+    """The empty kernel (``mwf_probe_empty``), launched and timed as a
+    probe is: a launch's fixed cost, the floor that every one-launch probe
+    is read against (``tools/microbench.py``).  No probe's wrapper: it
+    counts its launches here only.  Nothing to run on the CPU."""
+    dev = torch.device(dev)
+    if dev.type == "cuda":
+        _launch(empty, dev, "empty", [])
+
+
 # ------------------------------------------------------------------ gathers
 
 GATHER_THREADS = 256        # threads a block of the gather loop
@@ -499,6 +510,45 @@ def _while(x, iters: int, sync: bool, plan=None) -> torch.Tensor:
 
 # ------------------------------------------------------- mosaic3 (P4b-e)
 
+ROLL_PERS = (1, 2, 4, 8, 16, 32)  # elements a thread (csrc roll_kernel<PER>)
+ROLL_PER = 4  # the elements a thread roll_plan aims at (fastest at [8, 256])
+
+
+def roll_plan(R: int, M: int) -> Tuple[int, int]:
+    """(threads, per) of the dynamic roll on [R, M] in its one CTA.  Where
+    M <= 1024 the threads are a multiple of M, rp rows at a time, so that
+    a thread's elements (one every ``threads``) share a column: rp =
+    ceil(R / ROLL_PER) rows, at most 1024 // M (the tool's [8, 256]: 512
+    threads of 4 elements).  Else, or where that leaves more than 32
+    elements a thread, 1024 threads.  ``per`` is the fewest of
+    ``ROLL_PERS`` that cover R * M.  A shape whose double buffer does not
+    fit a block's shared memory raises ValueError, as the kernel refuses
+    it."""
+    n = R * M
+    if R < 1 or M < 1 or 8 * n > SMEM_OPTIN:
+        raise ValueError(f"dynamic roll [{R}, {M}]: R, M >= 1 and a double "
+                         f"buffer of {8 * n} bytes within {SMEM_OPTIN}")
+    threads = MAX_THREADS
+    if M <= MAX_THREADS:
+        rp = min(MAX_THREADS // M, -(-R // ROLL_PER))
+        if -(-R // rp) <= ROLL_PERS[-1]:
+            threads = rp * M
+    per = next(p for p in ROLL_PERS if p * threads >= n)
+    return threads, per
+
+
+def check_roll_plan(plan, R: int, M: int) -> None:
+    """Raise ValueError unless the roll takes ``plan`` (the kernel's own
+    checks, made before a launch): ``per`` of ``ROLL_PERS``, 1 to 1024
+    threads, threads x per >= R * M."""
+    threads, per = plan
+    if (per not in ROLL_PERS or not 1 <= threads <= MAX_THREADS
+            or threads * per < R * M):
+        raise ValueError(f"roll plan {plan} for [{R}, {M}]: per in "
+                         f"{ROLL_PERS}, 1 to {MAX_THREADS} threads, "
+                         f"threads * per >= {R * M}")
+
+
 def dynamic_roll_plain(x, iters: int):
     acc = x
     M = x.shape[1]
@@ -513,15 +563,26 @@ def dynamic_roll(x, iters: int):
     """P4b. ``tools/microbench_mosaic3.py:22`` ``run_case`` (pallas_call
     :25), case 2: ``iters`` times ``acc = roll(acc, acc[0, 0] & 0xFF,
     axis 1) + 1`` on [8, 256], ``out[i] = acc[(i - sh) mod M]`` (the
-    direction of ``pltpu.roll`` in the reference's interpret run)."""
+    direction of ``pltpu.roll`` in the reference's interpret run).  On the
+    card one CTA (``roll_plan``), the tile double-buffered in its shared
+    memory, a thread's column in registers, one barrier a round."""
     dev = _device(x)
     if x.dim() != 2:
         raise ValueError("dynamic_roll takes a 2-D x")
     if dev.type == "cpu":
         return dynamic_roll_plain(x, iters)
+    return _roll(x, iters)
+
+
+def _roll(x, iters: int, plan=None) -> torch.Tensor:
+    """Launch the roll on ``plan``, by default ``roll_plan``'s."""
+    R, M = x.shape
+    if plan is None:
+        plan = roll_plan(R, M)
+    check_roll_plan(plan, R, M)
     out = torch.zeros_like(x)
-    _launch(dynamic_roll, dev, "roll", [_P, _P, _I, _I, _I],
-            x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], iters)
+    _launch(dynamic_roll, x.device, "roll", [_P, _P] + [_I] * 5,
+            x.data_ptr(), out.data_ptr(), R, M, iters, *plan)
     return out
 
 

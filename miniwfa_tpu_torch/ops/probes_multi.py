@@ -6,11 +6,11 @@ Every probe takes x [G, R, L] int32 (the tools: G=4, R=64, L=128, x in
 [0, 100)) and returns what its JAX function returns, a tensor or a tuple.
 ``<name>_plain`` is plain PyTorch on any device; ``<name>`` runs it for
 CPU tensors and launches csrc/probes.cu's ``multi_kernel`` for CUDA ones
-(one 512-thread block, G groups of 512/G threads each with its own named
-barrier, the x tile in shared memory, the 3-slot rings in global memory),
-counting the launch in ``<name>.launches``.  Names are the JAX
-functions'; the two later files' ``f_a``... are ``multi2_f_a``... and
-``multi3_f_a``...
+on ``multi_plan``'s CTAs (each lane on CTAs of its own, its words in
+registers, the lanes of ``multi3_f_a`` and ``multi3_f_c`` in one
+thread-block cluster, the 3-slot rings in shared memory), counting the
+launch in ``<name>.launches``.  Names are the JAX functions'; the two
+later files' ``f_a``... are ``multi2_f_a``... and ``multi3_f_a``...
 
 Fact about the reference: ``microbench_multi_probe.py:102`` ``ring4``
 fails in interpret mode (``ring[1][:, pl.ds(8, R), :]`` indexes a value
@@ -23,33 +23,174 @@ from __future__ import annotations
 
 import torch
 
-from .probes import _I, _P, _counted, _device, _gather2d, _launch
+from typing import Tuple
+
+from .probes import (_I, _P, SMEM_OPTIN, _counted, _device, _gather2d,
+                     _launch, _sms)
 
 SR = 8           # multi3's sub-window rows
 NEG30 = -(1 << 30)
 # the kernel's probe ids (csrc/probes.cu, enum MultiProbe)
+N_MULTI = 14
 (LANE_MASK, SHIFT3, RING4, BND, SUB, MIN_MASK, MAX_OUT, RING_WRITE, ANY_MASK,
- MAX_MIN, STACK, WHILE_G11, ADD_SCALAR, REGISTRY) = range(14)
+ MAX_MIN, STACK, WHILE_G11, ADD_SCALAR, REGISTRY) = range(N_MULTI)
+# probes with a reduction over a lane; of them, those over every lane
+REDUCING = (LANE_MASK, MIN_MASK, MAX_OUT, ANY_MASK, STACK, REGISTRY, MAX_MIN,
+            WHILE_G11)
+CROSS = (MAX_MIN, WHILE_G11)
+RINGS = (RING4, RING_WRITE)
+MULTI_VECS = 4        # 16-byte vectors a thread holds, at most
+MULTI_THREADS = 1024  # threads a CTA, at most
+MULTI_CLUSTER = 8     # CTAs a cluster, at most (the portable size)
+MULTI_MIN_SPAN = 1024  # words a CTA at least, where a lane is spread
+MULTI_STATIC = 264    # bytes of the kernel's own shared memory (red, part)
+
+
+def multi_domain(probe: int, R: int, L: int) -> int:
+    """Words of a lane the kernel covers: R * L, RING4's padded tile (R + 8)
+    * L."""
+    return (R + 8) * L if probe == RING4 else R * L
+
+
+def check_multi_shape(probe: int, G: int, R: int, L: int, RX: int) -> None:
+    """Raise ValueError on a shape the kernel's entry refuses: those the
+    single-block kernel refused (G in 1, 2, 4, 8; R, L >= 1; SUB R >= 24,
+    STACK R > 8, the rings RX = R + 8; its [G, RX, L] tile, 136 words and
+    REGISTRY's [3, 8, L] within one block's shared memory)."""
+    if not 0 <= probe < N_MULTI:
+        raise ValueError(f"no multi probe {probe}")
+    if G not in (1, 2, 4, 8) or R < 1 or L < 1 or RX < R:
+        raise ValueError(f"multi probe: G in (1, 2, 4, 8), R, L >= 1, RX >= "
+                         f"R, not G={G} R={R} L={L} RX={RX}")
+    if ((probe == SUB and R < 24) or (probe == STACK and R <= SR)
+            or (probe in RINGS and RX != R + 8)):
+        raise ValueError(f"multi probe {probe}: SUB takes R >= 24, STACK R > "
+                         f"8, the rings RX = R + 8 (R={R} RX={RX})")
+    tile = 4 * (G * RX * L + 136 + (24 * L if probe == REGISTRY else 0))
+    if tile > SMEM_OPTIN:
+        raise ValueError(f"multi probe: the [{G}, {RX}, {L}] tile, {tile} "
+                         f"bytes, is past the {SMEM_OPTIN} the kernel takes")
+
+
+def multi_span(n: int, C: int) -> int:
+    """Words of a lane's n a CTA covers at C CTAs a lane: the share rounded
+    up to 4 (csrc ``span``)."""
+    share = -(-n // C)
+    return 4 * -(-share // 4)
+
+
+def multi_smem(probe: int, span: int, L: int) -> int:
+    """Dynamic shared memory of a CTA (csrc ``multi_dyn_smem``): its share
+    of the 3-slot ring, or REGISTRY's [3, 8, L] copy; else none."""
+    if probe in RINGS:
+        return 3 * span * 4
+    return 3 * 8 * L * 4 if probe == REGISTRY else 0
+
+
+def multi_cluster(probe: int, G: int, C: int) -> int:
+    """CTAs a cluster: the lane's C for a lane reduction, every lane's G * C
+    for MAX_MIN and WHILE_G11, else 1."""
+    if probe not in REDUCING:
+        return 1
+    return G * C if probe in CROSS else C
+
+
+def multi_plan(G: int, R: int, L: int, sms: int, smem: int,
+               probe: int) -> Tuple[int, int, int]:
+    """(C, threads, nv) of multi probe ``probe`` on x [G, R (+ 8), L] on a
+    card of ``sms`` SMs and ``smem`` bytes of shared memory a block: C CTAs
+    a lane, each covering ``multi_span`` words of it by ``threads`` threads
+    (whole warps) of ``nv`` 16-byte vectors each, held in registers.
+
+    C is at least the fewest CTAs whose shares fit MULTI_THREADS x
+    MULTI_VECS vectors and, for the rings, whose ring shares fit ``smem``.
+    From there (measured on an H100 at the tools' [4, 64, 128], PERF.md
+    §6): a probe with a reduction within its lane stays on those CTAs (a
+    cluster barrier costs more than a share of the loads saves), on the
+    fewest warps of MULTI_VECS vectors (each warp costs its barrier and
+    shared step); the two that span the lanes, already one cluster, take
+    as many CTAs a lane as the cluster (MULTI_CLUSTER) and ``sms`` allow,
+    down to MULTI_MIN_SPAN words a CTA, at MULTI_VECS vectors a thread; a
+    probe with no reduction spreads its lanes over ``sms // G`` CTAs a
+    lane, down to MULTI_MIN_SPAN words a CTA, on the most threads of the
+    fewest vectors.  A shape the kernel refuses raises ValueError
+    (``check_multi_shape``), as does a lane that would need a cluster past
+    MULTI_CLUSTER (none the shape check lets through)."""
+    RX = R + 8 if probe in RINGS else R
+    check_multi_shape(probe, G, R, L, RX)
+    n = multi_domain(probe, R, L)
+    cap = 4 * MULTI_THREADS * MULTI_VECS
+    C = -(-n // cap)
+    while (probe in RINGS and C < n
+           and multi_smem(probe, multi_span(n, C), L) + MULTI_STATIC > smem):
+        C += 1
+    if probe in CROSS:
+        C = max(C, min(MULTI_CLUSTER // G, max(1, sms // G),
+                       n // MULTI_MIN_SPAN))
+    elif probe not in REDUCING:
+        C = max(C, min(sms // G, n // MULTI_MIN_SPAN))
+    span = multi_span(n, C)
+    C = -(-n // span)   # no CTA without words
+    span = multi_span(n, C)
+    if multi_cluster(probe, G, C) > MULTI_CLUSTER:
+        raise ValueError(f"multi probe {probe}: G={G} lanes of {n} words "
+                         f"need clusters of {multi_cluster(probe, G, C)} CTAs")
+    vecs = -(-span // 4)
+    if probe in REDUCING:
+        threads = 32 * -(-vecs // (32 * MULTI_VECS))
+        return C, threads, -(-vecs // threads)
+    nv = -(-vecs // MULTI_THREADS)
+    return C, 32 * -(-vecs // (32 * nv)), nv
+
+
+def check_multi_plan(plan, probe: int, G: int, R: int, L: int,
+                     smem: int = SMEM_OPTIN) -> None:
+    """Raise ValueError unless the kernel takes ``plan`` (its entry's own
+    checks, made before a launch): 1 <= nv <= MULTI_VECS, whole warps up
+    to MULTI_THREADS that cover a CTA's span, no CTA without words, a
+    cluster of at most MULTI_CLUSTER CTAs, the ring's share and the kernel's
+    own shared memory within ``smem``."""
+    C, threads, nv = plan
+    n = multi_domain(probe, R, L)
+    if (C < 1 or not 1 <= nv <= MULTI_VECS
+            or not 32 <= threads <= MULTI_THREADS or threads % 32):
+        raise ValueError(f"multi plan {plan}: C >= 1, nv in [1, "
+                         f"{MULTI_VECS}], threads a multiple of 32 up to "
+                         f"{MULTI_THREADS}")
+    span = multi_span(n, C)
+    if 4 * threads * nv < span or (C - 1) * span >= n:
+        raise ValueError(f"multi plan {plan}: {threads} x {nv} vectors "
+                         f"short of {span} words, or a CTA without words")
+    if multi_cluster(probe, G, C) > MULTI_CLUSTER:
+        raise ValueError(f"multi plan {plan}: a cluster of "
+                         f"{multi_cluster(probe, G, C)} CTAs")
+    if multi_smem(probe, span, L) + MULTI_STATIC > smem:
+        raise ValueError(f"multi plan {plan}: "
+                         f"{multi_smem(probe, span, L)} bytes of ring or "
+                         f"registry past {smem}")
 
 
 def _multi(wrapper, probe: int, x, aux=None, n_s: int = 0,
-           padded: bool = False):
-    """Launch probe ``probe`` of the multi kernel on x [G, RX, L]
-    (RX = R + 8 for the ring probes' padded input); returns out [G, R, L]
-    and, when ``n_s``, the int32 [n_s] scalar output."""
+           padded: bool = False, plan=None):
+    """Launch probe ``probe`` of the multi kernel on x [G, RX, L] (RX = R +
+    8 for the ring probes' padded input) on ``plan``, by default
+    ``multi_plan``'s for the card; returns out [G, R, L] and, when ``n_s``,
+    the int32 [n_s] scalar output.  It allocates those two only: the rings
+    and the registry live in the CTAs' shared memory."""
     dev = _device(x) if aux is None else _device(x, aux)
     if x.dim() != 3:
         raise ValueError("the multi probes take x [G, R, L]")
     G, RX, L = x.shape
     R = RX - 8 if padded else RX
+    check_multi_shape(probe, G, R, L, RX)
+    if plan is None:
+        plan = multi_plan(G, R, L, _sms(dev), SMEM_OPTIN, probe)
+    check_multi_plan(plan, probe, G, R, L)
     out = torch.zeros((G, R, L), dtype=torch.int32, device=dev)
     s = torch.zeros(max(n_s, 1), dtype=torch.int32, device=dev)
-    ring = (torch.zeros((3, G, RX, L), dtype=torch.int32, device=dev)
-            if padded else None)
-    _launch(wrapper, dev, "multi", [_I, _P, _P, _P, _P, _P] + [_I] * 4,
+    _launch(wrapper, dev, "multi", [_I, _P, _P, _P, _P] + [_I] * 7,
             probe, x.data_ptr(), 0 if aux is None else aux.data_ptr(),
-            out.data_ptr(), s.data_ptr(),
-            0 if ring is None else ring.data_ptr(), G, R, L, RX)
+            out.data_ptr(), s.data_ptr(), G, R, L, RX, *plan)
     return (out, s) if n_s else out
 
 
@@ -157,7 +298,7 @@ def ring4(x):
     :103), which fails in interpret mode (module docstring): its function
     as ``microbench_multi_probe2.py:77`` ``f_d`` computes it.  x padded by
     8 zero rows; ``ring[j % 3] = xp + j`` for j < 5 in a [3, G, R+8, L]
-    ring (global memory on the card); returns ``ring[1, :, 8:8+R]``."""
+    ring (shared memory on the card); returns ``ring[1, :, 8:8+R]``."""
     if _device(x).type == "cpu":
         return ring4_plain(x)
     return _multi(ring4, RING4, _pad8(x), padded=True)
@@ -234,7 +375,7 @@ def multi2_f_c_plain(x):
 def multi2_f_c(x):
     """P7c. ``tools/microbench_multi_probe2.py:63`` ``f_c`` (pallas_call
     :64): ``f_a`` with the min taken in two steps (axis 2, then 1); one
-    group reduction on the card."""
+    lane reduction on the card."""
     if _device(x).type == "cpu":
         return multi2_f_c_plain(x)
     return _multi(multi2_f_c, MIN_MASK, x)
@@ -291,8 +432,8 @@ def multi3_f_a_plain(x):
 @_counted
 def multi3_f_a(x):
     """P8a. ``tools/microbench_multi_probe3.py:42`` ``f_a`` (pallas_call
-    :43): ``o = x``; s[0:G] the per-lane maxes, s[G] their min (a block
-    barrier on the card: it spans the lanes)."""
+    :43): ``o = x``; s[0:G] the per-lane maxes, s[G] their min (on the
+    card the lanes' CTAs are one cluster: it spans the lanes)."""
     if _device(x).type == "cpu":
         return multi3_f_a_plain(x)
     return _multi(multi3_f_a, MAX_MIN, x, n_s=x.shape[0] + 1)

@@ -10,17 +10,21 @@ FILE is one of the JAX probe files under tools/ (``mosaic``, ``mosaic2``,
 ``ops/probes_multi.py``.
 
 On the card (the default) it prints the card's name and power limit, then
-for every case: the kernel held equal to its plain version at
-CHECK_ITERS loop iterations (16; P5 CHECK_CYCLES, 128 cycles), and the
-kernel's time per op (per cycle for the chunk sweep, per row for the row
-write) from CUDA events around the one launch that runs the whole loop
+the launch floor (the empty kernel's time, timed as a probe is: the
+median of REPS launches), then for every case: the kernel held equal to
+its plain version at CHECK_ITERS loop iterations (16; P5 CHECK_CYCLES,
+128 cycles), and the kernel's time per op (per cycle for the chunk
+sweep, per row for the row write) from CUDA events around the one
+launch that runs the whole loop
 (``probes.KernelTimer``: the kernel alone, not the host's launch cost;
 the median of 3 calls), at the tool's loop count and at half of it (the
 ratio, and the marginal time per op between the two, show that the loop
 was not hoisted), beside the time of one PyTorch call that computes one
-op where there is one (``torch.gather``, ``torch.where``).  ``--device
-cpu`` runs the plain versions only, at ``--iters`` (default 3), and
-prints a digest of each output.
+op where there is one (``torch.gather``, ``torch.where``, ``torch.add``;
+``torch.roll`` at a fixed shift for P4b, the roll without its ``+ 1``).
+A case of one launch (no loop) also gets its time less the floor.
+``--device cpu`` runs the plain versions only, at ``--iters`` (default
+3), and prints a digest of each output.
 
 Inputs are made with numpy from seed 0 at the tools' shapes and value
 ranges.
@@ -46,6 +50,7 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 CHECK_ITERS, CHECK_CYCLES = 16, 128
 REPS = 3   # a kernel's or library call's ms is the median of REPS calls
+ROLL_SHIFT = 1  # P4b's library call: torch.roll at this fixed shift
 # the pallas_call site of each probe body (PERF.md §6)
 SITES = {
     "P1a": "tools/microbench_mosaic.py:43", "P1b": "tools/microbench_mosaic.py:68",
@@ -199,7 +204,8 @@ def mosaic3_cases() -> List[Case]:
         "dynamic roll lanes [8,256]",
         lambda rng, _: (_ints(rng, (8, 256), 1 << 20),),
         lambda f, dev, x, it: f(x[0], it), it,
-        ops=lambda x, it: 3 * x[0].size * it))
+        ops=lambda x, it: 3 * x[0].size * it,
+        library=lambda x: torch.roll(x[0], ROLL_SHIFT, 1)))
     cases.append(Case(
         "P4c", pb.lane_slice, pb.lane_slice_plain,
         "dyn lane slice [1,8192]->128",
@@ -330,7 +336,8 @@ def multi_probe3_cases() -> List[Case]:
         _multi_case("P8c", pm.multi3_f_c, pm.multi3_f_c_plain,
                     "C while-G11"),
         _multi_case("P8d", pm.multi3_f_d, pm.multi3_f_d_plain,
-                    "D build-G11", "s"),
+                    "D build-G11", "s",
+                    library=lambda x: torch.add(x[0], x[1].view(-1, 1, 1))),
         _multi_case("P8e", pm.multi3_f_e, pm.multi3_f_e_plain,
                     "E bnd-registry", ops=2)]
     cases[2].ops = _while_ops
@@ -438,13 +445,27 @@ def check_iters(c: Case) -> int:
     return min(c.iters, CHECK_CYCLES if c.unit == "cycle" else CHECK_ITERS)
 
 
+FLOOR_WARM = 200  # empty launches before the floor is timed
+
+
+def launch_floor(dev) -> float:
+    """The empty kernel's ms, timed as a probe is (``kernel_ms``: the
+    median of REPS launches, each by ``probes.KernelTimer``), after
+    FLOOR_WARM launches that build it and bring the card out of idle."""
+    for _ in range(FLOOR_WARM):
+        pb.empty(dev)
+    return kernel_ms(lambda: pb.empty(dev))[1]
+
+
 def measure(c: Case, dev, iters: Optional[int] = None,
-            check: bool = True) -> dict:
+            check: bool = True, floor: Optional[float] = None) -> dict:
     """One case on the card: the kernel against its plain version at
     ``check_iters`` (when ``check``), then the kernel's ms at ``iters``
     (default the tool's) and at half of it, the plain version's ms at the
     check count and one library op's ms.  Loop counts tied to the shape
-    (P4e's rows, the single-shot probes) stay as they are."""
+    (P4e's rows, the single-shot probes) stay as they are.  A case of one
+    launch (no loop) with a ``floor`` (``launch_floor``) also records its
+    ms less the floor."""
     free = looped(c)
     it = (iters or c.iters) if free else c.iters
     rec = {"pid": c.pid, "label": c.label, "iters": it, "unit": c.unit}
@@ -468,6 +489,8 @@ def measure(c: Case, dev, iters: Optional[int] = None,
         # the marginal cost of one op, free of the launch's fixed cost
         rec.update(half_iters=h, half_ms=ms_h,
                    slope_us=(ms - ms_h) * 1e3 / max(it - h, 1))
+    elif floor is not None:
+        rec["over_floor_ms"] = ms - floor
     b_ms, b_by = bound(nbytes(x, out), c.ops(x, it))
     rec.update(bound_ms=b_ms, bound_by=b_by)
     lib = None
@@ -499,14 +522,17 @@ def _fmt(rec: dict) -> str:
         s += (f"; plain / kernel {rec['plain_ms']:.3f} / "
               f"{rec['check_kernel_ms']:.4f} ms at it={rec['check_iters']}"
               f", max_abs_err={rec['max_abs_err']}")
+    if "over_floor_ms" in rec:
+        s += f"; over the launch floor {rec['over_floor_ms']:.4f} ms"
     return s + ")"
 
 
 def run(names, dev, iters: Optional[int] = None, check: bool = True,
-        out=None) -> List[dict]:
-    """Every case of ``names`` on ``dev``: on a card ``measure`` each; on
-    the CPU run the plain versions at ``iters`` (default 3) and report a
-    digest.  Returns one record per case."""
+        out=None, floor: Optional[float] = None) -> List[dict]:
+    """Every case of ``names`` on ``dev``: on a card ``measure`` each (a
+    one-launch case also less ``floor``, where given); on the CPU run the
+    plain versions at ``iters`` (default 3) and report a digest.  Returns
+    one record per case."""
     dev = torch.device(dev)
     out = out or sys.stdout
     recs = []
@@ -514,7 +540,7 @@ def run(names, dev, iters: Optional[int] = None, check: bool = True,
         print(f"# {name}", file=out, flush=True)
         for c in FILES[name]():
             if dev.type == "cuda":
-                rec = measure(c, dev, iters, check)
+                rec = measure(c, dev, iters, check, floor)
                 print(_fmt(rec), file=out, flush=True)
             else:
                 it = min(iters or 3, c.iters) if looped(c) else c.iters
@@ -543,7 +569,7 @@ def main(argv=None) -> int:
                          "this file")
     a = ap.parse_args(argv)
     names = list(FILES) if a.file == "all" else [a.file]
-    card = "cpu (plain versions)"
+    card, floor = "cpu (plain versions)", None
     if torch.device(a.device).type == "cuda":
         if not torch.cuda.is_available():
             print("microbench: no CUDA device; use --device cpu for the "
@@ -551,10 +577,14 @@ def main(argv=None) -> int:
             return 2
         card = card_line()
         print(card, flush=True)
-    recs = run(names, a.device, a.iters)
+        floor = launch_floor(a.device)
+        print(f"launch floor {floor:.4f} ms (the empty kernel, median of "
+              f"{REPS} launches)", flush=True)
+    recs = run(names, a.device, a.iters, floor=floor)
     if a.json:
         with open(a.json, "w") as f:
-            json.dump({"card": card, "records": recs}, f, indent=1)
+            json.dump({"card": card, "launch_floor_ms": floor,
+                       "records": recs}, f, indent=1)
     bad = [r for r in recs if r.get("max_abs_err", 0)]
     for r in bad:
         print(f"FAIL {r['pid']} {r['label']}: max_abs_err="

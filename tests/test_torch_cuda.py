@@ -21,6 +21,7 @@ from miniwfa_tpu_torch.models import exact
 from miniwfa_tpu_torch.models import traceback as tbk
 from miniwfa_tpu_torch.ops import build
 from miniwfa_tpu_torch.ops import probes as pb
+from miniwfa_tpu_torch.ops import probes_multi as pm
 from miniwfa_tpu_torch.ops import traceback_device as tbd
 from miniwfa_tpu_torch.ops import wavefront_gaps as wg
 from miniwfa_tpu_torch.ops import wavefront_kernel as wk
@@ -521,6 +522,228 @@ def test_probe_while_and_row_write_refuse_bad_plans(dev, monkeypatch):
             pb._row_write(xr, S, it, plan)
     assert (pb.bench_while_scalar.launches,
             pb.bench_hbm_row_write.launches) == before
+
+
+# the multi probes' bodies (P6c-P8e): (pid, wrapper, plain, extra input)
+MULTI_BODIES = [(c.pid, c.fn, c.plain) for c in mb.all_cases()
+                if c.pid >= "P6c"]
+# shapes: the tools', every G, L = 130 (a scalar tail; at R = 63 the lanes
+# are not 16-byte aligned), odd R, a lane of 56,550 words (4 CTAs a lane)
+MULTI_SHAPES = [(4, 64, 128), (1, 64, 128), (2, 33, 130), (4, 63, 130),
+                (8, 25, 130), (1, 390, 145)]
+# forced plans (C, threads, nv), taken where the kernel takes them: a CTA a
+# lane of 1024 or 512 threads, 2, 3, 4 and 8 CTAs a lane (clusters of 2 to
+# 8 CTAs for the reductions)
+MULTI_PLANS = [(1, 1024, 2), (1, 512, 4), (2, 1024, 1), (3, 704, 1),
+               (4, 128, 4), (8, 256, 1)]
+
+
+def _multi_inputs(pid, G, R, L, seed):
+    """(args of the wrapper) as CPU tensors: x [G, R, L] in [0, 100) and
+    P6f's bound plane [8, L] or P8d's scalars [G]."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.integers(0, 100, (G, R, L), dtype=np.int32))
+    if pid == "P6f":
+        return x, torch.from_numpy(rng.integers(0, 50, (8, L),
+                                                dtype=np.int32))
+    if pid == "P8d":
+        return torch.from_numpy(rng.integers(0, 9, (G,), dtype=np.int32)), x
+    return (x,)
+
+
+# the kernel's probe id of each body, as its wrapper's _multi call passes it
+MULTI_PROBE = dict(zip(
+    ["P6c", "P6d", "P6e", "P6f", "P6g", "P7a", "P7b", "P7c", "P7d", "P7e",
+     "P7f", "P8a", "P8b", "P8c", "P8d", "P8e"],
+    [pm.LANE_MASK, pm.SHIFT3, pm.RING4, pm.BND, pm.SUB, pm.MIN_MASK,
+     pm.MAX_OUT, pm.MIN_MASK, pm.RING4, pm.RING_WRITE, pm.ANY_MASK,
+     pm.MAX_MIN, pm.STACK, pm.WHILE_G11, pm.ADD_SCALAR, pm.REGISTRY]))
+
+
+def _multi_probe_at(pid, fn, args, plan):
+    """Run body ``pid``'s kernel (wrapper ``fn``) on ``args`` (on the
+    card) at ``plan``, as its wrapper calls ``_multi``."""
+    probe = MULTI_PROBE[pid]
+    if pid == "P6f":
+        x, aux = args
+    elif pid == "P8d":
+        aux, x = args
+    else:
+        x, aux = args[0], None
+    G = x.shape[0]
+    n_s = {pm.LANE_MASK: G, pm.MAX_OUT: G, pm.MAX_MIN: G + 1}.get(probe, 0)
+    padded = probe in pm.RINGS
+    return pm._multi(fn, probe, pm._pad8(x) if padded else x, aux=aux,
+                     n_s=n_s, padded=padded, plan=plan)
+
+
+def _multi_cells():
+    """(pid, shape, plan) of every body at every shape it takes, on the
+    chooser's plan for an H100 (None), for a card of one SM, and on every
+    forced plan the kernel takes there."""
+    cells = []
+    for pid, _, _ in MULTI_BODIES:
+        probe = MULTI_PROBE[pid]
+        for G, R, L in MULTI_SHAPES:
+            RX = R + 8 if probe in pm.RINGS else R
+            try:
+                pm.check_multi_shape(probe, G, R, L, RX)
+            except ValueError:
+                continue
+            plans = [None, pm.multi_plan(G, R, L, 1, pb.SMEM_OPTIN, probe)]
+            for plan in MULTI_PLANS:
+                try:
+                    pm.check_multi_plan(plan, probe, G, R, L)
+                except ValueError:
+                    continue
+                plans.append(plan)
+            cells += [(pid, (G, R, L), p) for p in dict.fromkeys(plans)]
+    return cells
+
+
+MULTI_CELLS = _multi_cells()
+
+
+@pytest.mark.parametrize("cell", range(len(MULTI_CELLS)))
+def test_probe_multi_at_every_shape_and_plan(dev, cell):
+    """Each multi body (P6c-P8e) against its plain version, bit for bit, at
+    G = 1, 2, 4, 8, L = 130, odd R and a lane of 4 CTAs, on the chooser's
+    plan, a one-SM card's, and forced plans (clusters of 1-8 CTAs)."""
+    pid, (G, R, L), plan = MULTI_CELLS[cell]
+    fn, plain = next((f, p) for i, f, p in MULTI_BODIES if i == pid)
+    args = _multi_inputs(pid, G, R, L, cell)
+    want = plain(*args)
+    cargs = [a.to(dev) for a in args]
+    before = fn.launches
+    got = (fn(*cargs) if plan is None
+           else _multi_probe_at(pid, fn, cargs, plan))
+    assert fn.launches == before + 1
+    torch.cuda.synchronize()
+    got = [g.cpu() for g in (got if isinstance(got, tuple) else [got])]
+    assert mb.max_abs_err(got, want) == 0, (pid, (G, R, L), plan)
+
+
+def _while_cells():
+    """(G, plan) of the 16-round case: the chooser's plan, and forced plans
+    where the kernel takes them (clusters of G x C <= 8 CTAs)."""
+    cells = []
+    for G in (1, 2, 4, 8):
+        cells.append((G, None))
+        for plan in [(1, 32, 2), (2, 32, 1), (4, 32, 1)]:
+            try:
+                pm.check_multi_plan(plan, pm.WHILE_G11, G, 9, 16)
+            except ValueError:
+                continue
+            cells.append((G, plan))
+    return cells
+
+
+@pytest.mark.parametrize("G,plan", _while_cells())
+def test_probe_multi_while_runs_every_round(dev, G, plan):
+    """P8c's loop of rounds on data that keeps lane 0 below 300 for all 16
+    rounds (x = 1 mod 7: two hits an element over 16 rounds, 144 words)
+    while the other lanes finish early, at one CTA a lane and at clusters
+    of up to 8 CTAs."""
+    rng = np.random.default_rng(G)
+    x = rng.integers(0, 100, (G, 9, 16), dtype=np.int32)
+    x[0] = 7 * (x[0] // 7) + 1
+    x = torch.from_numpy(x)
+    want = pm.multi3_f_c_plain(x)
+    assert int(want[0, 0, 0]) == 2 * 144
+    got = (pm.multi3_f_c(x.to(dev)) if plan is None else
+           _multi_probe_at("P8c", pm.multi3_f_c, [x.to(dev)], plan))
+    assert torch.equal(got.cpu(), want)
+
+
+def test_probe_multi_refuses_what_the_kernel_refused(dev, monkeypatch):
+    """No fallback: a shape the single-block kernel refused and a plan the
+    kernel does not take raise ValueError on the host; past those checks
+    the kernel's entry refuses both (RuntimeError), with no launch."""
+    big = torch.zeros((8, 64, 128), dtype=torch.int32, device=dev)
+    x = torch.zeros((4, 64, 128), dtype=torch.int32, device=dev)
+    # short of the lane, nv past 4, no whole warps, no CTA, a cluster of 9
+    bad = [(1, 1024, 1), (1, 1024, 5), (1, 48, 2), (0, 1024, 2),
+           (9, 1024, 1)]
+    with pytest.raises(ValueError):
+        pm.multi2_f_a(big)
+    for plan in bad:
+        with pytest.raises(ValueError):
+            pm._multi(pm.multi2_f_a, pm.MIN_MASK, x, plan=plan)
+    with pytest.raises(ValueError):   # a cluster of 4 x 4 CTAs
+        pm._multi(pm.multi3_f_a, pm.MAX_MIN, x, n_s=5, plan=(4, 512, 1))
+    monkeypatch.setattr(pm, "check_multi_shape", lambda *a: None)
+    monkeypatch.setattr(pm, "check_multi_plan", lambda *a, **k: None)
+    before = (pm.multi2_f_a.launches, pm.multi3_f_a.launches)
+    with pytest.raises(RuntimeError):
+        pm._multi(pm.multi2_f_a, pm.MIN_MASK, big, plan=(1, 1024, 4))
+    for plan in bad:
+        with pytest.raises(RuntimeError):
+            pm._multi(pm.multi2_f_a, pm.MIN_MASK, x, plan=plan)
+    with pytest.raises(RuntimeError):
+        pm._multi(pm.multi3_f_a, pm.MAX_MIN, x, n_s=5, plan=(4, 512, 1))
+    assert (pm.multi2_f_a.launches, pm.multi3_f_a.launches) == before
+
+
+@pytest.mark.parametrize("M", [256, 200, 1])
+@pytest.mark.parametrize("iters", [0, 1, 17, 1000])
+def test_probe_roll_matches_plain(dev, M, iters):
+    """P4b on roll_plan's CTA against the plain version, bit for bit, at
+    M = 256 (the tool's), 200 (no power of two) and 1."""
+    rng = np.random.default_rng(M + iters)
+    x = torch.from_numpy(rng.integers(-(1 << 30), 1 << 30, (8, M),
+                                      dtype=np.int32))
+    before = pb.dynamic_roll.launches
+    got = pb.dynamic_roll(x.to(dev), iters)
+    assert pb.dynamic_roll.launches == before + 1
+    assert torch.equal(got.cpu(), pb.dynamic_roll_plain(x, iters))
+
+
+@pytest.mark.parametrize("R,M,plan", [
+    (8, 256, (64, 32)), (8, 256, (256, 8)), (8, 256, (1024, 4)),
+    (8, 200, (64, 32)), (1, 29056, None), (29, 1001, None),
+    (1024, 1, None), (7, 3, (32, 1)), (7, 3, None), (56, 513, None)])
+def test_probe_roll_at_forced_plans_and_edges(dev, R, M, plan):
+    """P4b at forced plans (up to 32 elements a thread, partial last
+    warps, threads a multiple of M or not) and at the edges of what it
+    takes: the largest tile whose double buffer fits (M past 1024 threads),
+    a column of 1024 rows, a tile smaller than a warp, 32 elements a
+    thread where no multiple of M holds the tile."""
+    rng = np.random.default_rng(R * M)
+    x = torch.from_numpy(rng.integers(0, 1 << 20, (R, M), dtype=np.int32))
+    got = pb._roll(x.to(dev), 37, plan)
+    assert torch.equal(got.cpu(), pb.dynamic_roll_plain(x, 37))
+
+
+def test_probe_roll_refuses_bad_plans(dev, monkeypatch):
+    x = torch.zeros((8, 256), dtype=torch.int32, device=dev)
+    bad = [(512, 2), (1024, 3), (48, 64), (2048, 1)]
+    for plan in bad:
+        with pytest.raises(ValueError):
+            pb._roll(x, 3, plan)
+    with pytest.raises(ValueError):   # 2 x 29,057 words: past a block
+        pb.dynamic_roll(torch.zeros((1, 29057), dtype=torch.int32,
+                                    device=dev), 1)
+    monkeypatch.setattr(pb, "check_roll_plan", lambda *a: None)
+    before = pb.dynamic_roll.launches
+    for plan in bad:
+        with pytest.raises(RuntimeError):
+            pb._roll(x, 3, plan)
+    assert pb.dynamic_roll.launches == before
+
+
+def test_probe_empty_kernel_counts_no_probe_launch(dev):
+    """The launch floor's empty kernel runs, counts on its own wrapper
+    only, and leaves the tool's 32 wrappers and 61 cases as they were."""
+    wrappers = mb.wrappers()
+    before = [f.launches for f in wrappers]
+    e0 = pb.empty.launches
+    pb.empty(dev)
+    torch.cuda.synchronize()
+    assert pb.empty.launches == e0 + 1
+    assert [f.launches for f in wrappers] == before
+    assert len(wrappers) == 32 and len(mb.all_cases()) == 61
+    assert pb.empty not in wrappers
+    assert mb.launch_floor(dev) > 0
 
 
 # K1 at every cluster size: CTAs per lane, 16 where the card holds one

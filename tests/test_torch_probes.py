@@ -594,3 +594,297 @@ def test_while_and_row_write_plan_checks_refuse_bad_plans():
         with pytest.raises(ValueError):
             pb.check_row_write_plan(bad, 8, 1500)
     pb.check_row_write_plan((24, 32), 8, 1500)
+
+
+# ------------------------------------------ the multi and roll kernels' plans
+
+# shapes: the tools', every G, L = 130 (a scalar tail; at R = 63 the lanes
+# are not 16-byte aligned), odd R, a lane of 56,550 words
+MULTI_SHAPES = [(4, 64, 128), (1, 64, 128), (2, 33, 130), (4, 63, 130),
+                (8, 25, 130), (1, 390, 145)]
+OPTIN = pb.SMEM_OPTIN
+
+
+def _multi_rx(probe, R):
+    return R + 8 if probe in pm.RINGS else R
+
+
+def _multi_words(plan, probe, R, L):
+    """The words of a lane each (CTA, thread, vector) holds, by the index
+    math of csrc/probes.cu multi_kernel: [C, threads, nv, 4], -1 past the
+    CTA's words."""
+    C, T, nv = plan
+    n = pm.multi_domain(probe, R, L)
+    span = pm.multi_span(n, C)
+    c0 = (np.arange(C) * span)[:, None, None, None]
+    w = c0 + 4 * (np.arange(T)[None, :, None, None]
+                  + np.arange(nv)[None, None, :, None] * T) \
+        + np.arange(4)[None, None, None, :]
+    c1 = np.minimum(n, c0 + span)
+    return np.where(w < c1, w, -1)
+
+
+def _multi_plans(probe, G, R, L):
+    """The chooser's plans for an H100 and for a card of one SM."""
+    return {pm.multi_plan(G, R, L, sms, OPTIN, probe) for sms in (132, 1)}
+
+
+@pytest.mark.parametrize("shape", MULTI_SHAPES)
+@pytest.mark.parametrize("probe", range(pm.N_MULTI))
+def test_multi_plan_holds_every_word_once(probe, shape):
+    """Every plan the chooser makes passes the kernel's checks, and its
+    CTAs and threads hold each word of a lane once; a cluster is at most 8
+    CTAs and a ring's share fits a block (the rings never leave shared
+    memory, at any shape the kernel takes)."""
+    G, R, L = shape
+    try:
+        pm.check_multi_shape(probe, G, R, L, _multi_rx(probe, R))
+    except ValueError:
+        with pytest.raises(ValueError):
+            pm.multi_plan(G, R, L, 132, OPTIN, probe)
+        return
+    n = pm.multi_domain(probe, R, L)
+    for plan in _multi_plans(probe, G, R, L):
+        pm.check_multi_plan(plan, probe, G, R, L)
+        C, T, nv = plan
+        w = _multi_words(plan, probe, R, L)
+        held = np.sort(w[w >= 0])
+        assert np.array_equal(held, np.arange(n)), plan
+        assert (w >= 0).reshape(C, -1).any(1).all()   # no CTA without words
+        assert pm.multi_cluster(probe, G, C) <= pm.MULTI_CLUSTER
+        span = pm.multi_span(n, C)
+        assert pm.multi_smem(probe, span, L) + pm.MULTI_STATIC <= OPTIN
+        if probe in pm.RINGS:
+            assert 3 * 4 * span * C >= 3 * 4 * n
+
+
+def test_multi_plan_at_the_tools_shape():
+    """[4, 64, 128]: a probe reducing within its lane on a CTA a lane of
+    512 threads, 16 words each (both cards); the two spanning the lanes on
+    2 CTAs a lane, a cluster of 8 (one CTA a lane on a card of one SM); the
+    others spread over 8 CTAs a lane (9 for RING4's padded tile) on an
+    H100, a CTA a lane on a card of one SM, where RING4's ring share is the
+    lane's whole ring, 110,592 bytes."""
+    for probe in pm.REDUCING:
+        for sms in (132, 1):
+            want = ((2, 256, 4) if probe in pm.CROSS and sms > 1
+                    else (1, 512, 4))
+            assert pm.multi_plan(4, 64, 128, sms, OPTIN, probe) == want
+    for probe in (pm.SHIFT3, pm.BND, pm.SUB, pm.RING_WRITE, pm.ADD_SCALAR):
+        assert pm.multi_plan(4, 64, 128, 132, OPTIN, probe) == (8, 256, 1)
+        assert pm.multi_plan(4, 64, 128, 1, OPTIN, probe) == (1, 1024, 2)
+    assert pm.multi_plan(4, 64, 128, 132, OPTIN, pm.RING4) == (9, 256, 1)
+    assert pm.multi_plan(4, 64, 128, 1, OPTIN, pm.RING4) == (1, 768, 3)
+    assert pm.multi_smem(pm.RING4, pm.multi_span(72 * 128, 1), 128) \
+        == 110_592
+    # the largest lane: 4 CTAs, a cluster of 4 for its reductions
+    assert pm.multi_plan(1, 390, 145, 1, OPTIN, pm.WHILE_G11)[0] == 4
+    assert pm.multi_plan(1, 390, 145, 1, OPTIN, pm.RING4)[0] == 4
+
+
+@pytest.mark.parametrize("probe,G,R,L,RX", [
+    (pm.MIN_MASK, 3, 64, 128, 64), (pm.MIN_MASK, 16, 4, 4, 4),
+    (pm.MIN_MASK, 4, 0, 128, 0), (pm.SUB, 4, 23, 128, 23),
+    (pm.STACK, 4, 8, 128, 8), (pm.RING4, 4, 64, 128, 64),
+    (pm.MIN_MASK, 8, 64, 128, 64), (pm.REGISTRY, 1, 451, 128, 451),
+    (14, 4, 64, 128, 64)])
+def test_multi_shapes_the_kernel_refused_stay_refused(probe, G, R, L, RX):
+    """What the single-block kernel refused (G not 1, 2, 4, 8; R < 1; SUB
+    R < 24; STACK R <= 8; a ring input not R + 8 rows; a tile past one
+    block's shared memory; an unknown probe) raises before a launch."""
+    with pytest.raises(ValueError):
+        pm.check_multi_shape(probe, G, R, L, RX)
+    if RX == _multi_rx(probe, R) and probe < pm.N_MULTI:
+        with pytest.raises(ValueError):
+            pm.multi_plan(G, R, L, 132, OPTIN, probe)
+
+
+def test_multi_shapes_at_the_edge_of_the_tile_are_taken():
+    """The largest tiles the single-block kernel took still plan; a row
+    more is refused."""
+    for probe, G, R in [(pm.REGISTRY, 1, 428), (pm.WHILE_G11, 8, 56),
+                        (pm.RING4, 1, 444), (pm.MIN_MASK, 1, 452)]:
+        pm.multi_plan(G, R, 128, 132, OPTIN, probe)
+        with pytest.raises(ValueError):
+            pm.multi_plan(G, R + 1, 128, 132, OPTIN, probe)
+
+
+@pytest.mark.parametrize("plan", [
+    (0, 1024, 2), (1, 1024, 1), (1, 1024, 5), (1, 48, 2), (1, 2048, 1),
+    (9, 1024, 1), (2049, 32, 1)])
+def test_multi_plan_check_refuses_bad_plans(plan):
+    """No CTA, short of the lane, nv past 4, no whole warps, past 1024
+    threads, a cluster of 9, CTAs without words: refused, as the kernel's
+    entry refuses them."""
+    with pytest.raises(ValueError):
+        pm.check_multi_plan(plan, pm.MIN_MASK, 4, 64, 128)
+    # RING4 at one CTA a lane: its ring needs 110,592 bytes
+    pm.check_multi_plan((1, 768, 3), pm.RING4, 4, 64, 128)
+    with pytest.raises(ValueError):
+        pm.check_multi_plan((1, 768, 3), pm.RING4, 4, 64, 128, 100_000)
+
+
+def test_multi_allocates_out_and_s_only(monkeypatch):
+    """The rings live in shared memory: ``_multi`` allocates out [G, R, L]
+    and the scalars, passes the plan, and no ring buffer."""
+    calls = []
+    monkeypatch.setattr(pm, "_launch", lambda *a: calls.append(a))
+    allocs = []
+    real_zeros = torch.zeros
+
+    def zeros(*a, **k):
+        t = real_zeros(*a, **k)
+        allocs.append(tuple(t.shape))
+        return t
+    monkeypatch.setattr(torch, "zeros", zeros)
+    x = pm._pad8(torch.ones((4, 64, 128), dtype=torch.int32))
+    for probe, plan in [(pm.RING4, (9, 256, 1)), (pm.RING_WRITE, (8, 256, 1)),
+                        (pm.RING4, (1, 768, 3))]:
+        allocs.clear()
+        out = pm._multi(pm.ring4, probe, x, padded=True, plan=plan)
+        assert tuple(out.shape) == (4, 64, 128)
+        assert allocs == [(4, 64, 128), (1,)]
+        args = calls[-1][4:]
+        assert len(args) == 12 and tuple(args[-3:]) == plan
+
+
+def _emulate_multi(probe, x, plan):
+    """out of SHIFT3, SUB, STACK, RING4 and RING_WRITE by the kernel's index
+    math: each thread's words, SHIFT3's left neighbour from the thread
+    before (or from memory at a warp's edge), the ring's five writes and
+    read at each word's own place in its CTA's share."""
+    G, RX, L = x.shape
+    R = RX - 8 if probe in pm.RINGS else RX
+    n = pm.multi_domain(probe, R, L)
+    span = pm.multi_span(n, plan[0])
+    out = np.full((G, R * L), -77, np.int64)
+    w = _multi_words(plan, probe, R, L)
+    for g in range(G):
+        xg = x[g].reshape(-1).astype(np.int64)
+        v = np.where(w >= 0, xg[np.maximum(w, 0)], 0)
+        ok = w >= 0
+        if probe == pm.SHIFT3:
+            T = plan[1]
+            up = np.roll(v[..., 3], 1, axis=1)   # the thread before's .w
+            lane0 = (np.arange(T) % 32 == 0)[None, :, None]
+            edge = xg[np.maximum(w[..., 0] - 1, 0)]
+            prev = np.where(lane0, edge, up)
+            prev = np.where(w[..., 0] == 0, -9, prev)
+            o = np.concatenate([prev[..., None], v[..., :3]], -1)
+            out[g, w[ok]] = o[ok]
+        elif probe == pm.SUB:
+            y = xg[np.minimum(np.maximum(w, 0) + 16 * L, R * L - 1)]
+            o = np.where(w < 8 * L, 2 * y, v)
+            out[g, w[ok]] = o[ok]
+        elif probe == pm.STACK:
+            a = min(max(int(xg[:n].min()) % (R - pm.SR), 0), R - pm.SR)
+            o = np.where((w >= a * L) & (w < (a + pm.SR) * L), 2 * v, v)
+            out[g, w[ok]] = o[ok]
+        else:   # the rings: [C][3][span] shares
+            ring = np.zeros((plan[0], 3, span), np.int64)
+            c = np.broadcast_to(np.arange(plan[0])[:, None, None, None],
+                                w.shape)
+            q = w - c * span
+            for j in range(5):
+                ring[c[ok], j % 3, q[ok]] = v[ok] + j
+            r = ring[c[ok], 1, q[ok]]
+            dst = w[ok] - (8 * L if probe == pm.RING4 else 0)
+            keep = dst >= 0
+            out[g, dst[keep]] = r[keep]
+    return torch.from_numpy(out.reshape(G, R, L).astype(np.int32))
+
+
+@pytest.mark.parametrize("shape", MULTI_SHAPES)
+@pytest.mark.parametrize("probe,fn", [
+    (pm.SHIFT3, pm.shift3_plain), (pm.SUB, pm.sub_plain),
+    (pm.STACK, pm.multi3_f_b_plain), (pm.RING4, pm.ring4_plain),
+    (pm.RING_WRITE, pm.multi2_f_e_plain)])
+def test_multi_index_math_matches_plain(probe, fn, shape):
+    """The kernel's word placement, neighbour and ring offsets, emulated
+    on each plan of the chooser and on forced plans of 2, 3 and 8 CTAs a
+    lane, equal the plain version."""
+    G, R, L = shape
+    try:
+        pm.check_multi_shape(probe, G, R, L, _multi_rx(probe, R))
+    except ValueError:
+        return
+    rng = np.random.default_rng(R * L)
+    x = torch.from_numpy(rng.integers(-1000, 1000, (G, R, L),
+                                      dtype=np.int32))
+    xin = pm._pad8(x) if probe in pm.RINGS else x
+    plans = _multi_plans(probe, G, R, L) | {(2, 1024, 4), (3, 704, 1),
+                                            (8, 256, 1)}
+    want = fn(x)
+    for plan in plans:
+        try:
+            pm.check_multi_plan(plan, probe, G, R, L)
+        except ValueError:
+            continue
+        assert torch.equal(_emulate_multi(probe, xin.numpy(), plan), want), \
+            plan
+
+
+ROLL_SHAPES = [(8, 256), (8, 200), (8, 1), (1, 29056), (29, 1001), (1024, 1),
+               (7, 3), (56, 513)]
+
+
+def _emulate_roll(x, iters, plan):
+    """The roll by csrc roll_kernel's index math: element e = t + k *
+    threads; where threads % M == 0 one offset d = sh - (col < sh ? M : 0)
+    a thread from its column t mod M, else each element's column stepped
+    on by threads mod M from the one before."""
+    R, M = x.shape
+    T, per = plan
+    n = R * M
+    t = np.arange(T)[:, None]
+    k = np.arange(per)[None, :]
+    e = t + k * T
+    col = (t % M + k * (T % M)) % M        # the stepped columns
+    assert np.array_equal(col, e % M)
+    ok = e < n
+    a = x.reshape(-1).astype(np.int64).copy()
+    for _ in range(iters):
+        sh = (int(a[0]) & 0xFF) % M
+        b = np.empty_like(a)
+        if T % M == 0:
+            d = sh - np.where(t % M < sh, M, 0) + 0 * k
+            b[e[ok]] = a[(e - d)[ok]] + 1
+        else:
+            b[e[ok]] = a[(e - sh + np.where(col < sh, M, 0))[ok]] + 1
+        a = b
+    return torch.from_numpy(a.reshape(R, M).astype(np.int32))
+
+
+@pytest.mark.parametrize("shape", ROLL_SHAPES)
+def test_roll_plan_covers_every_element_once(shape):
+    R, M = shape
+    plan = pb.roll_plan(R, M)
+    pb.check_roll_plan(plan, R, M)
+    T, per = plan
+    e = (np.arange(T)[:, None] + np.arange(per)[None, :] * T).reshape(-1)
+    assert np.array_equal(np.sort(e[e < R * M]), np.arange(R * M))
+    assert per == 1 or T * (per // 2) < R * M   # the fewest elements a thread
+    # a thread's elements share a column wherever a multiple of M holds
+    # the tile at 32 elements a thread
+    assert (T % M == 0) == (M <= 1024 and (M, R) != (513, 56))
+    rng = np.random.default_rng(R + M)
+    x = torch.from_numpy(rng.integers(-(1 << 30), 1 << 30, (R, M),
+                                      dtype=np.int32))
+    it = 3 if R * M > 4096 else 9
+    assert torch.equal(_emulate_roll(x.numpy(), it, plan),
+                       pb.dynamic_roll_plain(x, it))
+
+
+def test_roll_plan_at_the_tools_shape_and_refusals():
+    """[8, 256]: 512 threads of 4 elements, two rows a pass; a double
+    buffer past one block, or an empty tile, is refused; bad plans too."""
+    assert pb.roll_plan(8, 256) == (512, 4)
+    assert pb.roll_plan(1, 29056) == (1024, 32)
+    for R, M in [(1, 29057), (0, 4), (4, 0)]:
+        with pytest.raises(ValueError):
+            pb.roll_plan(R, M)
+    pb.check_roll_plan((1024, 2), 8, 256)
+    for bad in [(512, 2), (1024, 3), (48, 64), (2048, 1), (16, 32),
+                (0, 32)]:
+        with pytest.raises(ValueError):
+            pb.check_roll_plan(bad, 8, 256)
