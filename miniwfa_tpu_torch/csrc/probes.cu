@@ -36,7 +36,9 @@
 //     block's shared memory); the row write's rows over 128 blocks, 16
 //     bytes a thread a row by plain stores with no fence; the multi
 //     probes' lanes over CTAs of their own, each holding its words in
-//     registers, the lanes of a cross-lane probe in one cluster;
+//     registers, the lanes of a cross-lane probe in one cluster; the
+//     dynamic slices' summed iterations over CTAs and warps, reduced once
+//     inside the launch;
 //   * dynamic slices clamp their start into range, as the reference's
 //     interpret mode does (lax.dynamic_slice / dynamic_update_slice).
 
@@ -387,36 +389,215 @@ __global__ void __launch_bounds__(1024)
     if (tid + k * T < n) out[tid + k * T] = buf[src + tid + k * T];
 }
 
+// ---------------------------------------------- dynamic slices (P4c, P4d)
 // P4c dynamic lane slice: acc[128] += tab[s[n] : s[n] + 128] from a [1, NW]
-// table in shared memory (one thread per lane).
-__global__ void lane_slice_kernel(const int* __restrict__ tab, int NW,
-                                  const int* __restrict__ starts,
-                                  int* __restrict__ out, int iters) {
-  extern __shared__ int s_row[];
-  for (int k = threadIdx.x; k < NW; k += blockDim.x) s_row[k] = tab[k];
-  __syncthreads();
-  const int lane = threadIdx.x;
-  int acc = 0;
-  for (int it = 0; it < iters; ++it) {
-    const int b = clampi(__ldg(starts + it), 0, NW - 128);
-    acc += s_row[b + lane];
-  }
-  out[lane] = acc;
+// table; P4d dynamic sublane slice: acc[2, 128] += tab[r[n] : r[n] + 2, :]
+// from a [NR, 128] table (256 KB at the tool's NR: read through L1/L2).
+// Both loops only sum int32 (mod 2^32: any order gives the same bits), so
+// their iterations are cut over CTAs and warps and summed once, not run
+// one after another on one block (the plan of ops/probes.py::slice_plan):
+//   * CTA c takes the iterations [c * share, c * share + share), share =
+//     ceil(iters / CTAs); its warps take `chunk` consecutive iterations at
+//     a time (ceil(share / warps), at most 32), warp w the chunks w, w +
+//     warps, ...;
+//   * a warp loads a chunk's starts (rows) at once, one a lane, coalesced
+//     (the next chunk's before this one's table loads, P4c's first before
+//     its staging), and broadcasts each by __shfl_sync; the table loads of
+//     SLICE_BATCH iterations are issued before their adds, so a thread
+//     keeps 32 (P4c, shared memory) or 16 (P4d, 16-byte loads through
+//     L1/L2) loads in flight instead of one dependent chain;
+//   * P4c: each CTA stages the row in its shared memory once (16-byte
+//     loads where the table is 16-byte aligned, SLICE_STAGE a thread
+//     before their stores); a thread sums columns
+//     lane + 32 k, k < 4 (32 consecutive words across a warp: one a bank
+//     at any start).  P4d: a 512-byte table row is 32 lanes x 16 bytes, so
+//     a thread sums columns 4 lane .. 4 lane + 3 of both rows;
+//   * the warps' sums meet in shared memory (P4c's in the staged row's) as
+//     the CTA's partial; with one CTA that is out, else every CTA adds its
+//     partial into a scratch sum by atomics and the last CTA to take the
+//     ticket copies that sum to out (slice_finish), all inside the one
+//     launch.  That CTA puts the sum back to 0 and its atomicInc wraps the
+//     ticket back to 0, so the next launch on the stream finds both so;
+//     out needs no zeroing before a launch.
+constexpr int SLICE_MAX_THREADS = 512;
+constexpr int SLICE_MAX_CTAS = 1024;
+constexpr int SLICE_BATCH = 8;  // iterations whose loads go out together
+constexpr int SLICE_STAGE = 4;  // 16-byte loads a thread a staging round
+
+struct SliceRange {
+  int lo, hi, chunk;  // the CTA's iterations [lo, hi); a warp's at a time
+};
+
+__device__ __forceinline__ SliceRange slice_range(int iters) {
+  const int share = (int)((iters + (long long)gridDim.x - 1) / gridDim.x);
+  const int warps = blockDim.x / 32;
+  SliceRange r;
+  r.lo = (int)min((long long)iters, (long long)blockIdx.x * share);
+  r.hi = (int)min((long long)iters, (long long)r.lo + share);
+  r.chunk = min(32, max(1, (share + warps - 1) / warps));
+  return r;
 }
 
-// P4d dynamic sublane slice: acc[2, 128] += tab[r[n] : r[n] + 2, :] from a
-// [NR, 128] table (256 KB at the tool's NR: past shared memory, so read
-// through L1/L2); one thread per element of the [2, 128] accumulator.
-__global__ void sublane_slice_kernel(const int* __restrict__ tab, int NR,
-                                     const int* __restrict__ rows,
-                                     int* __restrict__ out, int iters) {
-  const int j = threadIdx.x / 128, lane = threadIdx.x % 128;
-  int acc = 0;
-  for (int it = 0; it < iters; ++it) {
-    const int r = clampi(__ldg(rows + it), 0, NR - 2);
-    acc += __ldg(tab + (r + j) * 128 + lane);
+// A lane's start (row) of the warp's chunk at `base`, clamped to [0, top];
+// 0 past the chunk or the CTA's range (a warp's loads of the next chunk go
+// out before the current chunk's table loads).
+__device__ __forceinline__ int slice_index(const int* __restrict__ idx,
+                                           int base, const SliceRange& rg,
+                                           int lane, int top) {
+  return lane < rg.chunk && base + lane < rg.hi
+             ? clampi(__ldg(idx + base + lane), 0, top)
+             : 0;
+}
+
+// The end of a sliced sum: the CTA's partial (W words) is the sum of the
+// `warps` rows of s_buf [warps][W].  With one CTA it is out; else each CTA
+// adds its nonzero words into `total` [W] (zero between launches) by
+// fire-and-forget atomics, and the last CTA to take the ticket copies
+// total to out and puts it back to zero.  (No static shared memory: P4c's
+// row may take all a block has.)
+template <int W>
+__device__ void slice_finish(const int* s_buf, int warps,
+                             int* __restrict__ out, int* __restrict__ total,
+                             unsigned* __restrict__ ticket) {
+  const int T = blockDim.x, tid = threadIdx.x, ctas = gridDim.x;
+  for (int k = tid; k < W; k += T) {
+    int v = 0;
+    for (int w = 0; w < warps; ++w) v += s_buf[w * W + k];
+    if (ctas == 1)
+      out[k] = v;
+    else if (v != 0)
+      atomicAdd(total + k, v);
   }
-  out[j * 128 + lane] = acc;
+  if (ctas == 1) return;
+  __syncthreads();  // the CTA's adds are issued: thread 0's ticket releases
+  int last = 0;     // them (cumulative over the barrier) and acquires the
+  if (tid == 0) {   // other CTAs' before the reads below
+    unsigned old;
+    asm volatile("atom.acq_rel.gpu.global.inc.u32 %0, [%1], %2;"
+                 : "=r"(old)
+                 : "l"(ticket), "r"((unsigned)(ctas - 1))
+                 : "memory");
+    last = old == (unsigned)(ctas - 1);
+  }
+  if (!__syncthreads_or(last)) return;
+  for (int k = tid; k < W; k += T) {
+    out[k] = __ldcg(total + k);
+    __stcg(total + k, 0);
+  }
+}
+
+__global__ void __launch_bounds__(SLICE_MAX_THREADS)
+    lane_slice_kernel(const int* __restrict__ tab, int NW,
+                      const int* __restrict__ starts, int* __restrict__ out,
+                      int iters, int* __restrict__ total,
+                      unsigned* __restrict__ ticket) {
+  extern __shared__ __align__(16) int s_row[];  // the row, then the sums
+  const int T = blockDim.x, tid = threadIdx.x;
+  const int warps = T / 32, w = tid / 32, lane = tid % 32;
+  const SliceRange rg = slice_range(iters);
+  const int step = warps * rg.chunk;
+  int base = rg.lo + w * rg.chunk;
+  int mine = slice_index(starts, base, rg, lane, NW - 128);
+  int k0 = 0;  // stage: a thread's loads of a round before its stores
+  if ((reinterpret_cast<unsigned long long>(tab) & 15) == 0) {
+    const int q = NW / 4;
+    const int4* src = reinterpret_cast<const int4*>(tab);
+    int4* dst = reinterpret_cast<int4*>(s_row);
+    for (int k = tid; k < q; k += SLICE_STAGE * T) {
+      int4 v[SLICE_STAGE];
+#pragma unroll
+      for (int u = 0; u < SLICE_STAGE; ++u)
+        if (k + u * T < q) v[u] = __ldg(src + k + u * T);
+#pragma unroll
+      for (int u = 0; u < SLICE_STAGE; ++u)
+        if (k + u * T < q) dst[k + u * T] = v[u];
+    }
+    k0 = 4 * q;
+  }
+  for (int k = k0 + tid; k < NW; k += T) s_row[k] = __ldg(tab + k);
+  __syncthreads();
+  int acc[4] = {0, 0, 0, 0};
+  for (; base < rg.hi; base += step) {
+    const int n = min(rg.chunk, rg.hi - base);
+    const int next = slice_index(starts, base + step, rg, lane, NW - 128);
+    for (int i0 = 0; i0 < n; i0 += SLICE_BATCH) {
+      int got[SLICE_BATCH][4];
+#pragma unroll
+      for (int i = 0; i < SLICE_BATCH; ++i) {
+        const int b = __shfl_sync(~0u, mine, (i0 + i) & 31) + lane;
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          got[i][k] = i0 + i < n ? s_row[b + 32 * k] : 0;
+      }
+#pragma unroll
+      for (int i = 0; i < SLICE_BATCH; ++i)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[k] += got[i][k];
+    }
+    mine = next;
+  }
+  __syncthreads();  // the row is read: its words take the warps' sums
+#pragma unroll
+  for (int k = 0; k < 4; ++k) s_row[w * 128 + lane + 32 * k] = acc[k];
+  __syncthreads();
+  slice_finish<128>(s_row, warps, out, total, ticket);
+}
+
+__device__ __forceinline__ void add4(int4& a, const int4& b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+
+// 4 words of a row; VEC: the table is 16-byte aligned, one 16-byte load
+template <bool VEC>
+__device__ __forceinline__ int4 row4(const int* __restrict__ p) {
+  if (VEC) return __ldg(reinterpret_cast<const int4*>(p));
+  return make_int4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(SLICE_MAX_THREADS)
+    sublane_slice_kernel(const int* __restrict__ tab, int NR,
+                         const int* __restrict__ rows, int* __restrict__ out,
+                         int iters, int* __restrict__ total,
+                         unsigned* __restrict__ ticket) {
+  extern __shared__ __align__(16) int s_part[];  // [warps][2][128]
+  const int T = blockDim.x, tid = threadIdx.x;
+  const int warps = T / 32, w = tid / 32, lane = tid % 32;
+  const SliceRange rg = slice_range(iters);
+  const int step = warps * rg.chunk;
+  int base = rg.lo + w * rg.chunk;
+  int mine = slice_index(rows, base, rg, lane, NR - 2);
+  int4 a0 = make_int4(0, 0, 0, 0), a1 = a0;
+  for (; base < rg.hi; base += step) {
+    const int n = min(rg.chunk, rg.hi - base);
+    const int next = slice_index(rows, base + step, rg, lane, NR - 2);
+    for (int i0 = 0; i0 < n; i0 += SLICE_BATCH) {
+      int4 g0[SLICE_BATCH], g1[SLICE_BATCH];
+#pragma unroll
+      for (int i = 0; i < SLICE_BATCH; ++i) {
+        const int r = __shfl_sync(~0u, mine, (i0 + i) & 31);
+        const int* p = tab + (long long)r * 128 + 4 * lane;
+        g0[i] = g1[i] = make_int4(0, 0, 0, 0);
+        if (i0 + i < n) {
+          g0[i] = row4<VEC>(p);
+          g1[i] = row4<VEC>(p + 128);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < SLICE_BATCH; ++i) {
+        add4(a0, g0[i]);
+        add4(a1, g1[i]);
+      }
+    }
+    mine = next;
+  }
+  reinterpret_cast<int4*>(s_part)[w * 64 + lane] = a0;
+  reinterpret_cast<int4*>(s_part)[w * 64 + 32 + lane] = a1;
+  __syncthreads();
+  slice_finish<256>(s_part, warps, out, total, ticket);
 }
 
 // P4e refill through SMEM scalars: the per-row bases go to shared memory
@@ -1289,24 +1470,49 @@ extern "C" int mwf_probe_roll(const int* x, int* out, int R, int M,
   return (int)cudaErrorInvalidValue;
 }
 
+// The dynamic slices on the plan (ctas, threads) of ops/probes.py::
+// slice_plan: 1 to SLICE_MAX_CTAS CTAs of whole warps up to
+// SLICE_MAX_THREADS.  `scratch`: the ticket at word 0 and the sum [W]
+// from word 4, all 0 between launches.
+inline bool slice_plan_ok(int iters, int ctas, int threads) {
+  return iters >= 0 && ctas >= 1 && ctas <= SLICE_MAX_CTAS &&
+         threads >= 32 && threads <= SLICE_MAX_THREADS && threads % 32 == 0;
+}
+
+// P4c: NW from 128 to the words one block's shared memory holds.
 extern "C" int mwf_probe_lane_slice(const int* tab, int NW, const int* starts,
-                                    int* out, int iters, void* stream) {
-  const int smem = NW * (int)sizeof(int);
-  if (NW < 128) return (int)cudaErrorInvalidValue;
+                                    int* out, int iters, int ctas,
+                                    int threads, int* scratch,
+                                    void* stream) {
+  if (NW < 128 || !slice_plan_ok(iters, ctas, threads))
+    return (int)cudaErrorInvalidValue;
+  const long long words = max(NW, threads / 32 * 128);
+  if (words * (long long)sizeof(int) > SMEM_CAP)
+    return (int)cudaErrorInvalidValue;
+  const int smem = (int)words * (int)sizeof(int);
   static int cache[MAX_DEVICES];
   cudaError_t err = opt_in((const void*)lane_slice_kernel, smem, cache);
   if (err != cudaSuccess) return (int)err;
-  lane_slice_kernel<<<1, 128, smem, (cudaStream_t)stream>>>(tab, NW, starts,
-                                                            out, iters);
+  lane_slice_kernel<<<ctas, threads, smem, (cudaStream_t)stream>>>(
+      tab, NW, starts, out, iters, scratch + 4, (unsigned*)scratch);
   return (int)cudaGetLastError();
 }
 
+// P4d: any NR >= 2.
 extern "C" int mwf_probe_sublane_slice(const int* tab, int NR,
                                        const int* rows, int* out, int iters,
+                                       int ctas, int threads, int* scratch,
                                        void* stream) {
-  if (NR < 2) return (int)cudaErrorInvalidValue;
-  sublane_slice_kernel<<<1, 256, 0, (cudaStream_t)stream>>>(tab, NR, rows,
-                                                            out, iters);
+  if (NR < 2 || !slice_plan_ok(iters, ctas, threads))
+    return (int)cudaErrorInvalidValue;
+  const int smem = threads / 32 * 256 * (int)sizeof(int);
+  cudaStream_t s = (cudaStream_t)stream;
+  if ((reinterpret_cast<unsigned long long>(tab) & 15) == 0)
+    sublane_slice_kernel<true><<<ctas, threads, smem, s>>>(
+        tab, NR, rows, out, iters, scratch + 4, (unsigned*)scratch);
+  else
+    sublane_slice_kernel<false><<<ctas, threads, smem, s>>>(
+        tab, NR, rows, out, iters, scratch + 4, (unsigned*)scratch);
   return (int)cudaGetLastError();
 }
 

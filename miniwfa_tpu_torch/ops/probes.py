@@ -586,6 +586,70 @@ def _roll(x, iters: int, plan=None) -> torch.Tensor:
     return out
 
 
+# ------------------------------------------- dynamic slices (P4c, P4d)
+
+SLICE_MAX_THREADS = 512   # threads a CTA (csrc SLICE_MAX_THREADS)
+SLICE_MAX_CTAS = 1024     # CTAs a launch (csrc SLICE_MAX_CTAS)
+SLICE_MIN_ITERS = 128     # iterations a CTA at least (timed: PERF.md §6)
+SLICE_LANE_MAX_NW = SMEM_OPTIN // 4   # P4c's row in one block's smem
+
+
+def slice_plan(iters: int, sms: int) -> Tuple[int, int]:
+    """(ctas, threads) of a dynamic slice's ``iters`` summed iterations on
+    a card of ``sms`` SMs: contiguous ranges of at least
+    ``SLICE_MIN_ITERS`` iterations a CTA, at most one CTA an SM (one CTA
+    at the tool's 200, 32 at 4096, one an SM at 100000), each of
+    ``SLICE_MAX_THREADS`` threads.  Both were the fastest or within 0.3 µs
+    of it at every count an H100 timed, 0 to 100000 (PERF.md §6): fewer
+    threads stage P4c's row slower, a split of fewer iterations pays more
+    for the sum across CTAs (≈1 µs) than it saves."""
+    return max(1, min(sms, iters // SLICE_MIN_ITERS)), SLICE_MAX_THREADS
+
+
+def check_slice_plan(plan) -> None:
+    """Raise ValueError unless the slice kernels take ``plan`` (the C
+    entries' own checks, made before a launch): 1 to ``SLICE_MAX_CTAS``
+    CTAs of whole warps up to ``SLICE_MAX_THREADS`` threads."""
+    ctas, threads = plan
+    if (not 1 <= ctas <= SLICE_MAX_CTAS or not 32 <= threads
+            <= SLICE_MAX_THREADS or threads % 32):
+        raise ValueError(f"slice plan {plan}: 1 to {SLICE_MAX_CTAS} CTAs "
+                         f"of whole warps up to {SLICE_MAX_THREADS} "
+                         f"threads")
+
+
+_SLICE_SCRATCH = {}
+
+
+def _slice_scratch(fn: str, dev: torch.device, W: int) -> torch.Tensor:
+    """Slice probe ``fn``'s ticket (word 0) and cross-CTA sum (W words from
+    word 4) on the current stream of ``dev``: zeroed once when made, and
+    left at zero by the last CTA of every launch."""
+    key = (fn, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    if key not in _SLICE_SCRATCH:
+        _SLICE_SCRATCH[key] = torch.zeros(4 + W, dtype=torch.int32,
+                                          device=dev)
+    return _SLICE_SCRATCH[key]
+
+
+def _slice(wrapper, fn: str, tab, width: int, idx, W: int, out_shape,
+           plan=None) -> torch.Tensor:
+    """Launch slice probe ``fn`` (its table ``width`` words or rows wide)
+    on ``plan``, by default ``slice_plan``'s for the card; every word of
+    out is written by the launch."""
+    dev = tab.device
+    iters = idx.numel()
+    if plan is None:
+        plan = slice_plan(iters, _sms(dev))
+    check_slice_plan(plan)
+    out = torch.empty(out_shape, dtype=torch.int32, device=dev)
+    scratch = _slice_scratch(fn, dev, W)
+    _launch(wrapper, dev, fn, [_P, _I, _P, _P, _I, _I, _I, _P],
+            tab.data_ptr(), width, idx.data_ptr(), out.data_ptr(), iters,
+            *plan, scratch.data_ptr())
+    return out
+
+
 def lane_slice_plain(tab, starts):
     row = tab.reshape(-1)
     acc = torch.zeros(128, dtype=torch.int32, device=tab.device)
@@ -595,20 +659,31 @@ def lane_slice_plain(tab, starts):
     return acc.reshape(1, 128)
 
 
+def check_lane_slice(NW: int) -> None:
+    """Raise ValueError unless P4c's kernel takes a row of NW words: 128
+    up to what one block's shared memory holds."""
+    if not 128 <= NW <= SLICE_LANE_MAX_NW:
+        raise ValueError(f"lane_slice row of {NW} words: 128 to "
+                         f"{SLICE_LANE_MAX_NW}")
+
+
 @_counted
 def lane_slice(tab, starts):
     """P4c. ``tools/microbench_mosaic3.py:22`` ``run_case`` (pallas_call
     :25), case 3: ``acc += tab[0, s[n] : s[n] + 128]`` over the
-    ``starts [1, iters]`` from a [1, NW] table (shared memory on the
-    card)."""
+    ``starts [1, iters]`` from a [1, NW] table.  On the card the
+    iterations are cut over CTAs and warps (``slice_plan``), each CTA
+    with the row in its shared memory, and summed once in the launch."""
     dev = _device(tab, starts)
     if dev.type == "cpu":
         return lane_slice_plain(tab, starts)
-    out = torch.zeros((1, 128), dtype=torch.int32, device=dev)
-    _launch(lane_slice, dev, "lane_slice", [_P, _I, _P, _P, _I],
-            tab.data_ptr(), tab.numel(), starts.data_ptr(), out.data_ptr(),
-            starts.numel())
-    return out
+    return _lane_slice(tab, starts)
+
+
+def _lane_slice(tab, starts, plan=None) -> torch.Tensor:
+    check_lane_slice(tab.numel())
+    return _slice(lane_slice, "lane_slice", tab, tab.numel(), starts, 128,
+                  (1, 128), plan)
 
 
 def sublane_slice_plain(tab, rows):
@@ -623,18 +698,24 @@ def sublane_slice_plain(tab, rows):
 def sublane_slice(tab, rows):
     """P4d. ``tools/microbench_mosaic3.py:22`` ``run_case`` (pallas_call
     :25), case 4: ``acc += tab[r[n] : r[n] + 2, :]`` over ``rows [1,
-    iters]`` from [NR, 128] (256 KB at NR=512: global memory on the
-    card)."""
+    iters]`` from [NR, 128] (256 KB at NR=512: read through L1/L2 on the
+    card).  On the card the iterations are cut over CTAs and warps
+    (``slice_plan``), a thread's 4 columns of both rows by two 16-byte
+    loads, and summed once in the launch."""
     dev = _device(tab, rows)
     if tab.dim() != 2 or tab.shape[1] != 128:
         raise ValueError("sublane_slice takes a [NR, 128] table")
     if dev.type == "cpu":
         return sublane_slice_plain(tab, rows)
-    out = torch.zeros((2, 128), dtype=torch.int32, device=dev)
-    _launch(sublane_slice, dev, "sublane_slice", [_P, _I, _P, _P, _I],
-            tab.data_ptr(), tab.shape[0], rows.data_ptr(), out.data_ptr(),
-            rows.numel())
-    return out
+    return _sublane_slice(tab, rows)
+
+
+def _sublane_slice(tab, rows, plan=None) -> torch.Tensor:
+    if tab.shape[0] < 2:
+        raise ValueError(f"sublane_slice table of {tab.shape[0]} rows: "
+                         f"at least 2")
+    return _slice(sublane_slice, "sublane_slice", tab, tab.shape[0], rows,
+                  256, (2, 128), plan)
 
 
 def refill_plain(tab, bases):

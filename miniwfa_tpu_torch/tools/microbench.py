@@ -21,7 +21,11 @@ the median of 3 calls), at the tool's loop count and at half of it (the
 ratio, and the marginal time per op between the two, show that the loop
 was not hoisted), beside the time of one PyTorch call that computes one
 op where there is one (``torch.gather``, ``torch.where``, ``torch.add``;
-``torch.roll`` at a fixed shift for P4b, the roll without its ``+ 1``).
+``torch.roll`` at a fixed shift for P4b, the roll without its ``+ 1``;
+for the dynamic slices, at the first start, row or base of the inputs,
+one iteration: P4c ``torch.add(acc, row[b : b + 128])``, P4d
+``torch.add(acc, tab[r : r + 2])``, P4e one row's ``Tensor.copy_`` from
+``row[b : b + 128]``, with the kernel's output as acc or as the row).
 A case of one launch (no loop) also gets its time less the floor.
 ``--device cpu`` runs the plain versions only, at ``--iters`` (default
 3), and prints a digest of each output.
@@ -79,7 +83,8 @@ class Case:
     inputs; ``call(fn, dev, tensors, iters)`` runs wrapper or plain ``fn``
     on them as tensors on ``dev``; ``ops(inputs, iters)`` counts its int32
     operations; ``library(tensors)`` computes one op with one PyTorch call
-    (or is None)."""
+    (or is None); the kernel's outputs follow the inputs in ``tensors``,
+    as an accumulator to add into or a row to copy into (P4c-P4e)."""
 
     pid: str
     fn: Callable
@@ -206,27 +211,39 @@ def mosaic3_cases() -> List[Case]:
         lambda f, dev, x, it: f(x[0], it), it,
         ops=lambda x, it: 3 * x[0].size * it,
         library=lambda x: torch.roll(x[0], ROLL_SHIFT, 1)))
+    make = lambda rng, n: (_ints(rng, (1, 8192), 1 << 20),
+                           _ints(rng, (1, n), 8192 - 128))
+    b = _first(make)
     cases.append(Case(
         "P4c", pb.lane_slice, pb.lane_slice_plain,
-        "dyn lane slice [1,8192]->128",
-        lambda rng, n: (_ints(rng, (1, 8192), 1 << 20),
-                        _ints(rng, (1, n), 8192 - 128)),
+        "dyn lane slice [1,8192]->128", make,
         lambda f, dev, x, it: f(x[0], x[1]), it,
-        ops=lambda x, it: 128 * it))
+        ops=lambda x, it: 128 * it,
+        library=lambda x, b=b: torch.add(x[2], x[0][0, b:b + 128])))
+    make = lambda rng, n: (_ints(rng, (512, 128), 1 << 20),
+                           _ints(rng, (1, n), 512 - 2))
+    r = _first(make)
     cases.append(Case(
         "P4d", pb.sublane_slice, pb.sublane_slice_plain,
-        "dyn sublane slice [512,128]->2 rows",
-        lambda rng, n: (_ints(rng, (512, 128), 1 << 20),
-                        _ints(rng, (1, n), 512 - 2)),
+        "dyn sublane slice [512,128]->2 rows", make,
         lambda f, dev, x, it: f(x[0], x[1]), it,
-        ops=lambda x, it: 256 * it))
+        ops=lambda x, it: 256 * it,
+        library=lambda x, r=r: torch.add(x[2], x[0][r:r + 2])))
+    make = lambda rng, _: (_ints(rng, (1, 8192), 1 << 20),
+                           _ints(rng, (32, 1), 8192 - 128))
+    b = _first(make)
     cases.append(Case(
         "P4e", pb.refill, pb.refill_plain, "refill 32 rows via smem scalars",
-        lambda rng, _: (_ints(rng, (1, 8192), 1 << 20),
-                        _ints(rng, (32, 1), 8192 - 128)),
-        lambda f, dev, x, it: f(x[0], x[1]), 32,
-        unit="row", ops=lambda x, it: 128 * 32))
+        make, lambda f, dev, x, it: f(x[0], x[1]), 32,
+        unit="row", ops=lambda x, it: 128 * 32,
+        library=lambda x, b=b: x[2][0].copy_(x[0][0, b:b + 128])))
     return cases
+
+
+def _first(make) -> int:
+    """The first start (row, base) of a P4c-P4e case's seed-0 inputs
+    (numpy draws it first at any loop count): its library call's slice."""
+    return int(make(np.random.default_rng(0), 1)[1].reshape(-1)[0])
 
 
 def chunk_rows(WR, CR, T, NR, chunked) -> int:
@@ -495,8 +512,9 @@ def measure(c: Case, dev, iters: Optional[int] = None,
     rec.update(bound_ms=b_ms, bound_by=b_by)
     lib = None
     if c.library is not None:
-        c.library(xt)
-        _, lib = cuda_ms(lambda: c.library(xt), REPS)
+        xo = (*xt, *_leaves(out))
+        c.library(xo)
+        _, lib = cuda_ms(lambda: c.library(xo), REPS)
     rec["library_ms"] = lib
     return rec
 
@@ -509,12 +527,12 @@ def card_line() -> str:
 
 
 def _fmt(rec: dict) -> str:
-    s = (f"{rec['pid']:4s} {rec['label']:42s} {rec['per_op_us']:10.4f} "
+    s = (f"{rec['pid']:4s} {rec['label']:42s} {rec['per_op_us']:10.6f} "
          f"us/{rec['unit']} (it={rec['iters']}, {rec['ms']:.4f} ms")
     if "half_ms" in rec:
         s += (f"; it={rec['half_iters']} {rec['half_ms']:.4f} ms, ratio "
               f"{rec['ms'] / max(rec['half_ms'], 1e-9):.2f}, marginal "
-              f"{rec['slope_us']:.4f} us/{rec['unit']}")
+              f"{rec['slope_us']:.6f} us/{rec['unit']}")
     s += f"; bound {rec['bound_ms']:.6f} ms by {rec['bound_by']}"
     if rec.get("library_ms") is not None:
         s += f"; library {rec['library_ms']:.4f} ms/op"

@@ -731,6 +731,124 @@ def test_probe_roll_refuses_bad_plans(dev, monkeypatch):
     assert pb.dynamic_roll.launches == before
 
 
+def _slice_inputs(lane, width, iters, seed):
+    """A P4c row [1, width] or a P4d table [width, 128], and ``iters``
+    starts or rows over the whole legal range and past both of its ends,
+    both ends and INT_MIN / INT_MAX first where iters allows."""
+    rng = np.random.default_rng(seed)
+    tab = rng.integers(-(1 << 31), 1 << 31, (1, width) if lane
+                       else (width, 128), dtype=np.int64).astype(np.int32)
+    hi = width - 128 if lane else width - 2
+    idx = rng.integers(-5, hi + 6, iters).astype(np.int32)
+    edges = [0, hi, hi + 1, -1, (1 << 31) - 1, -(1 << 31)]
+    idx[:min(iters, 6)] = edges[:min(iters, 6)]
+    return torch.from_numpy(tab), torch.from_numpy(idx.reshape(1, iters))
+
+
+def _slice_on(lane, dev, tab, idx, plan, offset=0):
+    """The slice kernel on ``plan`` on ``dev``, its table ``offset`` words
+    into a larger buffer (16-byte unaligned where offset % 4 != 0)."""
+    full = torch.empty(offset + tab.numel(), dtype=torch.int32, device=dev)
+    full[offset:] = tab.reshape(-1).to(dev)
+    t = full[offset:].reshape(tab.shape)
+    if lane:
+        return pb._lane_slice(t, idx.to(dev), plan)
+    return pb._sublane_slice(t, idx.to(dev), plan)
+
+
+@pytest.mark.parametrize("iters", [0, 1, 17, 200, 4097, 100000])
+@pytest.mark.parametrize("lane", [True, False])
+def test_probe_slices_match_plain(dev, lane, iters):
+    """P4c ([1, 8192]) and P4d ([512, 128]) on slice_plan's plan against
+    their plain versions, bit for bit, one launch counted."""
+    tab, idx = _slice_inputs(lane, 8192 if lane else 512, iters, iters)
+    fn = pb.lane_slice if lane else pb.sublane_slice
+    plain = pb.lane_slice_plain if lane else pb.sublane_slice_plain
+    before = fn.launches
+    got = fn(tab.to(dev), idx.to(dev))
+    assert fn.launches == before + 1
+    assert torch.equal(got.cpu(), plain(tab, idx))
+
+
+@pytest.mark.parametrize("width,offset", [(128, 0), (8192, 0), (8190, 0),
+                                          (8190, 1),
+                                          (pb.SMEM_OPTIN // 4, 0),
+                                          (2, 0), (512, 0), (512, 3)])
+@pytest.mark.parametrize("iters,plan", [
+    (17, (1, 32)), (200, (1, 512)), (200, (132, 512)), (200, (300, 64)),
+    (4097, None), (4097, (1024, 32)), (100000, (1, 512)),
+    (100000, None)])
+def test_probe_slices_at_forced_plans_and_widths(dev, width, offset, iters,
+                                                 plan):
+    """Both kernels at forced plans (one warp, one CTA, the SM count, more
+    CTAs than the iterations give SLICE_MIN_ITERS each or than there are
+    iterations) and at their edges: P4c rows of 128, 8192, 8190 (a tail
+    past the 16-byte staging), 8190 at a 4-byte offset (staged by words)
+    and the largest that fits; P4d tables of 2 and 512 rows, 512 at a
+    12-byte offset (rows by 4-byte loads)."""
+    lane = width not in (2, 512)
+    if plan is None:
+        plan = pb.slice_plan(iters, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+    elif plan[0] == 132:
+        plan = (torch.cuda.get_device_properties(dev).multi_processor_count,
+                plan[1])
+    tab, idx = _slice_inputs(lane, width, iters, width + iters)
+    plain = pb.lane_slice_plain if lane else pb.sublane_slice_plain
+    got = _slice_on(lane, dev, tab, idx, plan, offset)
+    assert torch.equal(got.cpu(), plain(tab, idx)), (plan, width)
+
+
+@pytest.mark.parametrize("lane", [True, False])
+def test_probe_slices_twice_in_a_row(dev, lane):
+    """Launches one after another on one stream, at plans of many CTAs,
+    one and many again: a ticket or partial a launch leaves does not leak
+    into the next (out is never zeroed before a launch)."""
+    width = 8192 if lane else 512
+    plain = pb.lane_slice_plain if lane else pb.sublane_slice_plain
+    for k, (iters, plan) in enumerate([(5000, (132, 512)), (5000, (132, 512)),
+                                       (300, (1, 64)), (4097, (77, 256)),
+                                       (4097, (132, 512)), (0, (5, 32))]):
+        tab, idx = _slice_inputs(lane, width, iters, k)
+        got = _slice_on(lane, dev, tab, idx, plan)
+        assert torch.equal(got.cpu(), plain(tab, idx)), (k, plan)
+
+
+def test_probe_slices_refuse_bad_plans(dev, monkeypatch):
+    """A plan or width the kernels do not take raises ValueError before a
+    launch; past the Python checks, the C entries refuse the same
+    (RuntimeError), and no launch is counted."""
+    row = torch.zeros((1, 8192), dtype=torch.int32, device=dev)
+    tab = torch.zeros((512, 128), dtype=torch.int32, device=dev)
+    idx = torch.zeros((1, 16), dtype=torch.int32, device=dev)
+    bad = [(0, 32), (1025, 32), (1, 16), (1, 48), (1, 1024)]
+    for plan in bad:
+        with pytest.raises(ValueError):
+            pb._lane_slice(row, idx, plan)
+        with pytest.raises(ValueError):
+            pb._sublane_slice(tab, idx, plan)
+    short = torch.zeros((1, 127), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        pb.lane_slice(short, idx)
+    with pytest.raises(ValueError):
+        pb.sublane_slice(tab[:1], idx)
+    monkeypatch.setattr(pb, "check_slice_plan", lambda *a: None)
+    monkeypatch.setattr(pb, "check_lane_slice", lambda *a: None)
+    before = (pb.lane_slice.launches, pb.sublane_slice.launches)
+    for plan in bad:
+        with pytest.raises(RuntimeError):
+            pb._lane_slice(row, idx, plan)
+        with pytest.raises(RuntimeError):
+            pb._sublane_slice(tab, idx, plan)
+    with pytest.raises(RuntimeError):
+        pb._lane_slice(short, idx, (1, 32))
+    big = torch.zeros((1, pb.SMEM_OPTIN // 4 + 1), dtype=torch.int32,
+                      device=dev)
+    with pytest.raises(RuntimeError):
+        pb._lane_slice(big, idx, (1, 32))
+    assert (pb.lane_slice.launches, pb.sublane_slice.launches) == before
+
+
 def test_probe_empty_kernel_counts_no_probe_launch(dev):
     """The launch floor's empty kernel runs, counts on its own wrapper
     only, and leaves the tool's 32 wrappers and 61 cases as they were."""

@@ -888,3 +888,151 @@ def test_roll_plan_at_the_tools_shape_and_refusals():
                 (0, 32)]:
         with pytest.raises(ValueError):
             pb.check_roll_plan(bad, 8, 256)
+
+
+# ------------------------------------------- the dynamic slices' plan
+
+def _slice_emulate(tab, idx, plan, lane: bool):
+    """P4c (``lane``) or P4d by the index math of csrc/probes.cu
+    slice_range and slice_finish: CTA ranges, warp chunks, the warps' sums
+    per CTA, the CTAs' partials summed.  Returns (out, the iterations each
+    warp of each CTA ran)."""
+    ctas, T = plan
+    warps = T // 32
+    idx = idx.reshape(-1).astype(np.int64)
+    iters = idx.size
+    if lane:
+        row = tab.reshape(-1).astype(np.int64)
+        take = lambda s: row[min(max(s, 0), row.size - 128):][:128]
+        W = 128
+    else:
+        t2 = tab.astype(np.int64)
+        take = lambda s: t2[min(max(s, 0), t2.shape[0] - 2):][:2].reshape(-1)
+        W = 256
+    share = -(-iters // ctas)
+    parts, ran = np.zeros((ctas, W), np.int64), []
+    for c in range(ctas):
+        lo = min(iters, c * share)
+        hi = min(iters, lo + share)
+        chunk = min(32, max(1, -(-share // warps)))
+        for w in range(warps):
+            mine = []
+            for base in range(lo + w * chunk, hi, warps * chunk):
+                mine += range(base, min(base + chunk, hi))
+            ran.append(mine)
+            for n in mine:
+                parts[c] += take(int(idx[n]))
+    out = parts.sum(0)
+    out = ((out + (1 << 31)) % (1 << 32) - (1 << 31)).astype(np.int32)
+    return out.reshape((1, 128) if lane else (2, 128)), ran
+
+
+def test_slice_plan_at_the_tools_shape():
+    """200 iterations (the tool's): one CTA; 4096: 32; 100000: a CTA an
+    SM; 512 threads a CTA at every count.  A card of 7 SMs takes 7 CTAs
+    from 896 up."""
+    assert pb.slice_plan(200, 132) == (1, 512)
+    assert pb.slice_plan(100000, 132) == (132, 512)
+    assert pb.slice_plan(4096, 132) == (32, 512)
+    for it in (0, 1, 17, 255):
+        assert pb.slice_plan(it, 132)[0] == 1
+    assert pb.slice_plan(256, 132) == (2, 512)
+    assert pb.slice_plan(100000, 7) == (7, 512)
+    assert pb.slice_plan(895, 7) == (6, 512)
+
+
+@pytest.mark.parametrize("iters", [0, 1, 31, 200, 100000])
+@pytest.mark.parametrize("sms", [1, 7, 132])
+def test_slice_plan_runs_every_iteration_once(iters, sms):
+    """Every iteration falls in exactly one CTA's range and one warp's
+    chunks, in order within a chunk, on the chooser's plan."""
+    plan = pb.slice_plan(iters, sms)
+    pb.check_slice_plan(plan)
+    ctas, T = plan
+    assert ctas <= sms
+    idx = np.zeros(iters, np.int32)
+    _, ran = _slice_emulate(np.zeros((4, 128), np.int32), idx, plan, False)
+    flat = np.concatenate([np.asarray(r, np.int64) for r in ran])
+    assert np.array_equal(np.sort(flat), np.arange(iters))
+
+
+@pytest.mark.parametrize("plan", [None, (1, 32), (3, 64), (7, 512),
+                                  (132, 512), (300, 32), (9, 128)])
+@pytest.mark.parametrize("lane", [True, False])
+def test_slice_index_math_matches_plain(plan, lane):
+    """The kernels' cut and reduce, emulated, equal the plain versions at
+    200 iterations with starts before 0 and past the last (clamped) and
+    int32 wrap: the chooser's plan, one warp, CTAs with no iterations."""
+    rng = np.random.default_rng(17)
+    NW, NR = 8190, 512
+    tab = rng.integers(-(1 << 31), 1 << 31, (1, NW) if lane else (NR, 128),
+                       dtype=np.int64).astype(np.int32)
+    hi = NW - 128 if lane else NR - 2
+    idx = rng.integers(-3, hi + 4, (1, 200)).astype(np.int32)
+    idx[0, :4] = [0, hi, hi + 1, -(1 << 31)]
+    plan = plan or pb.slice_plan(200, 132)
+    got, _ = _slice_emulate(tab, idx, plan, lane)
+    plain = pb.lane_slice_plain if lane else pb.sublane_slice_plain
+    assert torch.equal(torch.from_numpy(got),
+                       plain(torch.from_numpy(tab), torch.from_numpy(idx)))
+
+
+def test_slice_refusals_match_the_kernels():
+    """The C entries' refusals, raised as ValueError before any launch:
+    1 to 1024 CTAs of whole warps up to 512 threads; P4c rows of 128 to
+    SMEM_OPTIN / 4 words; P4d tables of at least 2 rows."""
+    for good in [(1, 32), (1024, 512), (132, 96)]:
+        pb.check_slice_plan(good)
+    for bad in [(0, 32), (1025, 32), (1, 0), (1, 16), (1, 48), (1, 544),
+                (1, 1024)]:
+        with pytest.raises(ValueError):
+            pb.check_slice_plan(bad)
+    for NW in (128, 8190, pb.SMEM_OPTIN // 4):
+        pb.check_lane_slice(NW)
+    for NW in (127, pb.SMEM_OPTIN // 4 + 1):
+        with pytest.raises(ValueError):
+            pb.check_lane_slice(NW)
+    before = (pb.lane_slice.launches, pb.sublane_slice.launches)
+    i32 = lambda *s: torch.zeros(s, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        pb._lane_slice(i32(1, 127), i32(1, 4), (1, 32))
+    with pytest.raises(ValueError):
+        pb._lane_slice(i32(1, 256), i32(1, 4), (1, 48))
+    with pytest.raises(ValueError):
+        pb._sublane_slice(i32(1, 128), i32(1, 4), (1, 32))
+    with pytest.raises(ValueError):
+        pb._sublane_slice(i32(4, 128), i32(1, 4), (2000, 32))
+    assert (pb.lane_slice.launches, pb.sublane_slice.launches) == before
+
+
+def test_sass_tool_finds_loop_bodies():
+    """tools/sass.py on cuobjdump's layout: functions by name, opcodes
+    without their guards, a loop from its label to the branch back."""
+    from miniwfa_tpu_torch.tools import sass
+    text = """
+        Function : _Z15popcount_kernelPKiPiii
+        /*0000*/                   LDC R1, c[0x0][0x28] ;   /* 0x000 */
+.L_x_1:
+        /*0100*/                   POPC R5, R4 ;            /* 0x000 */
+        /*0110*/                   IADD3 R4, R5, 0x7, RZ ;  /* 0x000 */
+        /*0120*/               @P0 BRA `(.L_x_1) ;          /* 0x000 */
+        /*0130*/                   EXIT ;                   /* 0x000 */
+.L_x_2:
+        /*0140*/                   BRA `(.L_x_2);
+        Function : _Z7empty_kernelv
+        /*0000*/                   EXIT ;
+"""
+    fns = sass.functions(text)
+    assert list(fns) == ["_Z15popcount_kernelPKiPiii", "_Z7empty_kernelv"]
+    assert sass.loops(fns["_Z15popcount_kernelPKiPiii"]) == [
+        ["POPC", "IADD3", "BRA"], ["BRA"]]
+    assert sass.opcode("@!P1 LDG.E.128.CONSTANT R4, desc[UR4][R2.64]") \
+        == "LDG.E.128.CONSTANT"
+    by_address = """
+        /*0080*/                   POPC R5, R4 ;
+        /*0090*/                   IADD3 R4, R5, 0x7, RZ ;
+        /*00a0*/               @P0 BRA 0x80 ;
+        /*00b0*/                   BRA 0xc0 ;
+        /*00c0*/                   EXIT ;
+"""
+    assert sass.loops(by_address.splitlines()) == [["POPC", "IADD3", "BRA"]]
