@@ -39,6 +39,11 @@
 //     registers, the lanes of a cross-lane probe in one cluster; the
 //     dynamic slices' summed iterations over CTAs and warps, reduced once
 //     inside the launch;
+//   * a probe that is one dependent load deep (one gather, the refill)
+//     keeps every element's chain in flight at once: an index or base
+//     load, the table loads that depend on it, then the stores, spread
+//     over the SMs; it is read against the dependent-load floor
+//     (dep_floor_kernel), not the empty launch;
 //   * dynamic slices clamp their start into range, as the reference's
 //     interpret mode does (lax.dynamic_slice / dynamic_update_slice).
 
@@ -165,21 +170,51 @@ __global__ void __launch_bounds__(GATHER_THREADS)
   }
 }
 
-// One gather (iters == 1: P3, P6a, P6b, and any cut loop): nothing to
-// reuse, so no shared-memory staging; one thread per output element over
-// as many blocks as it takes, the table read through L1/L2.
-template <int AXIS>
+// One gather (P3, P6a, P6b, and P2's or P4a's loop cut to one iteration):
+// nothing to reuse, so no shared-memory staging; the table is read through
+// L1/L2.  Each output costs an index load, a table load that depends on
+// it and a store, so the launch is one dependent-load chain deep and the
+// design keeps every element's chain in flight at once:
+//   * a thread owns a unit of 4 consecutive outputs of a row (VEC: Mi % 4
+//     == 0, idx and out 16-byte aligned): one 16-byte index load, its 4
+//     table loads issued together, one 16-byte store; else one output;
+//   * the units spread over the CTAs of ops/probes.py::once_plan (ctas,
+//     threads), a grid-stride loop past ctas * threads units;
+//   * the row and column of a unit by one 32-bit division (the index
+//     load does not wait for it); idx holds fewer than 2^31 elements, as
+//     the entry point checks.
+template <int AXIS, bool VEC>
 __global__ void gather_once_kernel(const int* __restrict__ tab,
                                    const int* __restrict__ idx,
                                    int* __restrict__ out, int Rt, int Mt,
-                                   int Ri, int Mi, int chain, int lim) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= (long long)Ri * Mi) return;
-  const int r = (int)(e / Mi), c = (int)(e % Mi);
-  const int i = clampi(idx[e], 0, (AXIS == 1 ? Mt : Rt) - 1);
-  const int v = __ldg(tab + (AXIS == 1 ? (long long)r * Mt + i
-                                       : (long long)i * Mt + c));
-  out[e] = chain ? floor_mod(v, lim) : v;
+                                   unsigned Mi, unsigned units, int chain,
+                                   int lim) {
+  constexpr int V = VEC ? 4 : 1;
+  const int hi = (AXIS == 1 ? Mt : Rt) - 1;
+  const unsigned step = gridDim.x * blockDim.x;
+  for (unsigned u = blockIdx.x * blockDim.x + threadIdx.x; u < units;
+       u += step) {
+    int i[V], v[V];
+    if constexpr (VEC) {
+      const int4 q = __ldg(reinterpret_cast<const int4*>(idx) + u);
+      i[0] = q.x, i[1] = q.y, i[2] = q.z, i[3] = q.w;
+    } else {
+      i[0] = __ldg(idx + u);
+    }
+    const unsigned e = V * u, r = e / Mi, c = e - r * Mi;
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const int j = clampi(i[k], 0, hi);
+      v[k] = __ldg(tab + (AXIS == 1 ? (long long)r * Mt + j
+                                    : (long long)j * Mt + c + k));
+    }
+#pragma unroll
+    for (int k = 0; k < V; ++k) v[k] = chain ? floor_mod(v[k], lim) : v[k];
+    if constexpr (VEC)
+      reinterpret_cast<int4*>(out)[u] = make_int4(v[0], v[1], v[2], v[3]);
+    else
+      out[u] = v[0];
+  }
 }
 
 // ------------------------------------------------------- ALU chains (P1c/d)
@@ -600,18 +635,33 @@ __global__ void __launch_bounds__(SLICE_MAX_THREADS)
   slice_finish<256>(s_part, warps, out, total, ticket);
 }
 
-// P4e refill through SMEM scalars: the per-row bases go to shared memory
-// (the TPU's SMEM scratch), then row r of out is tab[b[r] : b[r] + 128].
-__global__ void refill_kernel(const int* __restrict__ tab, int NW,
-                              const int* __restrict__ bases,
-                              int* __restrict__ out, int WR) {
-  extern __shared__ int s_base[];
-  for (int r = threadIdx.x; r < WR; r += blockDim.x) s_base[r] = bases[r];
-  __syncthreads();
-  const int lane = threadIdx.x;
-  for (int r = 0; r < WR; ++r) {
-    const int b = clampi(s_base[r], 0, NW - 128);
-    out[r * 128 + lane] = __ldg(tab + b + lane);
+// P4e refill: row r of out is tab[b : b + 128], b = bases[r] clamped into
+// [0, NW - 128].  The TPU kernel stages the bases in SMEM scalars first;
+// on the card that staging (a load, a barrier) only lengthens the one
+// chain a row is: a base load, then 128 table loads that depend on it,
+// then 128 stores.  So a row is a warp's: every lane reads the row's base
+// itself (one broadcast load), issues its 4 coalesced loads of the row
+// (words lane + 32k; b is unaligned, so they stay 4-byte loads) before
+// any of its stores, then stores them.  Rows go to warps, warps to the
+// CTAs of ops/probes.py::refill_plan (ctas, warps a CTA), row r on global
+// warp r, r - W, ... of W warps.
+constexpr int REFILL_MAX_WARPS = 32;
+constexpr int REFILL_MAX_CTAS = 65535;
+
+__global__ void __launch_bounds__(REFILL_MAX_WARPS * 32)
+    refill_kernel(const int* __restrict__ tab, int NW,
+                  const int* __restrict__ bases, int* __restrict__ out,
+                  int WR) {
+  const int lane = threadIdx.x & 31, per = blockDim.x >> 5;
+  const int warps = gridDim.x * per;
+  for (int r = blockIdx.x * per + (threadIdx.x >> 5); r < WR; r += warps) {
+    const int* src = tab + clampi(__ldg(bases + r), 0, NW - 128) + lane;
+    int v[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v[k] = __ldg(src + 32 * k);
+    int* dst = out + (long long)r * 128 + lane;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) dst[32 * k] = v[k];
   }
 }
 
@@ -1327,38 +1377,51 @@ int launch_gather_ch(int chains, const int* tab, const int* idx, int* out,
   return (int)cudaErrorInvalidValue;
 }
 
+// The shapes both gather entries take: 2-D tab and idx that agree off
+// `axis`, a chain's modulus lim >= 1.
+inline bool gather_shape_ok(int Rt, int Mt, int Ri, int Mi, int axis,
+                            int lim) {
+  return Rt >= 1 && Mt >= 1 && Ri >= 1 && Mi >= 1 && lim >= 1 &&
+         (axis == 0 || axis == 1) && (axis == 0 || Ri == Rt) &&
+         (axis == 1 || Mi == Mt);
+}
+
+constexpr int ONCE_MAX_CTAS = 65535;
+
+template <int AXIS>
+int launch_once(const int* tab, const int* idx, int* out, int Rt, int Mt,
+                int Mi, long long n, int chain, int lim, int ctas,
+                int threads, cudaStream_t s) {
+  const bool vec = Mi % 4 == 0 &&
+                   ((reinterpret_cast<unsigned long long>(idx) |
+                     reinterpret_cast<unsigned long long>(out)) & 15) == 0;
+  if (vec)
+    gather_once_kernel<AXIS, true><<<ctas, threads, 0, s>>>(
+        tab, idx, out, Rt, Mt, Mi, (unsigned)(n / 4), chain, lim);
+  else
+    gather_once_kernel<AXIS, false><<<ctas, threads, 0, s>>>(
+        tab, idx, out, Rt, Mt, Mi, (unsigned)n, chain, lim);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // ----------------------------------------------------------- entry points
 // Each launches on `stream` and returns cudaGetLastError(); shapes the
 // kernel does not take return cudaErrorInvalidValue before any launch.
 
-// A loop (iters > 1) runs on the plan (blocks, per, chains) of
+// The loop runs on the plan (blocks, per, chains) of
 // ops/probes.py::gather_plan: groups of `per` table rows (axis 1) or
 // columns (axis 0), blocks / groups blocks a group, `chains` chains a
-// thread (1, 2, 4 or 8).  One gather (iters == 1) takes no plan.
+// thread (1, 2, 4 or 8).  One gather takes mwf_probe_gather_once.
 extern "C" int mwf_probe_gather(const int* tab, int Rt, int Mt,
                                 const int* idx, int Ri, int Mi, int* out,
                                 int axis, int iters, int chain, int lim,
                                 int zero, int blocks, int per, int chains,
                                 void* stream) {
-  if (Rt < 1 || Mt < 1 || Ri < 1 || Mi < 1 || iters < 1 || lim < 1)
+  if (!gather_shape_ok(Rt, Mt, Ri, Mi, axis, lim) || iters < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (axis != 0 && axis != 1) return (int)cudaErrorInvalidValue;
-  if ((axis == 1 && Ri != Rt) || (axis == 0 && Mi != Mt))
-    return (int)cudaErrorInvalidValue;
-  if (iters == 1) {
-    const long long n = (long long)Ri * Mi;
-    const int blocks = (int)((n + GATHER_THREADS - 1) / GATHER_THREADS);
-    if (axis == 1)
-      gather_once_kernel<1><<<blocks, GATHER_THREADS, 0, s>>>(
-          tab, idx, out, Rt, Mt, Ri, Mi, chain, lim);
-    else
-      gather_once_kernel<0><<<blocks, GATHER_THREADS, 0, s>>>(
-          tab, idx, out, Rt, Mt, Ri, Mi, chain, lim);
-    return (int)cudaGetLastError();
-  }
   // units: what a group is cut from (table rows, or columns); unit: the
   // words of one of them
   const int units = axis == 1 ? Rt : Mt, unit = axis == 1 ? Mt : Rt;
@@ -1374,6 +1437,27 @@ extern "C" int mwf_probe_gather(const int* tab, int Rt, int Mt,
   return launch_gather_ch<0>(chains, tab, idx, out, Rt, Mt, Ri, Mi, blocks,
                              per, blocks / groups, (int)smem, iters, chain,
                              lim, zero, s);
+}
+
+// One gather on the plan (ctas, threads) of ops/probes.py::once_plan: 1 to
+// ONCE_MAX_CTAS CTAs of whole warps up to 1024 threads; idx below 2^31
+// elements.  4 outputs a thread where Mi % 4 == 0 and idx and out are
+// 16-byte aligned, else one.
+extern "C" int mwf_probe_gather_once(const int* tab, int Rt, int Mt,
+                                     const int* idx, int Ri, int Mi,
+                                     int* out, int axis, int chain, int lim,
+                                     int ctas, int threads, void* stream) {
+  const long long n = (long long)Ri * Mi;
+  if (!gather_shape_ok(Rt, Mt, Ri, Mi, axis, lim) || n > INT_MAX ||
+      ctas < 1 || ctas > ONCE_MAX_CTAS || threads < 32 || threads > 1024 ||
+      threads % 32)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (axis == 1)
+    return launch_once<1>(tab, idx, out, Rt, Mt, Mi, n, chain, lim, ctas,
+                          threads, s);
+  return launch_once<0>(tab, idx, out, Rt, Mt, Mi, n, chain, lim, ctas,
+                        threads, s);
 }
 
 extern "C" int mwf_probe_varshift(const int* x, const int* sh, int* out,
@@ -1516,15 +1600,16 @@ extern "C" int mwf_probe_sublane_slice(const int* tab, int NR,
   return (int)cudaGetLastError();
 }
 
+// P4e on the plan (ctas, warps) of ops/probes.py::refill_plan: 1 to
+// REFILL_MAX_CTAS CTAs of 1 to REFILL_MAX_WARPS warps; NW >= 128, WR >= 1.
 extern "C" int mwf_probe_refill(const int* tab, int NW, const int* bases,
-                                int* out, int WR, void* stream) {
-  if (NW < 128 || WR < 1) return (int)cudaErrorInvalidValue;
-  const int smem = WR * (int)sizeof(int);
-  static int cache[MAX_DEVICES];
-  cudaError_t err = opt_in((const void*)refill_kernel, smem, cache);
-  if (err != cudaSuccess) return (int)err;
-  refill_kernel<<<1, 128, smem, (cudaStream_t)stream>>>(tab, NW, bases, out,
-                                                        WR);
+                                int* out, int WR, int ctas, int warps,
+                                void* stream) {
+  if (NW < 128 || WR < 1 || ctas < 1 || ctas > REFILL_MAX_CTAS ||
+      warps < 1 || warps > REFILL_MAX_WARPS)
+    return (int)cudaErrorInvalidValue;
+  refill_kernel<<<ctas, 32 * warps, 0, (cudaStream_t)stream>>>(tab, NW, bases,
+                                                             out, WR);
   return (int)cudaGetLastError();
 }
 
@@ -1612,5 +1697,21 @@ __global__ void empty_kernel() {}
 
 extern "C" int mwf_probe_empty(void* stream) {
   empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+
+// The dependent-load floor: the empty launch plus one chain of what a
+// one-shot gather or the refill does at bottom.  One warp loads 32
+// indices, one word of `tab` at each (the table stays in L2 between
+// launches) and stores the 32 words; no probe's body, no JAX counterpart.
+__global__ void dep_floor_kernel(const int* __restrict__ tab,
+                                 const int* __restrict__ idx,
+                                 int* __restrict__ out) {
+  out[threadIdx.x] = __ldg(tab + __ldg(idx + threadIdx.x));
+}
+
+extern "C" int mwf_probe_dep_floor(const int* tab, const int* idx, int* out,
+                                   void* stream) {
+  dep_floor_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(tab, idx, out);
   return (int)cudaGetLastError();
 }

@@ -127,6 +127,37 @@ def empty(dev) -> None:
         _launch(empty, dev, "empty", [])
 
 
+DEP_FLOOR_WORDS = 8192  # the dependent-load floor's table (32 KB, in L2)
+_DEP_FLOOR = {}
+
+
+@_counted
+def dep_floor(dev) -> None:
+    """The dependent-load floor (``mwf_probe_dep_floor``), launched and
+    timed as a probe is: one warp loads 32 indices, one word of a
+    ``DEP_FLOOR_WORDS`` table at each, and stores the 32 words: one chain
+    of what the one-shot gathers (P3, P6a, P6b) and the refill (P4e) do,
+    the floor they are read against (``tools/microbench.py``).  No
+    probe's wrapper: it counts its launches here only.  Its table,
+    indices (seed 0) and output are made once a card.  Nothing to run on
+    the CPU."""
+    dev = torch.device(dev)
+    if dev.type != "cuda":
+        return
+    key = dev.index if dev.index is not None else torch.cuda.current_device()
+    if key not in _DEP_FLOOR:
+        g = torch.Generator().manual_seed(0)
+        _DEP_FLOOR[key] = tuple(t.to(dev) for t in (
+            torch.randint(0, 1 << 20, (DEP_FLOOR_WORDS,), generator=g,
+                          dtype=torch.int32),
+            torch.randint(0, DEP_FLOOR_WORDS, (32,), generator=g,
+                          dtype=torch.int32),
+            torch.zeros(32, dtype=torch.int32)))
+    tab, idx, out = _DEP_FLOOR[key]
+    _launch(dep_floor, dev, "dep_floor", [_P, _P, _P], tab.data_ptr(),
+            idx.data_ptr(), out.data_ptr())
+
+
 # ------------------------------------------------------------------ gathers
 
 GATHER_THREADS = 256        # threads a block of the gather loop
@@ -202,24 +233,81 @@ def check_gather_plan(plan, Rt: int, Mt: int, axis: int, smem: int) -> None:
                          f"shared memory past {smem}")
 
 
+ONCE_MAX_CTAS = 65535   # CTAs of one gather (csrc ONCE_MAX_CTAS)
+ONCE_MAX_ELEMS = (1 << 31) - 1  # idx elements of one gather (32-bit math)
+
+
+def once_plan(Ri: int, Mi: int, sms: int) -> Tuple[int, int]:
+    """(ctas, threads) of one gather into idx [Ri, Mi] on a card of ``sms``
+    SMs.  A thread owns a unit: 4 outputs of a row where Mi % 4 == 0 (one
+    16-byte index load and store), else one.  The plan takes the whole
+    card: ``sms`` CTAs (more, of 1024 threads, past 1024 units an SM; past
+    ``ONCE_MAX_CTAS`` a thread loops) of the fewest whole warps that give
+    every unit a thread of its own, so each SM queues as few scattered
+    table loads as the card allows; CTAs past the units exit at once.  On
+    an H100 (PERF.md §6) it was the fastest of the 16 plans timed, or
+    within 0.07 µs of it, at each of the tools' eight shapes (P3, P6a,
+    P6b): CTAs of 8 warps or more ran up to 0.7 µs slower, and a plan
+    whose threads loop pays ≈0.4 µs more for every pass."""
+    units = Ri * Mi // 4 if Mi % 4 == 0 else Ri * Mi
+    ctas = min(ONCE_MAX_CTAS, max(sms, -(-units // MAX_THREADS)))
+    return ctas, min(MAX_THREADS, 32 * max(1, -(-units // (32 * ctas))))
+
+
+def check_once_plan(plan) -> None:
+    """Raise ValueError unless one gather takes ``plan`` (the C entry's
+    own checks, made before a launch): 1 to ``ONCE_MAX_CTAS`` CTAs of
+    whole warps up to 1024 threads."""
+    ctas, threads = plan
+    if (not 1 <= ctas <= ONCE_MAX_CTAS or not 32 <= threads <= MAX_THREADS
+            or threads % 32):
+        raise ValueError(f"gather_once plan {plan}: 1 to {ONCE_MAX_CTAS} "
+                         f"CTAs of whole warps up to {MAX_THREADS} threads")
+
+
+def check_gather_shape(Rt: int, Mt: int, Ri: int, Mi: int, axis: int,
+                       lim: int, once: bool) -> None:
+    """Raise ValueError unless the gather entries take these shapes (their
+    own checks, made before a launch): non-empty tab [Rt, Mt] and idx [Ri,
+    Mi] that agree off ``axis`` (0 or 1), a modulus lim >= 1, and for one
+    gather (``once``) fewer than 2^31 idx elements."""
+    if (min(Rt, Mt, Ri, Mi, lim) < 1 or axis not in (0, 1)
+            or (axis == 1 and Ri != Rt) or (axis == 0 and Mi != Mt)):
+        raise ValueError(f"gather of idx [{Ri}, {Mi}] from tab [{Rt}, "
+                         f"{Mt}] along axis {axis} (lim {lim}): non-empty, "
+                         f"the same length off the axis")
+    if once and Ri * Mi > ONCE_MAX_ELEMS:
+        raise ValueError(f"one gather of {Ri * Mi} elements: at most "
+                         f"{ONCE_MAX_ELEMS}")
+
+
 def _gather2d(wrapper, tab, idx, axis: int, iters: int, chain: bool,
               lim: int = 1, plan=None) -> torch.Tensor:
-    """Launch the shared gather kernel on 2-D ``tab`` and ``idx``; a loop
-    (iters > 1) on ``plan``, by default ``gather_plan``'s for the card."""
+    """Launch the shared gather kernels on 2-D ``tab`` and ``idx``: a loop
+    (iters > 1) on ``plan``, by default ``gather_plan``'s for the card;
+    one gather on ``plan``, by default ``once_plan``'s."""
     dev = _device(tab, idx)
     if tab.dim() != 2 or idx.dim() != 2:
         raise ValueError("the gather kernel takes 2-D tab and idx")
     (Rt, Mt), (Ri, Mi) = tab.shape, idx.shape
+    check_gather_shape(Rt, Mt, Ri, Mi, axis, lim, iters == 1)
     if iters == 1:
-        plan = (0, 0, 0)  # one gather takes no plan
+        if plan is None:
+            plan = once_plan(Ri, Mi, _sms(dev))
+        check_once_plan(plan)
     else:
         if plan is None:
             plan = gather_plan(Rt, Mt, Ri, Mi, axis, _sms(dev), SMEM_OPTIN)
         check_gather_plan(plan, Rt, Mt, axis, SMEM_OPTIN)
     out = torch.zeros(idx.shape, dtype=torch.int32, device=dev)
-    _launch(wrapper, dev, "gather", [_P, _I, _I, _P, _I, _I, _P] + [_I] * 8,
-            tab.data_ptr(), Rt, Mt, idx.data_ptr(), Ri, Mi, out.data_ptr(),
-            axis, iters, int(chain), lim, 0, *plan)
+    args = (tab.data_ptr(), Rt, Mt, idx.data_ptr(), Ri, Mi, out.data_ptr(),
+            axis)
+    if iters == 1:
+        _launch(wrapper, dev, "gather_once", [_P, _I, _I, _P, _I, _I, _P]
+                + [_I] * 5, *args, int(chain), lim, *plan)
+    else:
+        _launch(wrapper, dev, "gather", [_P, _I, _I, _P, _I, _I, _P]
+                + [_I] * 8, *args, iters, int(chain), lim, 0, *plan)
     return out
 
 
@@ -728,18 +816,65 @@ def refill_plain(tab, bases):
     return out
 
 
+REFILL_MAX_WARPS = 32     # warps a CTA (csrc REFILL_MAX_WARPS)
+REFILL_MAX_CTAS = 65535   # CTAs a launch (csrc REFILL_MAX_CTAS)
+
+
+def refill_plan(WR: int, sms: int) -> Tuple[int, int]:
+    """(ctas, warps a CTA) of the refill of WR rows on a card of ``sms``
+    SMs: a row a warp, one warp a CTA on as many SMs as there are rows,
+    up to ``sms``, then more warps a CTA (up to 32), then rows a warp.
+    On an H100 (PERF.md §6) the plans took the tool's 32 rows within 0.2
+    µs of each other, one CTA of 32 warps among the slowest; at 132 rows
+    a CTA an SM ran 1.2 µs faster than any plan of 32 warps in all, whose
+    warps take rows in turn."""
+    ctas = max(1, min(WR, sms))
+    return ctas, max(1, min(REFILL_MAX_WARPS, -(-WR // ctas)))
+
+
+def check_refill_plan(plan) -> None:
+    """Raise ValueError unless the refill takes ``plan`` (the C entry's own
+    checks, made before a launch): 1 to ``REFILL_MAX_CTAS`` CTAs of 1 to
+    ``REFILL_MAX_WARPS`` warps."""
+    ctas, warps = plan
+    if not (1 <= ctas <= REFILL_MAX_CTAS and 1 <= warps <= REFILL_MAX_WARPS):
+        raise ValueError(f"refill plan {plan}: 1 to {REFILL_MAX_CTAS} CTAs "
+                         f"of 1 to {REFILL_MAX_WARPS} warps")
+
+
+def check_refill(NW: int, WR: int) -> None:
+    """Raise ValueError unless the refill takes a table of NW words and WR
+    rows (the C entry's own checks): NW >= 128, WR >= 1."""
+    if NW < 128 or WR < 1:
+        raise ValueError(f"refill of {WR} rows from {NW} words: NW >= 128 "
+                         f"and WR >= 1")
+
+
 @_counted
 def refill(tab, bases):
     """P4e. ``tools/microbench_mosaic3.py:22`` ``run_case`` (pallas_call
-    :25), case 5: the [WR, 1] bases go to SMEM scalars (shared memory on
-    the card), then ``out[r] = tab[0, b[r] : b[r] + 128]``."""
+    :25), case 5: the [WR, 1] bases go to SMEM scalars, then ``out[r] =
+    tab[0, b[r] : b[r] + 128]``, b clamped into [0, NW - 128].  On the
+    card a row is a warp's (``refill_plan``): each lane reads the row's
+    base itself and issues its 4 loads of the row before its stores."""
     dev = _device(tab, bases)
     if dev.type == "cpu":
         return refill_plain(tab, bases)
-    out = torch.zeros((bases.numel(), 128), dtype=torch.int32, device=dev)
-    _launch(refill, dev, "refill", [_P, _I, _P, _P, _I],
-            tab.data_ptr(), tab.numel(), bases.data_ptr(), out.data_ptr(),
-            bases.numel())
+    return _refill(tab, bases)
+
+
+def _refill(tab, bases, plan=None) -> torch.Tensor:
+    """Launch the refill on ``plan``, by default ``refill_plan``'s for the
+    card."""
+    dev = tab.device
+    NW, WR = tab.numel(), bases.numel()
+    check_refill(NW, WR)
+    if plan is None:
+        plan = refill_plan(WR, _sms(dev))
+    check_refill_plan(plan)
+    out = torch.empty((WR, 128), dtype=torch.int32, device=dev)
+    _launch(refill, dev, "refill", [_P, _I, _P, _P] + [_I] * 3,
+            tab.data_ptr(), NW, bases.data_ptr(), out.data_ptr(), WR, *plan)
     return out
 
 

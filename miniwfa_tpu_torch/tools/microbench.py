@@ -11,8 +11,10 @@ FILE is one of the JAX probe files under tools/ (``mosaic``, ``mosaic2``,
 
 On the card (the default) it prints the card's name and power limit, then
 the launch floor (the empty kernel's time, timed as a probe is: the
-median of REPS launches), then for every case: the kernel held equal to
-its plain version at CHECK_ITERS loop iterations (16; P5 CHECK_CYCLES,
+median of REPS launches) and the dependent-load floor (one warp's index
+load, dependent table load and store, ``probes.dep_floor``, timed so),
+then for every case: the kernel held equal to its plain version at
+CHECK_ITERS loop iterations (16; P5 CHECK_CYCLES,
 128 cycles), and the kernel's time per op (per cycle for the chunk
 sweep, per row for the row write) from CUDA events around the one
 launch that runs the whole loop
@@ -26,7 +28,7 @@ for the dynamic slices, at the first start, row or base of the inputs,
 one iteration: P4c ``torch.add(acc, row[b : b + 128])``, P4d
 ``torch.add(acc, tab[r : r + 2])``, P4e one row's ``Tensor.copy_`` from
 ``row[b : b + 128]``, with the kernel's output as acc or as the row).
-A case of one launch (no loop) also gets its time less the floor.
+A case of one launch (no loop) also gets its time less each floor.
 ``--device cpu`` runs the plain versions only, at ``--iters`` (default
 3), and prints a digest of each output.
 
@@ -462,27 +464,40 @@ def check_iters(c: Case) -> int:
     return min(c.iters, CHECK_CYCLES if c.unit == "cycle" else CHECK_ITERS)
 
 
-FLOOR_WARM = 200  # empty launches before the floor is timed
+FLOOR_WARM = 200  # launches before a floor is timed
+
+
+def _floor(kernel, dev) -> float:
+    """``kernel(dev)``'s ms, timed as a probe is (``kernel_ms``: the median
+    of REPS launches, each by ``probes.KernelTimer``), after FLOOR_WARM
+    launches that build it and bring the card out of idle."""
+    for _ in range(FLOOR_WARM):
+        kernel(dev)
+    return kernel_ms(lambda: kernel(dev))[1]
 
 
 def launch_floor(dev) -> float:
-    """The empty kernel's ms, timed as a probe is (``kernel_ms``: the
-    median of REPS launches, each by ``probes.KernelTimer``), after
-    FLOOR_WARM launches that build it and bring the card out of idle."""
-    for _ in range(FLOOR_WARM):
-        pb.empty(dev)
-    return kernel_ms(lambda: pb.empty(dev))[1]
+    """The empty kernel's ms: a launch's fixed cost."""
+    return _floor(pb.empty, dev)
+
+
+def dep_floor(dev) -> float:
+    """The dependent-load floor's ms (``probes.dep_floor``): a launch of
+    one warp's index load, dependent load from an L2-resident table and
+    store, what a one-shot gather or the refill cannot go below."""
+    return _floor(pb.dep_floor, dev)
 
 
 def measure(c: Case, dev, iters: Optional[int] = None,
-            check: bool = True, floor: Optional[float] = None) -> dict:
+            check: bool = True, floor: Optional[float] = None,
+            dep: Optional[float] = None) -> dict:
     """One case on the card: the kernel against its plain version at
     ``check_iters`` (when ``check``), then the kernel's ms at ``iters``
     (default the tool's) and at half of it, the plain version's ms at the
     check count and one library op's ms.  Loop counts tied to the shape
     (P4e's rows, the single-shot probes) stay as they are.  A case of one
-    launch (no loop) with a ``floor`` (``launch_floor``) also records its
-    ms less the floor."""
+    launch (no loop) with a ``floor`` (``launch_floor``) or a ``dep``
+    (``dep_floor``) also records its ms less each."""
     free = looped(c)
     it = (iters or c.iters) if free else c.iters
     rec = {"pid": c.pid, "label": c.label, "iters": it, "unit": c.unit}
@@ -506,8 +521,11 @@ def measure(c: Case, dev, iters: Optional[int] = None,
         # the marginal cost of one op, free of the launch's fixed cost
         rec.update(half_iters=h, half_ms=ms_h,
                    slope_us=(ms - ms_h) * 1e3 / max(it - h, 1))
-    elif floor is not None:
-        rec["over_floor_ms"] = ms - floor
+    else:
+        if floor is not None:
+            rec["over_floor_ms"] = ms - floor
+        if dep is not None:
+            rec["over_dep_floor_ms"] = ms - dep
     b_ms, b_by = bound(nbytes(x, out), c.ops(x, it))
     rec.update(bound_ms=b_ms, bound_by=b_by)
     lib = None
@@ -542,15 +560,19 @@ def _fmt(rec: dict) -> str:
               f", max_abs_err={rec['max_abs_err']}")
     if "over_floor_ms" in rec:
         s += f"; over the launch floor {rec['over_floor_ms']:.4f} ms"
+    if "over_dep_floor_ms" in rec:
+        s += (f", over the dependent-load floor "
+              f"{rec['over_dep_floor_ms']:.4f} ms")
     return s + ")"
 
 
 def run(names, dev, iters: Optional[int] = None, check: bool = True,
-        out=None, floor: Optional[float] = None) -> List[dict]:
+        out=None, floor: Optional[float] = None,
+        dep: Optional[float] = None) -> List[dict]:
     """Every case of ``names`` on ``dev``: on a card ``measure`` each (a
-    one-launch case also less ``floor``, where given); on the CPU run the
-    plain versions at ``iters`` (default 3) and report a digest.  Returns
-    one record per case."""
+    one-launch case also less ``floor`` and ``dep``, where given); on the
+    CPU run the plain versions at ``iters`` (default 3) and report a
+    digest.  Returns one record per case."""
     dev = torch.device(dev)
     out = out or sys.stdout
     recs = []
@@ -558,7 +580,7 @@ def run(names, dev, iters: Optional[int] = None, check: bool = True,
         print(f"# {name}", file=out, flush=True)
         for c in FILES[name]():
             if dev.type == "cuda":
-                rec = measure(c, dev, iters, check, floor)
+                rec = measure(c, dev, iters, check, floor, dep)
                 print(_fmt(rec), file=out, flush=True)
             else:
                 it = min(iters or 3, c.iters) if looped(c) else c.iters
@@ -587,7 +609,7 @@ def main(argv=None) -> int:
                          "this file")
     a = ap.parse_args(argv)
     names = list(FILES) if a.file == "all" else [a.file]
-    card, floor = "cpu (plain versions)", None
+    card, floor, dep = "cpu (plain versions)", None, None
     if torch.device(a.device).type == "cuda":
         if not torch.cuda.is_available():
             print("microbench: no CUDA device; use --device cpu for the "
@@ -598,11 +620,15 @@ def main(argv=None) -> int:
         floor = launch_floor(a.device)
         print(f"launch floor {floor:.4f} ms (the empty kernel, median of "
               f"{REPS} launches)", flush=True)
-    recs = run(names, a.device, a.iters, floor=floor)
+        dep = dep_floor(a.device)
+        print(f"dependent-load floor {dep:.4f} ms (one warp: index load, "
+              f"dependent load, store; median of {REPS} launches)",
+              flush=True)
+    recs = run(names, a.device, a.iters, floor=floor, dep=dep)
     if a.json:
         with open(a.json, "w") as f:
             json.dump({"card": card, "launch_floor_ms": floor,
-                       "records": recs}, f, indent=1)
+                       "dep_floor_ms": dep, "records": recs}, f, indent=1)
     bad = [r for r in recs if r.get("max_abs_err", 0)]
     for r in bad:
         print(f"FAIL {r['pid']} {r['label']}: max_abs_err="

@@ -864,6 +864,189 @@ def test_probe_empty_kernel_counts_no_probe_launch(dev):
     assert mb.launch_floor(dev) > 0
 
 
+def test_probe_dep_floor_counts_no_probe_launch(dev):
+    """The dependent-load floor's kernel runs, counts on its own wrapper
+    only, outside the tool's 32 wrappers, and takes longer than nothing."""
+    wrappers = mb.wrappers()
+    before = [f.launches for f in wrappers]
+    d0 = pb.dep_floor.launches
+    pb.dep_floor(dev)
+    torch.cuda.synchronize()
+    assert pb.dep_floor.launches == d0 + 1
+    assert [f.launches for f in wrappers] == before
+    assert pb.dep_floor not in wrappers
+    assert mb.dep_floor(dev) > 0
+
+
+def _sms(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _at(dev, t, offset):
+    """``t`` on ``dev``, ``offset`` words into a larger buffer (16-byte
+    unaligned where offset % 4 != 0)."""
+    full = torch.empty(offset + t.numel(), dtype=torch.int32, device=dev)
+    full[offset:] = t.reshape(-1).to(dev)
+    return full[offset:].reshape(t.shape)
+
+
+def _refill_inputs(NW, WR, seed):
+    """A [1, NW] table and WR bases over the legal range and past both
+    ends, both ends and INT_MIN / INT_MAX first where WR allows."""
+    rng = np.random.default_rng(seed)
+    tab = rng.integers(-(1 << 31), 1 << 31, (1, NW),
+                       dtype=np.int64).astype(np.int32)
+    bases = rng.integers(-5, NW - 128 + 6, (WR, 1)).astype(np.int32)
+    edges = [0, NW - 128, NW - 127, -1, (1 << 31) - 1, -(1 << 31)]
+    bases[:min(WR, 6), 0] = edges[:min(WR, 6)]
+    return torch.from_numpy(tab), torch.from_numpy(bases)
+
+
+@pytest.mark.parametrize("WR,NW", [(32, 8192), (1, 128), (7, 8193),
+                                   (37, 8192), (1000, 8192)])
+@pytest.mark.parametrize("plan", [None, (1, 1), (1, 32), (3, 5), (132, 1),
+                                  (2000, 1)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_probe_refill_at_forced_plans_and_edges(dev, WR, NW, plan, offset):
+    """P4e at the chooser's plan and forced ones (one warp for every row,
+    one CTA of 32 warps, a row count no CTA's warps divide, a CTA an SM,
+    more warps than rows), at tables of one row's words and odd widths,
+    the table one word off 16 bytes, bases out of range both ways."""
+    if plan == (132, 1):
+        plan = (_sms(dev), 1)
+    tab, bases = _refill_inputs(NW, WR, WR + NW + offset)
+    before = pb.refill.launches
+    got = pb._refill(_at(dev, tab, offset), _at(dev, bases, offset), plan)
+    assert pb.refill.launches == before + 1
+    assert torch.equal(got.cpu(), pb.refill_plain(tab, bases)), plan
+
+
+def test_probe_refill_twice_in_a_row(dev):
+    """Launches one after another on one stream at other plans and row
+    counts: each output holds its own launch's rows only."""
+    for k, (WR, plan) in enumerate([(32, None), (32, (1, 32)), (5, (5, 1)),
+                                    (300, None), (32, (32, 1))]):
+        tab, bases = _refill_inputs(8192, WR, k)
+        got = pb._refill(tab.to(dev), bases.to(dev), plan)
+        assert torch.equal(got.cpu(), pb.refill_plain(tab, bases)), k
+
+
+# (Rt, Mt, Ri, Mi, axis): P3's six forms as 2-D, P6's [256, 128], then
+# rows no unit of 4 divides and a single element
+ONCE_SHAPES = [(8, 2048, 8, 2048, 1), (8, 2048, 8, 512, 1),
+               (8, 512, 8, 2048, 1), (64, 512, 8, 512, 0),
+               (8, 512, 8, 512, 0), (32, 512, 32, 512, 1),
+               (256, 128, 256, 128, 1), (8, 2050, 8, 2050, 1),
+               (7, 5, 7, 3, 1), (9, 13, 2, 13, 0), (1, 1, 1, 1, 1)]
+
+
+def _once_inputs(shape, seed):
+    """tab and idx of one gather, the indices over the axis and past both
+    of its ends, INT_MIN among them; with the indices clamped, as the
+    kernel clamps them, for the plain versions (which raise on them)."""
+    Rt, Mt, Ri, Mi, axis = shape
+    n_ax = Mt if axis == 1 else Rt
+    rng = np.random.default_rng(seed)
+    tab = rng.integers(-(1 << 31), 1 << 31, (Rt, Mt),
+                       dtype=np.int64).astype(np.int32)
+    idx = rng.integers(-3, n_ax + 3, (Ri, Mi)).astype(np.int32)
+    idx.reshape(-1)[:4] = [0, n_ax - 1, n_ax, -(1 << 31)][:idx.size]
+    return (torch.from_numpy(tab), torch.from_numpy(idx),
+            torch.from_numpy(np.clip(idx, 0, n_ax - 1)))
+
+
+@pytest.mark.parametrize("shape", ONCE_SHAPES)
+@pytest.mark.parametrize("plan", [None, (1, 32), (3, 64), (132, 32),
+                                  (1000, 1024)])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("chain", [False, True])
+def test_probe_gather_once_at_forced_plans_and_edges(dev, shape, plan,
+                                                     offset, chain):
+    """One gather (P3, P6a, P6b; P2's chain at one iteration with
+    ``chain``) at the chooser's plan and forced ones that loop or leave
+    CTAs idle, by units of 4 and, with tab and idx one word off 16 bytes
+    or rows no unit divides, by single outputs; indices out of range
+    both ways."""
+    Rt, Mt, Ri, Mi, axis = shape
+    if plan == (132, 32):
+        plan = (_sms(dev), 32)
+    tab, idx, clamped = _once_inputs(shape, Rt + Mi + offset)
+    lim = (Rt, Mt)[axis] if chain else 1
+    wrapper = pb.gather_chain if chain else pb.take_along
+    before = wrapper.launches
+    got = pb._gather2d(wrapper, _at(dev, tab, offset), _at(dev, idx, offset),
+                       axis, 1, chain, lim, plan=plan)
+    assert wrapper.launches == before + 1
+    want = (pb.gather_chain_plain(tab, clamped, axis, 1) if chain
+            else pb.take_along_plain(tab, clamped, axis))
+    assert torch.equal(got.cpu(), want), plan
+
+
+@pytest.mark.parametrize("axis", [1, 0])
+def test_probe_gather_chain_at_one_iteration(dev, axis):
+    """P2 (``gather_chain``) at iters = 1 goes through the one-shot kernel
+    and equals its plain version at the tool's [8, 2048]."""
+    c = [c for c in mb.mosaic2_cases() if f"ax{axis}" in c.label][0]
+    x, xt = mb.inputs(c, 3, 1, dev)
+    before = pb.gather_chain.launches
+    got = pb.gather_chain(xt[0], xt[1], axis, 1)
+    assert pb.gather_chain.launches == before + 1
+    want = pb.gather_chain_plain(*(torch.from_numpy(v) for v in x), axis, 1)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_probe_gather_once_twice_in_a_row(dev):
+    """One-shot gathers one after another on one stream at other shapes
+    and plans, each held to its plain version."""
+    for k, (shape, plan) in enumerate([
+            (ONCE_SHAPES[0], None), (ONCE_SHAPES[6], (1, 32)),
+            (ONCE_SHAPES[7], None), (ONCE_SHAPES[0], (3, 64)),
+            (ONCE_SHAPES[3], None)]):
+        tab, idx, clamped = _once_inputs(shape, k)
+        got = pb._gather2d(pb.take_along, tab.to(dev), idx.to(dev),
+                           shape[4], 1, False, plan=plan)
+        assert torch.equal(got.cpu(),
+                           pb.take_along_plain(tab, clamped, shape[4])), k
+
+
+def test_probe_refill_and_once_refuse_bad_plans(dev, monkeypatch):
+    """A plan or shape the refill or one gather does not take raises
+    ValueError before a launch; past the Python checks, the C entries
+    refuse the same (RuntimeError), and no launch is counted."""
+    tab = torch.zeros((1, 8192), dtype=torch.int32, device=dev)
+    bases = torch.zeros((32, 1), dtype=torch.int32, device=dev)
+    t2 = torch.zeros((8, 64), dtype=torch.int32, device=dev)
+    short = torch.zeros((1, 127), dtype=torch.int32, device=dev)
+    rbad = [(0, 1), (65536, 1), (1, 0), (1, 33)]
+    obad = [(0, 32), (65536, 32), (1, 16), (1, 1056)]
+    for plan in rbad:
+        with pytest.raises(ValueError):
+            pb._refill(tab, bases, plan)
+    for plan in obad:
+        with pytest.raises(ValueError):
+            pb._gather2d(pb.take_along, t2, t2, 1, 1, False, plan=plan)
+    with pytest.raises(ValueError):
+        pb.refill(short, bases)
+    with pytest.raises(ValueError):
+        pb._gather2d(pb.take_along, t2, t2[:7], 1, 1, False)
+    monkeypatch.setattr(pb, "check_refill_plan", lambda *a: None)
+    monkeypatch.setattr(pb, "check_refill", lambda *a: None)
+    monkeypatch.setattr(pb, "check_once_plan", lambda *a: None)
+    monkeypatch.setattr(pb, "check_gather_shape", lambda *a: None)
+    before = (pb.refill.launches, pb.take_along.launches)
+    for plan in rbad:
+        with pytest.raises(RuntimeError):
+            pb._refill(tab, bases, plan)
+    for plan in obad:
+        with pytest.raises(RuntimeError):
+            pb._gather2d(pb.take_along, t2, t2, 1, 1, False, plan=plan)
+    with pytest.raises(RuntimeError):
+        pb._refill(short, bases, (1, 1))
+    with pytest.raises(RuntimeError):
+        pb._gather2d(pb.take_along, t2, t2[:7], 1, 1, False, plan=(1, 32))
+    assert (pb.refill.launches, pb.take_along.launches) == before
+
+
 # K1 at every cluster size: CTAs per lane, 16 where the card holds one
 # cluster of 16 (a non-portable size)
 K1_CS = (1, 2, 4, 8, 16)

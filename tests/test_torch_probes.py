@@ -1005,6 +1005,259 @@ def test_slice_refusals_match_the_kernels():
     assert (pb.lane_slice.launches, pb.sublane_slice.launches) == before
 
 
+# ------------------------------------ the refill's and one gather's plans
+
+def _refill_emulate(tab, bases, plan):
+    """P4e by the index math of csrc/probes.cu refill_kernel: row r on
+    global warp r, r + W, ... of W = ctas * warps, each lane words lane +
+    32k of the row from the clamped base.  Returns (out, the rows each
+    warp ran)."""
+    ctas, warps = plan
+    row = tab.reshape(-1).astype(np.int64)
+    b = bases.reshape(-1).astype(np.int64)
+    WR, W = b.size, ctas * warps
+    out = np.full((WR, 128), 7777, np.int64)   # a word no warp writes shows
+    ran = []
+    for gw in range(W):
+        mine = list(range(gw, WR, W))
+        ran.append(mine)
+        for r in mine:
+            src = min(max(int(b[r]), 0), row.size - 128)
+            for lane in range(32):
+                for k in range(4):
+                    out[r, lane + 32 * k] = row[src + lane + 32 * k]
+    return out.astype(np.int32), ran
+
+
+@pytest.mark.parametrize("WR", [1, 7, 32, 33, 132, 1000, 5000])
+@pytest.mark.parametrize("sms", [1, 7, 132])
+def test_refill_plan_owns_every_row_once(WR, sms):
+    """Every row falls to exactly one warp on the chooser's plan, which
+    passes the launcher's check and stays within the card's SMs."""
+    plan = pb.refill_plan(WR, sms)
+    pb.check_refill_plan(plan)
+    ctas, warps = plan
+    assert ctas <= sms and warps <= pb.REFILL_MAX_WARPS
+    W = ctas * warps
+    owner = np.zeros(WR, np.int64)
+    for gw in range(W):
+        owner[gw::W] += 1
+    assert (owner == 1).all()
+    if WR <= 32 * sms:    # one row a warp where the warps allow
+        assert W >= WR
+
+
+def test_refill_plan_at_the_tools_shape():
+    """The tool's 32 rows: a warp a CTA on 32 SMs of an H100; a card of 7
+    SMs takes 7 CTAs of 5 warps."""
+    assert pb.refill_plan(32, 132) == (32, 1)
+    assert pb.refill_plan(32, 7) == (7, 5)
+    assert pb.refill_plan(1, 132) == (1, 1)
+    assert pb.refill_plan(100000, 132) == (132, 32)
+
+
+@pytest.mark.parametrize("plan", [None, (1, 1), (1, 32), (3, 5), (7, 1),
+                                  (32, 1), (50, 2)])
+@pytest.mark.parametrize("WR,NW", [(32, 8192), (37, 8192), (5, 128),
+                                   (64, 8193)])
+def test_refill_index_math_matches_plain(WR, NW, plan):
+    """The kernel's rows-to-warps cut and its clamp, emulated, equal the
+    plain version: bases below 0 and past NW - 128 (clamped), INT_MIN
+    and INT_MAX, a row count no CTA's warps divide, more warps than rows,
+    a table of exactly one row's words."""
+    rng = np.random.default_rng(WR + NW)
+    tab = rng.integers(-(1 << 31), 1 << 31, (1, NW),
+                       dtype=np.int64).astype(np.int32)
+    bases = rng.integers(-5, NW - 128 + 6, (WR, 1)).astype(np.int32)
+    edges = [0, NW - 128, NW - 127, -1, (1 << 31) - 1, -(1 << 31)]
+    bases[:min(WR, 6), 0] = edges[:min(WR, 6)]
+    plan = plan or pb.refill_plan(WR, 132)
+    got, _ = _refill_emulate(tab, bases, plan)
+    assert torch.equal(torch.from_numpy(got),
+                       pb.refill_plain(_t(tab), _t(bases)))
+
+
+def _once_shapes():
+    """(Rt, Mt, Ri, Mi, axis) of every one-shot gather the tools run (P3's
+    six forms as 2-D, P6a and P6b's [4, 64, 128] as [256, 128]), then
+    rows whose width no unit of 4 divides, one element, and a tail."""
+    shapes = []
+    for c in mb.pallas2_cases() + mb.multi_probe_cases()[:2]:
+        x, xt = mb.inputs(c, 0, 1, "cpu")
+        ax = int(c.label[-1]) if c.pid == "P3" else 2
+        t2, i2, a2 = pb._as_2d(*xt, ax)
+        shapes.append((*t2.shape, *i2.shape, a2))
+    assert len(shapes) == 8
+    return shapes + [(8, 2050, 8, 2050, 1), (7, 5, 7, 3, 1),
+                     (9, 13, 2, 13, 0), (1, 1, 1, 1, 1),
+                     (33, 100, 33, 100, 1)]
+
+
+def _once_emulate(tab, idx, axis, chain, lim, plan, vec):
+    """One gather by the index math of csrc/probes.cu gather_once_kernel:
+    units of 4 outputs (``vec``) or one, a grid-stride loop over ctas *
+    threads, row and column by one division, indices clamped into the
+    table, ``chain`` taking floor_mod(v, lim).  Returns (out, how often
+    each output was written)."""
+    ctas, threads = plan
+    Ri, Mi = idx.shape
+    t = tab.astype(np.int64)
+    flat = idx.reshape(-1).astype(np.int64)
+    V = 4 if vec else 1
+    units, step = Ri * Mi // V, ctas * threads
+    hi = (t.shape[1] if axis == 1 else t.shape[0]) - 1
+    out = np.zeros(Ri * Mi, np.int64)
+    hits = np.zeros(Ri * Mi, np.int64)
+    for g in range(min(step, units)):
+        for u in range(g, units, step):
+            e = V * u
+            r, c = e // Mi, e - (e // Mi) * Mi
+            for k in range(V):
+                j = min(max(int(flat[e + k]), 0), hi)
+                v = int(t[r, j] if axis == 1 else t[j, c + k])
+                out[e + k] = v % lim if chain else v  # floor_mod for lim > 0
+                hits[e + k] += 1
+    return out.reshape(Ri, Mi).astype(np.int32), hits
+
+
+@pytest.mark.parametrize("shape", _once_shapes())
+@pytest.mark.parametrize("sms", [1, 7, 132])
+def test_once_plan_owns_every_element_once(shape, sms):
+    """Every output falls to exactly one thread on the chooser's plan (a
+    CTA an SM, the fewest warps that give each unit a thread), by units
+    of 4 where Mi % 4 == 0 and by one (the kernel's path for idx or out
+    off 16 bytes) on the same plan."""
+    Rt, Mt, Ri, Mi, axis = shape
+    plan = pb.once_plan(Ri, Mi, sms)
+    pb.check_once_plan(plan)
+    units = Ri * Mi // 4 if Mi % 4 == 0 else Ri * Mi
+    assert plan[0] == max(sms, -(-units // pb.MAX_THREADS))
+    assert plan[0] * plan[1] >= units > plan[0] * (plan[1] - 32)
+    z = np.zeros((Rt, Mt), np.int32)
+    for vec in ([True, False] if Mi % 4 == 0 else [False]):
+        _, hits = _once_emulate(z, np.zeros((Ri, Mi), np.int32), axis,
+                                False, 1, plan, vec)
+        assert (hits == 1).all(), vec
+
+
+def test_once_plan_at_the_tools_shapes():
+    """An H100 (132 SMs): every SM a CTA, of the fewest warps that give
+    each unit a thread: one warp up to 4,224 units (16,384 outputs in
+    units of 4), two for P6's 8,192; a row of 2050 words by single
+    outputs, 4 warps; past 1024 units an SM, CTAs of 1024 beyond the
+    SMs; a card of 7 SMs and of one."""
+    assert pb.once_plan(8, 2048, 132) == (132, 32)
+    assert pb.once_plan(8, 512, 132) == (132, 32)
+    assert pb.once_plan(32, 512, 132) == (132, 32)
+    assert pb.once_plan(256, 128, 132) == (132, 64)
+    assert pb.once_plan(8, 2050, 132) == (132, 128)
+    assert pb.once_plan(1, 1, 132) == (132, 32)
+    assert pb.once_plan(1000, 1000, 132) == (245, 1024)
+    assert pb.once_plan(8, 2048, 7) == (7, 608)
+    assert pb.once_plan(8, 2048, 1) == (4, 1024)
+    assert pb.once_plan(1 << 15, 1 << 16, 132) == (pb.ONCE_MAX_CTAS, 1024)
+
+
+@pytest.mark.parametrize("plan", [None, (1, 32), (3, 64), (5, 1024),
+                                  (200, 32)])
+@pytest.mark.parametrize("shape", _once_shapes())
+def test_once_index_math_matches_plain(shape, plan):
+    """One gather's units, loop and clamp, emulated, equal the plain
+    versions on every form: take_along (P3, P6a, P6b), and P2's chain at
+    one iteration (floor_mod by the axis' length, of negative table words
+    too), with indices before 0 and past the axis clamped as the kernel
+    clamps them (the plain versions raise on those: they run on the
+    clamped indices); forced plans that loop, and the one-output path
+    where units of 4 fit."""
+    Rt, Mt, Ri, Mi, axis = shape
+    rng = np.random.default_rng(Rt * Mt + Ri)
+    n_ax = Mt if axis == 1 else Rt
+    tab = rng.integers(-(1 << 31), 1 << 31, (Rt, Mt),
+                       dtype=np.int64).astype(np.int32)
+    idx = rng.integers(-3, n_ax + 3, (Ri, Mi)).astype(np.int32)
+    idx.reshape(-1)[:4] = [0, n_ax - 1, n_ax, -(1 << 31)][:idx.size]
+    clamped = _t(np.clip(idx, 0, n_ax - 1))
+    plan = plan or pb.once_plan(Ri, Mi, 132)
+    for vec in ([True, False] if Mi % 4 == 0 else [False]):
+        got, _ = _once_emulate(tab, idx, axis, False, 1, plan, vec)
+        assert torch.equal(torch.from_numpy(got),
+                           pb.take_along_plain(_t(tab), clamped, axis))
+        got, _ = _once_emulate(tab, idx, axis, True, n_ax, plan, vec)
+        assert torch.equal(torch.from_numpy(got),
+                           pb.gather_chain_plain(_t(tab), clamped, axis, 1))
+
+
+def test_once_emulation_on_the_tools_own_forms():
+    """The six P3 forms and P6a, P6b on the tools' seed-0 inputs, through
+    the emulated kernel on the chooser's plan, equal the probes' plain
+    versions in their own shapes (3-D forms folded as the wrappers fold
+    them)."""
+    for c in mb.pallas2_cases() + mb.multi_probe_cases()[:2]:
+        x, xt = mb.inputs(c, 0, 1, "cpu")
+        ax = int(c.label[-1]) if c.pid == "P3" else 2
+        t2, i2, a2 = pb._as_2d(*xt, ax)
+        plan = pb.once_plan(*i2.shape, 132)
+        got, _ = _once_emulate(t2.numpy(), i2.numpy(), a2, False, 1, plan,
+                               i2.shape[1] % 4 == 0)
+        want = c.call(c.plain, "cpu", list(xt), 1)
+        assert np.array_equal(got.reshape(want.shape), want.numpy()), c.label
+
+
+def test_refill_and_once_refusals_match_the_kernels():
+    """The C entries' refusals, raised as ValueError before any launch:
+    the refill at NW < 128, WR < 1 and plans past 1..65535 CTAs of 1..32
+    warps; one gather at shapes that do not agree off the axis, empty
+    ones, lim < 1, 2^31 elements or more, and plans past 1..65535 CTAs of
+    whole warps up to 1024 threads.  No launch is counted."""
+    for good in [(1, 1), (65535, 32), (132, 7)]:
+        pb.check_refill_plan(good)
+    for bad in [(0, 1), (65536, 1), (1, 0), (1, 33)]:
+        with pytest.raises(ValueError):
+            pb.check_refill_plan(bad)
+    pb.check_refill(128, 1)
+    for NW, WR in [(127, 1), (8192, 0)]:
+        with pytest.raises(ValueError):
+            pb.check_refill(NW, WR)
+    for good in [(1, 32), (65535, 1024), (129, 96)]:
+        pb.check_once_plan(good)
+    for bad in [(0, 32), (65536, 32), (1, 0), (1, 16), (1, 48), (1, 1056)]:
+        with pytest.raises(ValueError):
+            pb.check_once_plan(bad)
+    pb.check_gather_shape(8, 2048, 8, 512, 1, 1, True)
+    pb.check_gather_shape(64, 512, 8, 512, 0, 64, True)
+    pb.check_gather_shape(1 << 16, 1 << 15, 1 << 16, (1 << 15) - 1, 1, 1,
+                          True)
+    for bad in [(8, 2048, 7, 2048, 1), (64, 512, 8, 511, 0),
+                (8, 0, 8, 0, 1), (8, 8, 8, 8, 2)]:
+        with pytest.raises(ValueError):
+            pb.check_gather_shape(*bad, 1, True)
+    with pytest.raises(ValueError):
+        pb.check_gather_shape(8, 8, 8, 8, 1, 0, True)
+    with pytest.raises(ValueError):
+        pb.check_gather_shape(1 << 16, 1 << 15, 1 << 16, 1 << 15, 1, 1,
+                              True)
+    pb.check_gather_shape(1 << 16, 1 << 15, 1 << 16, 1 << 15, 1, 1, False)
+    i32 = lambda *s: torch.zeros(s, dtype=torch.int32)
+    before = (pb.refill.launches, pb.take_along.launches,
+              pb.gather_chain.launches)
+    with pytest.raises(ValueError):
+        pb._refill(i32(1, 127), i32(4, 1), (1, 4))
+    with pytest.raises(ValueError):
+        pb._refill(i32(1, 8192), i32(0, 1), (1, 4))
+    with pytest.raises(ValueError):
+        pb._refill(i32(1, 8192), i32(4, 1), (1, 33))
+    with pytest.raises(ValueError):
+        pb._gather2d(pb.take_along, i32(8, 64), i32(8, 64), 1, 1, False,
+                     plan=(1, 16))
+    with pytest.raises(ValueError):
+        pb._gather2d(pb.take_along, i32(8, 64), i32(7, 64), 1, 1, False)
+    with pytest.raises(ValueError):
+        pb._gather2d(pb.gather_chain, i32(8, 64), i32(8, 64), 1, 1, True,
+                     0)
+    assert (pb.refill.launches, pb.take_along.launches,
+            pb.gather_chain.launches) == before
+
+
 def test_sass_tool_finds_loop_bodies():
     """tools/sass.py on cuobjdump's layout: functions by name, opcodes
     without their guards, a loop from its label to the branch back."""
