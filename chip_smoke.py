@@ -187,49 +187,9 @@ def make_pairs(n, b, seed=7):
 
 def gen_case(name):
     """The scale fixtures of tests/data/scale_goldens.json
-    (tools/make_scale_goldens.py::gen_case, restated without JAX)."""
-    import random
-    from miniwfa_tpu_torch.tools.pairs import mutate, rand_seq
-    if name == "del50k":         # one 5 kb deletion
-        rng = random.Random(501)
-        t = rand_seq(rng, 50_000)
-        return t, t[:20_000] + t[25_000:]
-    if name == "div100k":        # 2% substitutions, 0.2% indels
-        rng = random.Random(1001)
-        t = rand_seq(rng, 100_000)
-        return t, mutate(rng, t, sub=0.02, ind=0.002)
-    if name == "div5m":          # the reference's headline 5 Mb pair
-        rng = random.Random(5001)
-        t = rand_seq(rng, 5_000_000)
-        return t, mutate(rng, t, sub=0.008, ind=0.002)
-    if name == "sv300k":         # multi-kb deletions and insertions
-        rng = random.Random(3001)
-        t = rand_seq(rng, 300_000)
-        ins15, ins2 = rand_seq(rng, 15_000), rand_seq(rng, 2_000)
-        q = (t[:50_000] + t[70_000:150_000] + ins15 + t[150_000:200_000]
-             + t[203_000:250_000] + ins2 + t[250_000:])
-        return t, mutate(rng, q, sub=0.01, ind=0.0005)
-    if name == "rep200k":        # tandem repeats, copy-number changes
-        rng = random.Random(2002)
-        u1, u2 = rand_seq(rng, 67), rand_seq(rng, 171)
-        fill = [rand_seq(rng, n) for n in (60_000, 50_000, 70_000)]
-        t = fill[0] + u1 * 150 + fill[1] + u2 * 60 + fill[2]
-        q = fill[0] + u1 * 138 + fill[1] + u2 * 66 + fill[2]
-        return t, mutate(rng, q, sub=0.01, ind=0.0005)
-    if name == "nbear1m":        # N runs and soft-masked stretches
-        rng = random.Random(1101)
-        t = rand_seq(rng, 1_000_000)
-        t = (t[:200_000] + "N" * 5_000 + t[200_000:500_000]
-             + "N" * 10_000 + t[500_000:700_000].lower()
-             + t[700_000:900_000] + "N" * 2_000 + t[900_000:])
-        return t, mutate(rng, t, sub=0.01, ind=0.0005)
-    if name == "dissim150k":     # a 12 kb unrelated region in the query
-        rng = random.Random(1501)
-        t = rand_seq(rng, 150_000)
-        novel = rand_seq(rng, 12_000)
-        q = t[:60_000] + novel + t[72_000:]
-        return t, mutate(rng, q, sub=0.015, ind=0.001)
-    raise KeyError(name)
+    (``tools/pairs.scale_case``), imported when called."""
+    from miniwfa_tpu_torch.tools.pairs import scale_case
+    return scale_case(name)
 
 
 def _reset_counts():

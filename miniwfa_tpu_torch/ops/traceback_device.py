@@ -232,12 +232,13 @@ def walk(tb: torch.Tensor, meta: torch.Tensor, tw: torch.Tensor,
     if rc:
         raise RuntimeError(f"walk kernel ({variant}) launch failed: CUDA "
                            f"error {rc}")
-    count_launch(walk, variant=variant)
+    count_launch(walk, variant=variant, card=dev.index)
     return runs, counts
 
 
 walk.launches = 0
 walk.launches_by_variant = collections.Counter()
+walk.launches_by_card = collections.Counter()
 
 
 def _ptr_count(last_ptr, snap_cnt, dev) -> torch.Tensor:
@@ -302,12 +303,13 @@ def chain_ptrs(snap: torch.Tensor, last_ptr, snap_cnt) -> tuple:
         if rc:
             raise RuntimeError(f"chain_ptrs kernel launch failed: CUDA "
                                f"error {rc}")
-        count_launch(chain_ptrs)
+        count_launch(chain_ptrs, card=dev.index)
     host = out.cpu().numpy()
     return host[0], host[1:]
 
 
 chain_ptrs.launches = 0
+chain_ptrs.launches_by_card = collections.Counter()
 
 
 def to_cigars(runs: torch.Tensor, counts: torch.Tensor) -> List[List[int]]:

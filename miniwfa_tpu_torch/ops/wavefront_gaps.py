@@ -389,7 +389,7 @@ def gaps(spec: GSpec, lens: torch.Tensor, tw: torch.Tensor,
                 raise RuntimeError(f"gaps kernel launch failed (window of "
                                    f"{CLASSES[c]} slots, {count} gaps): "
                                    f"CUDA error {rc}")
-            count_launch(gaps, variant=CLASSES[c])
+            count_launch(gaps, variant=CLASSES[c], card=dev.index)
     count_dispatch(gaps)
     _note(spec, lens, tw, qw, perm, out, tb)
     return out, tb
@@ -405,4 +405,5 @@ def _note(spec: GSpec, lens: torch.Tensor, *bufs) -> None:
 
 gaps.launches = 0
 gaps.launches_by_variant = collections.Counter()
+gaps.launches_by_card = collections.Counter()
 gaps.dispatches = 0

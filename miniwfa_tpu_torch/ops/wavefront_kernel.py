@@ -736,7 +736,7 @@ def wavefront(spec: KSpec, lanes: torch.Tensor, tw: torch.Tensor,
     C = pick_cluster(lanes.shape[0], counts)
     res = launch(spec, lanes, tw, qw, segs, C=C)
     mode = launch_mode(spec, segs)
-    count_launch(wavefront, mode=mode)
+    count_launch(wavefront, mode=mode, card=lanes.device.index)
     # keyed by card: the sharded path launches from one thread per card
     wavefront.clusters.setdefault(lanes.device.index, {})[mode] = {
         "C": C, "clusters": counts.get(C)}
@@ -745,4 +745,5 @@ def wavefront(spec: KSpec, lanes: torch.Tensor, tw: torch.Tensor,
 
 wavefront.launches = 0
 wavefront.launches_by_mode = collections.Counter()
+wavefront.launches_by_card = collections.Counter()
 wavefront.clusters = {}

@@ -185,7 +185,7 @@ def wavefront_multi(spec: wk.KSpec, G: int, lanes: torch.Tensor,
     else:
         res, n = wk.launch(spec, lanes, tw, qw, segs, G), G
     mode = wk.launch_mode(spec, segs)
-    count_launch(wavefront_multi, mode=mode, variant=v)
+    count_launch(wavefront_multi, mode=mode, variant=v, card=dev.index)
     # keyed by card: the sharded path launches from one thread per card
     wavefront_multi.variants.setdefault(dev.index, {})[mode] = {
         "variant": v, "lanes_per_block": n, "G": G}
@@ -195,4 +195,5 @@ def wavefront_multi(spec: wk.KSpec, G: int, lanes: torch.Tensor,
 wavefront_multi.launches = 0
 wavefront_multi.launches_by_mode = collections.Counter()
 wavefront_multi.launches_by_variant = collections.Counter()
+wavefront_multi.launches_by_card = collections.Counter()
 wavefront_multi.variants = {}

@@ -382,7 +382,7 @@ def wide(spec: wk.KSpec, lanes: torch.Tensor, tw: torch.Tensor,
         raise RuntimeError(f"wide kernel launch refused (variant={v} n={n} "
                            f"k={k}): CUDA error {rc}")
     mode = wk.launch_mode(spec, None)
-    count_launch(wide, mode=mode, variant=v)
+    count_launch(wide, mode=mode, variant=v, card=dev.index)
     # keyed by card: the sharded path launches from one thread per card
     wide.tiles.setdefault(dev.index, {})[mode] = {
         "variant": v, "n": n, "k": k, "blocks": wide.blocks[key]}
@@ -404,6 +404,7 @@ def _note(spec: wk.KSpec, lanes: torch.Tensor, tw, qw, state: WideState,
 wide.launches = 0
 wide.launches_by_mode = collections.Counter()
 wide.launches_by_variant = collections.Counter()
+wide.launches_by_card = collections.Counter()
 wide.tiles = {}
 wide.last_stats = {}
 # cooperative grid size per (CUDA device, variant, mode, penalties, n, k)

@@ -25,6 +25,7 @@ all-gather, with a sentinel for its lanes, and then every process raises.
 
 from __future__ import annotations
 
+import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import nullcontext
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -58,7 +59,9 @@ def align_batch_sharded(pairs: Sequence[Tuple[object, object]], opt: Options,
     """Batch alignment over ``mesh`` (default: every visible card) in
     score, CIGAR or low-mem mode.  Scores and n_iter come back for every
     pair on every process, CIGARs for the pairs this process ran (None
-    otherwise)."""
+    otherwise).  ``align_batch_sharded.card_walls`` keeps, by device, the
+    seconds of the last call's ``align_batch`` on that device in this
+    process, timed in its thread."""
     if mesh is None:
         mesh = make_mesh()
     if not pairs:
@@ -94,13 +97,19 @@ def _dispatch(pairs, opt: Options, mesh: Mesh, w0: int, s0: int
 
     def run(dev, lanes):
         with torch.cuda.device(dev) if dev.type == "cuda" else nullcontext():
-            return exact.align_batch([pairs[j] for j in lanes], opt, w0=w0,
-                                     s0=s0, device=dev)
+            t0 = time.perf_counter()
+            res = exact.align_batch([pairs[j] for j in lanes], opt, w0=w0,
+                                    s0=s0, device=dev)
+            # the results are host ints: the card's work is done
+            walls[dev] = time.perf_counter() - t0
+            return res
 
     s = torch.full((n,), NOT_MINE, dtype=torch.int64)
     n_iter = torch.zeros((n,), dtype=torch.int64)
     local: Dict[int, Result] = {}
     errors = []
+    walls: Dict[torch.device, float] = {}
+    align_batch_sharded.card_walls = walls
     with ThreadPoolExecutor(max_workers=max(1, len(owned))) as pool:
         futures = [(lanes, pool.submit(run, dev, lanes))
                    for dev, lanes in owned.items()]
@@ -140,3 +149,6 @@ def _dispatch(pairs, opt: Options, mesh: Mesh, w0: int, s0: int
     return [local[j] if j in local
             else Result(s=s[j], cigar=None, n_iter=n_iter[j])
             for j in range(n)]
+
+
+align_batch_sharded.card_walls = {}

@@ -1801,3 +1801,63 @@ def test_gaps_block_matches_the_wrapper(dev):
             assert fn(c, *pens.values(), ctypes.addressof(smem),
                       ctypes.addressof(warps)) == 0
             assert (smem.value, warps.value) == wg.block_of(spec, c)
+
+
+# the sharded path over several distinct cards
+MULTICARD_RUNS = {"score": Options(), "cigar": Options(cigar=True),
+                  "lowmem_p16": Options(cigar=True, step=16)}
+
+
+def _cards(n):
+    """Every visible card, at least ``n`` of them, else skip."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < n:
+        pytest.skip(f"needs at least {n} CUDA devices")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def _sharded_against_single(pairs, opt, cards, counted, **kw):
+    """``align_batch_sharded`` over ``cards`` against ``align_batch`` on
+    cards[0], bit for bit; every card launched each wrapper of
+    ``counted``.  Returns the sharded results."""
+    from miniwfa_tpu_torch.parallel.batch import align_batch_sharded
+    from miniwfa_tpu_torch.parallel.mesh import make_mesh
+    for fn in counted:
+        fn.launches_by_card.clear()
+    sharded = align_batch_sharded(pairs, opt, make_mesh(cards), **kw)
+    for fn in counted:
+        assert set(fn.launches_by_card) == {c.index for c in cards}, \
+            (fn.__name__, dict(fn.launches_by_card))
+    single = exact.align_batch(pairs, opt, device=cards[0], **kw)
+    assert [(r.s, r.n_iter, r.cigar_str) for r in sharded] == \
+        [(r.s, r.n_iter, r.cigar_str) for r in single]
+    return sharded
+
+
+@pytest.mark.parametrize("run", list(MULTICARD_RUNS))
+def test_multicard_sharded_matches_single_on_goldens(goldens, run):
+    cards = _cards(2)
+    opt = MULTICARD_RUNS[run]
+    counted = [wk.wavefront] + ([tbd.walk] if opt.cigar else []) \
+        + ([tbd.chain_ptrs] if opt.step else [])
+    res = _sharded_against_single(list(zip(*_golden_pairs(goldens))), opt,
+                                  cards, counted)
+    for c, r, e in zip(goldens["cases"], res, goldens["runs"][run]):
+        assert (r.s, r.cigar_str) == (e["s"], e["cigar"]), c["name"]
+
+
+@pytest.mark.parametrize("run", ["score", "lowmem_p16"])
+def test_multicard_wide_route_matches_single(goldens, monkeypatch, run):
+    """Every score and pass-1 dispatch past a 256-diagonal window goes to
+    the wide engine: one cooperative grid on each of 2 cards at once."""
+    cards = _cards(2)[:2]
+    monkeypatch.setattr(exact, "WIDE_SCORE_W_MIN", 256)
+    monkeypatch.setattr(exact, "WIDE_PASS1_W_MIN", 256)
+    names = ("t3", "small7", "ins4", "identity4")
+    cases = [(i, c) for i, c in enumerate(goldens["cases"])
+             if c["name"] in names]
+    res = _sharded_against_single([(c["t"], c["q"]) for _, c in cases],
+                                  MULTICARD_RUNS[run], cards, [ww.wide],
+                                  w0=1024)
+    for (i, c), r in zip(cases, res):
+        e = goldens["runs"][run][i]
+        assert (r.s, r.cigar_str) == (e["s"], e["cigar"]), c["name"]

@@ -194,6 +194,9 @@ def test_port_imports_no_jax():
             "'miniwfa_tpu_torch.tools.k1_ab', "
             "'miniwfa_tpu_torch.tools.microbench', "
             "'miniwfa_tpu_torch.tools.mp_worker', "
+            "'miniwfa_tpu_torch.tools.multicard_smoke', "
+            "'miniwfa_tpu_torch.tools.pairs', "
+            "'miniwfa_tpu_torch.tools.scaling_bench', "
             "'miniwfa_tpu_torch.parallel.batch', "
             "'miniwfa_tpu_torch.parallel.distributed', "
             "'miniwfa_tpu_torch.parallel.dryrun', "

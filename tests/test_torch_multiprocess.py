@@ -1,10 +1,12 @@
-"""A real two-process gloo job of the port's sharded path on the CPU.
+"""Real gloo jobs of the port's sharded path on the CPU.
 
-Each rank (miniwfa_tpu_torch/tools/mp_worker.py) holds two ``cpu``
-entries of the 4-entry global mesh and checks its own results: every
-score on every rank, CIGARs on its own lanes and None elsewhere, in
-score, CIGAR and low-mem mode.  When one rank's ``align_batch`` raises,
-both ranks raise the same error and neither hangs.
+Each rank (miniwfa_tpu_torch/tools/mp_worker.py) holds its ``cpu``
+entries of the global mesh (two a rank in a 2-rank job, one a rank in a
+4-rank job over 10 pairs, not a multiple of 4, and over 3, fewer than
+the ranks) and checks its own results: every score on every rank,
+CIGARs on its own lanes and None elsewhere, in score, CIGAR and low-mem
+mode.  When one rank's ``align_batch`` raises, both ranks raise the same
+error and neither hangs.
 """
 
 import os
@@ -12,6 +14,10 @@ import re
 import socket
 import subprocess
 import sys
+
+import pytest
+
+from miniwfa_tpu_torch.parallel.batch import lane_blocks
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -24,14 +30,15 @@ def _free_port():
     return port
 
 
-def _job(*extra):
-    """Run both ranks to their end (300 s each at most); returns their
+def _job(*extra, nproc=2):
+    """Run every rank to its end (300 s each at most); returns their
     (exit code, output)."""
     addr = f"127.0.0.1:{_free_port()}"
     procs = [subprocess.Popen(
         [sys.executable, "-m", "miniwfa_tpu_torch.tools.mp_worker", addr,
-         "2", str(rank), "--device", "cpu", *extra], cwd=ROOT, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for rank in (0, 1)]
+         str(nproc), str(rank), "--device", "cpu", *extra], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank in range(nproc)]
     outs = []
     try:
         for p in procs:
@@ -43,10 +50,16 @@ def _job(*extra):
     return [(p.returncode, out) for p, out in zip(procs, outs)]
 
 
-def test_two_process_gloo():
-    for rank, (rc, out) in enumerate(_job()):
+@pytest.mark.parametrize("nproc,entries,pairs", [(2, 2, 12), (4, 1, 10),
+                                                  (4, 1, 3)])
+def test_two_process_gloo(nproc, entries, pairs):
+    blocks = lane_blocks(pairs, nproc * entries)
+    res = _job("--entries", str(entries), "--pairs", str(pairs), nproc=nproc)
+    for rank, (rc, out) in enumerate(res):
+        mine = sum(len(b) for b in blocks[rank * entries:
+                                         (rank + 1) * entries])
         assert rc == 0, f"rank {rank}:\n{out[-3000:]}"
-        assert f"MP_OK pid={rank} local_cigars=6" in out, out[-3000:]
+        assert f"MP_OK pid={rank} local_cigars={mine}" in out, out[-3000:]
 
 
 def test_one_rank_failure_raises_on_every_rank():
