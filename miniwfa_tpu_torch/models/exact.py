@@ -14,7 +14,11 @@ each checkpoint score, so its traceback table needs a band of about
 2·step.  Its ``n_iter`` is pass 2's alone, as the reference counts.
 
 Host work (cheap, O(n+s) per pair): sequence packing, capacity bucket
-selection with escalate-and-retry on overflow, checkpoint decoding.
+selection with escalate-and-retry on overflow, checkpoint decoding.  A
+call's host stages are profiler ranges (utils/spans.py): ``mwf.size``
+(first_bucket, pass2_bucket), ``mwf.pack`` (kernel_inputs),
+``mwf.dispatch`` (the copies to the device and the launch) and
+``mwf.cigars`` (the walker and the CIGAR lists).
 Device work: the whole wavefront loop of a batch (ops/wavefront_kernel.py, one
 cluster of blocks per lane, or with ``MWF_ENGINE=multi`` several lanes per
 block, ops/wavefront_multi.py; past its windows, score and pass-1 runs go to
@@ -47,6 +51,7 @@ from ..ops import wavefront_kernel as wk
 from ..ops import wavefront_multi as wm
 from ..ops import wavefront_wide as ww
 from ..utils import hbm
+from ..utils.spans import span
 from . import traceback as tbk
 
 MODE_SCORE, MODE_TB, MODE_PASS1 = wk.MODE_SCORE, wk.MODE_TB, wk.MODE_PASS1
@@ -254,23 +259,25 @@ def kernel_inputs(opt: Options, mode: int, W: int, S_CAP: int,
     """The wavefront kernel's spec and inputs for a batch: (spec, lanes
     int64 [B, L_N], tw, qw int32 [B, NW]) as numpy arrays.  PASS1 takes
     ``opt.step`` and runs without early stops (max_s = max_iter = 0)."""
-    cpw = _cpw_for(ts_list, qs_list)
-    is_p1 = mode == MODE_PASS1
-    spec = wk.KSpec(W=W, S_CAP=S_CAP, x=opt.x, o1=opt.o1, e1=opt.e1,
-                    o2=opt.o2, e2=opt.e2, mode=mode, cpw=cpw,
-                    step=opt.step if is_p1 else 0,
-                    n_snap=_n_snap(opt, S_CAP) if is_p1 else 0)
-    lanes = np.zeros((len(ts_list), wk.L_N), np.int64)
-    for i, (t, q) in enumerate(zip(ts_list, qs_list)):
-        lanes[i, wk.L_TL] = len(t)
-        lanes[i, wk.L_QL] = len(q)
-        # window anchored at the midpoint of start (d=0) and end diagonal
-        lanes[i, wk.L_ANC] = (len(q) - len(t)) // 2 - W // 2
-    lanes[:, wk.L_MS] = 0 if is_p1 else opt.max_s
-    lanes[:, wk.L_MI] = 0 if is_p1 else opt.max_iter
-    mx = max(len(s) for s in list(ts_list) + list(qs_list))
-    return (spec, lanes, pack.pack_words(ts_list, cpw, mx),
-            pack.pack_words(qs_list, cpw, mx))
+    with span(None, "pack"):
+        cpw = _cpw_for(ts_list, qs_list)
+        is_p1 = mode == MODE_PASS1
+        spec = wk.KSpec(W=W, S_CAP=S_CAP, x=opt.x, o1=opt.o1, e1=opt.e1,
+                        o2=opt.o2, e2=opt.e2, mode=mode, cpw=cpw,
+                        step=opt.step if is_p1 else 0,
+                        n_snap=_n_snap(opt, S_CAP) if is_p1 else 0)
+        lanes = np.zeros((len(ts_list), wk.L_N), np.int64)
+        for i, (t, q) in enumerate(zip(ts_list, qs_list)):
+            lanes[i, wk.L_TL] = len(t)
+            lanes[i, wk.L_QL] = len(q)
+            # window anchored at the midpoint of start (d=0) and end
+            # diagonal
+            lanes[i, wk.L_ANC] = (len(q) - len(t)) // 2 - W // 2
+        lanes[:, wk.L_MS] = 0 if is_p1 else opt.max_s
+        lanes[:, wk.L_MI] = 0 if is_p1 else opt.max_iter
+        mx = max(len(s) for s in list(ts_list) + list(qs_list))
+        return (spec, lanes, pack.pack_words(ts_list, cpw, mx),
+                pack.pack_words(qs_list, cpw, mx))
 
 
 def seg_input(segs: Optional[Sequence[Optional[Seg]]]
@@ -332,13 +339,15 @@ def _run_wide(opt: Options, mode: int, bk: _Buckets,
     if mode == MODE_PASS1:
         spec = dataclasses.replace(
             spec, n_snap=min(spec.n_snap, WIDE_SNAP_ROWS0))
-    tw = torch.from_numpy(tw).to(device)
-    qw = torch.from_numpy(qw).to(device)
-    lanes_t = torch.from_numpy(lanes).to(device)
-    out, snap, spec = ww.run_chunked(spec, lanes_t, tw, qw,
-                                     snap_budget=_pass1_budget(device))
-    hbm.note_arrays(f"wide-out mode={mode} B={len(ts_list)} W={spec.W} "
-                    f"S_CAP={spec.S_CAP}", out, snap, lanes_t, tw, qw)
+    with span(None, "dispatch"):
+        tw = torch.from_numpy(tw).to(device)
+        qw = torch.from_numpy(qw).to(device)
+        lanes_t = torch.from_numpy(lanes).to(device)
+        out, snap, spec = ww.run_chunked(spec, lanes_t, tw, qw,
+                                         snap_budget=_pass1_budget(device))
+        hbm.note_arrays(f"wide-out mode={mode} B={len(ts_list)} "
+                        f"W={spec.W} S_CAP={spec.S_CAP}", out, snap,
+                        lanes_t, tw, qw)
     return out.cpu().numpy(), None, snap, lanes, tw, qw, spec
 
 
@@ -364,14 +373,15 @@ def _run_kernel(opt: Options, mode: int, bk: _Buckets,
         return _run_wide(opt, mode, bk, ts_list, qs_list, device)
     spec, lanes, tw, qw = kernel_inputs(opt, mode, bk.W, bk.S_CAP,
                                         ts_list, qs_list)
-    tw = torch.from_numpy(tw).to(device)
-    qw = torch.from_numpy(qw).to(device)
-    sg = seg_input(segs)
-    lanes_t = torch.from_numpy(lanes).to(device)
-    sg = None if sg is None else torch.from_numpy(sg).to(device)
-    G = _multi_g(mode, len(ts_list), device)
-    out, tb, _, snap = wk.wavefront(spec, lanes_t, tw, qw, sg) if G == 1 \
-        else wm.wavefront_multi(spec, G, lanes_t, tw, qw, sg)
+    with span(None, "dispatch"):
+        tw = torch.from_numpy(tw).to(device)
+        qw = torch.from_numpy(qw).to(device)
+        sg = seg_input(segs)
+        lanes_t = torch.from_numpy(lanes).to(device)
+        sg = None if sg is None else torch.from_numpy(sg).to(device)
+        G = _multi_g(mode, len(ts_list), device)
+        out, tb, _, snap = wk.wavefront(spec, lanes_t, tw, qw, sg) \
+            if G == 1 else wm.wavefront_multi(spec, G, lanes_t, tw, qw, sg)
     return out.cpu().numpy(), tb, snap, lanes, tw, qw, spec
 
 
@@ -380,42 +390,50 @@ def first_bucket(opt: Options, mode: int, ts_list, qs_list, w0: int,
     """The first dispatch's bucket for a batch in ``mode``, and the
     device's window cap.  On the card most ladder rungs are replaced by
     upfront sizing."""
-    bk = _buckets_for(opt, ts_list, qs_list, w0, s0)
-    if mode == MODE_SCORE:
-        # score mode holds no buffer that scales with S_CAP: use the full
-        # score bound, so the ladder only ever re-runs for the window
-        bk = _Buckets(bk.LT, bk.LQ, bk.W, bk.S_full, bk.W_full, bk.S_full)
-    w_cap = (_pass1_w_cap(opt, device) if mode == MODE_PASS1
-             else _device_w_cap(mode, device))
-    if bk.W > w_cap:
-        bk = _Buckets(bk.LT, bk.LQ, w_cap, bk.S_CAP, bk.W_full, bk.S_full)
-    if device.type != "cuda" or len(ts_list) > 64:
-        return bk, w_cap
-    if mode == MODE_SCORE:
-        # cycles sweep only the live band, so an oversized window costs
-        # memory and nothing per cycle: jump to 65536 diagonals
-        return _Buckets(bk.LT, bk.LQ, max(bk.W, min(bk.W_full, w_cap, 65536)),
-                        bk.S_CAP, bk.W_full, bk.S_full), w_cap
-    # TB's tb table (S_CAP*W bytes/lane) and PASS1's planes and snapshot
-    # rows scale with W and S_CAP, so both must stay near the real band:
-    # size them from the k-mer divergence estimate, replacing the caller's
-    # w0/s0 hints.  Pass 1 takes more window slack, since an abandoned
-    # rung re-runs it whole and reallocates its snapshots.
-    s_cap_e, s_band_e = _estimate_s(opt, ts_list, qs_list)
-    if not s_cap_e:
-        return bk, w_cap
-    ns = opt.max_pen + 1
-    slack = 4 * ns + 64 if mode == MODE_PASS1 else 2 * ns + 24
-    d_span = max(abs(len(q) - len(t)) for t, q in zip(ts_list, qs_list))
-    est = _Buckets(bk.LT, bk.LQ,
-                   min(_next_pow2(2 * s_band_e + d_span + slack), bk.W_full,
-                       w_cap),
-                   min(_next_pow2(s_cap_e), bk.S_full), bk.W_full, bk.S_full)
-    if mode == MODE_PASS1:
-        fits = _pass1_lane_bytes(opt, est) <= _pass1_budget(device)
-    else:
-        fits = est.S_CAP * est.W <= _tb_budget(device)
-    return (est if fits else bk), w_cap
+    with span(None, "size"):
+        bk = _buckets_for(opt, ts_list, qs_list, w0, s0)
+        if mode == MODE_SCORE:
+            # score mode holds no buffer that scales with S_CAP: use the
+            # full score bound, so the ladder only ever re-runs for the
+            # window
+            bk = _Buckets(bk.LT, bk.LQ, bk.W, bk.S_full, bk.W_full,
+                          bk.S_full)
+        w_cap = (_pass1_w_cap(opt, device) if mode == MODE_PASS1
+                 else _device_w_cap(mode, device))
+        if bk.W > w_cap:
+            bk = _Buckets(bk.LT, bk.LQ, w_cap, bk.S_CAP, bk.W_full,
+                          bk.S_full)
+        if device.type != "cuda" or len(ts_list) > 64:
+            return bk, w_cap
+        if mode == MODE_SCORE:
+            # cycles sweep only the live band, so an oversized window
+            # costs memory and nothing per cycle: jump to 65536 diagonals
+            return _Buckets(bk.LT, bk.LQ,
+                            max(bk.W, min(bk.W_full, w_cap, 65536)),
+                            bk.S_CAP, bk.W_full, bk.S_full), w_cap
+        # TB's tb table (S_CAP*W bytes/lane) and PASS1's planes and
+        # snapshot rows scale with W and S_CAP, so both must stay near the
+        # real band: size them from the k-mer divergence estimate,
+        # replacing the caller's w0/s0 hints.  Pass 1 takes more window
+        # slack, since an abandoned rung re-runs it whole and reallocates
+        # its snapshots.
+        s_cap_e, s_band_e = _estimate_s(opt, ts_list, qs_list)
+        if not s_cap_e:
+            return bk, w_cap
+        ns = opt.max_pen + 1
+        slack = 4 * ns + 64 if mode == MODE_PASS1 else 2 * ns + 24
+        d_span = max(abs(len(q) - len(t))
+                     for t, q in zip(ts_list, qs_list))
+        est = _Buckets(bk.LT, bk.LQ,
+                       min(_next_pow2(2 * s_band_e + d_span + slack),
+                           bk.W_full, w_cap),
+                       min(_next_pow2(s_cap_e), bk.S_full), bk.W_full,
+                       bk.S_full)
+        if mode == MODE_PASS1:
+            fits = _pass1_lane_bytes(opt, est) <= _pass1_budget(device)
+        else:
+            fits = est.S_CAP * est.W <= _tb_budget(device)
+        return (est if fits else bk), w_cap
 
 
 def pass2_bucket(opt: Options, s_p1: Sequence[int], ts_list, qs_list,
@@ -425,15 +443,17 @@ def pass2_bucket(opt: Options, s_p1: Sequence[int], ts_list, qs_list,
     1's score exactly, so its cycle budget is sized from it; its band
     collapses to one diagonal every step scores, so the window takes the
     tighter of that bound and the uncollapsed 2s bound."""
-    bk = _buckets_for(opt, ts_list, qs_list, w0, s0)
-    w_cap = _device_w_cap(MODE_TB, device)
-    ns = opt.max_pen + 1
-    d_span = max(abs(len(q) - len(t)) for t, q in zip(ts_list, qs_list))
-    w2 = min(_next_pow2(2 * opt.step + 2 * ns + 24),
-             _next_pow2(2 * max(s_p1) + d_span + 2 * ns + 24))
-    return _Buckets(bk.LT, bk.LQ, min(w2, bk.W_full, w_cap),
-                    min(-(-(max(s_p1) + 4) // 4096) * 4096, bk.S_full),
-                    bk.W_full, bk.S_full), w_cap
+    with span(None, "size"):
+        bk = _buckets_for(opt, ts_list, qs_list, w0, s0)
+        w_cap = _device_w_cap(MODE_TB, device)
+        ns = opt.max_pen + 1
+        d_span = max(abs(len(q) - len(t))
+                     for t, q in zip(ts_list, qs_list))
+        w2 = min(_next_pow2(2 * opt.step + 2 * ns + 24),
+                 _next_pow2(2 * max(s_p1) + d_span + 2 * ns + 24))
+        return _Buckets(bk.LT, bk.LQ, min(w2, bk.W_full, w_cap),
+                        min(-(-(max(s_p1) + 4) // 4096) * 4096, bk.S_full),
+                        bk.W_full, bk.S_full), w_cap
 
 
 def _run_pass1(opt: Options, ts_list: List[bytes], qs_list: List[bytes],
@@ -574,9 +594,10 @@ def align_batch(pairs: Sequence[Tuple[object, object]], opt: Options,
         stopped = o[:, wk.O_STOP] != 0
         cigs = None
         if opt.cigar:
-            meta = torch.from_numpy(walk_meta(lanes, o)).to(device)
-            runs, counts = tbd.walk(tb, meta, tw, qw, spec.cpw, pens)
-            cigs = tbd.to_cigars(runs, counts)
+            with span(None, "cigars"):
+                meta = torch.from_numpy(walk_meta(lanes, o)).to(device)
+                runs, counts = tbd.walk(tb, meta, tw, qw, spec.cpw, pens)
+                cigs = tbd.to_cigars(runs, counts)
         tb = tw = qw = None   # free the traceback buffer before a re-run
         retry = []
         for j, i in enumerate(idx):

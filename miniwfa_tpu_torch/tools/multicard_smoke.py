@@ -250,7 +250,7 @@ def busy_by_card(prof) -> Dict[int, float]:
 
 def traced(fn, cards: Sequence[int]) -> Tuple[float, dict]:
     """Run ``fn()`` under ``torch.profiler`` (CPU and CUDA activities, as
-    ``tools/trace_main.py``); returns (the synchronised wall, {card: (busy
+    ``wfabench/trace.py``); returns (the synchronised wall, {card: (busy
     seconds, busy share)})."""
     from torch.profiler import ProfilerActivity, profile
     sync(cards)

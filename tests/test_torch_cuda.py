@@ -1861,3 +1861,33 @@ def test_multicard_wide_route_matches_single(goldens, monkeypatch, run):
     for (i, c), r in zip(cases, res):
         e = goldens["runs"][run][i]
         assert (r.s, r.cigar_str) == (e["s"], e["cigar"]), c["name"]
+
+
+@pytest.mark.parametrize("opt,stages", [
+    (Options(), {"size", "pack", "dispatch"}),
+    (Options(cigar=True), {"size", "pack", "dispatch", "cigars"})],
+    ids=["score", "cigar"])
+def test_align_batch_stages_are_host_ranges_on_the_card(dev, opt, stages):
+    """Under ``torch.profiler`` with CUDA activity, each of
+    ``align_batch``'s stages is a host range ``mwf.<stage>``, and none is
+    mirrored onto the card's timeline, where it would read as work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    ts, qs = _bench8k()
+    pairs = list(zip(ts, qs))
+    exact.align_batch(pairs, opt, device=dev)          # builds the kernels
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        exact.align_batch(pairs, opt, device=dev)
+        torch.cuda.synchronize(dev)
+    events = prof.events()
+    on_host = {e.name for e in events if e.name.startswith("mwf.")
+               and e.device_type == DeviceType.CPU}
+    on_card = [e.name for e in events if e.name.startswith("mwf.")
+               and e.device_type == DeviceType.CUDA]
+    assert on_host == {"mwf." + s for s in stages}
+    assert on_card == []
+    # the card ran the call's kernels inside the traced range
+    assert any(e.device_type == DeviceType.CUDA
+               and "wavefront_kernel" in e.name for e in events)
