@@ -112,7 +112,7 @@ def as_bytes(s) -> bytes:
 def _cpw_for(ts_list: Sequence[bytes], qs_list: Sequence[bytes]) -> int:
     """Packing mode for a batch: 16 chars/word (2-bit) when every byte is
     uppercase ACGT, else 4 chars/word (raw bytes)."""
-    return 16 if pack.can_pack2(ts_list) and pack.can_pack2(qs_list) else 4
+    return 16 if pack.can_pack2([*ts_list, *qs_list]) else 4
 
 
 @dataclass(frozen=True)
@@ -158,7 +158,7 @@ def _estimate_s(opt: Options, ts_list, qs_list) -> Tuple[int, int]:
     sizing the first CIGAR-mode dispatch instead of climbing the
     escalation ladder.
 
-    Uses the k-mer similarity (ops.kmer.ksim, the reference mwf_ksim,
+    Uses the k-mer similarity (ops.kmer.ksims, the reference mwf_ksim,
     miniwfa.c:786-812): divergence ≈ 1 - sim^(1/k), each diverged base
     costs ≤ x, plus the length-difference gap cost.  Clustered divergence
     makes this an underestimate — the escalation ladder stays as the
@@ -169,11 +169,11 @@ def _estimate_s(opt: Options, ts_list, qs_list) -> Tuple[int, int]:
     shared k-mers)."""
     from ..ops import kmer as km
     s_cap_e = s_band_e = 0
-    for t, q in zip(ts_list, qs_list):
+    pairs = list(zip(ts_list, qs_list))
+    if any(min(len(t), len(q)) < 2048 for t, q in pairs):
+        return 0, 0              # ladder rungs are cheap at this size
+    for (t, q), sim in zip(pairs, km.ksims(pairs, 13)):
         tl, ql = len(t), len(q)
-        if min(tl, ql) < 2048:
-            return 0, 0          # ladder rungs are cheap at this size
-        sim = km.ksim(t, q, 13)
         if sim <= 0.0:
             return 0, 0          # dissimilar or non-ACGT: keep the ladder
         div = 1.0 - sim ** (1.0 / 13.0)

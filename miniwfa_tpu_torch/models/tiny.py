@@ -114,7 +114,7 @@ def align_tiny_batch(pairs: Sequence[Tuple[object, object]], opt: Options,
     results: List[Optional[Result]] = [None] * n
     if n == 0:
         return []
-    cpw = 16 if pack.can_pack2(ts_list) and pack.can_pack2(qs_list) else 4
+    cpw = 16 if pack.can_pack2(ts_list + qs_list) else 4
     pens = (opt.x, opt.o1, opt.e1, opt.o2, opt.e2)
 
     # order by score bound so each dispatch's cycle budget (and its tb

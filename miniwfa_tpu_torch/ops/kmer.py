@@ -12,7 +12,7 @@ native runtime when it is built (utils/native.py), else over numpy.
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -27,25 +27,32 @@ for _i, _ch in enumerate("ACGT"):
 NT4[ord("U")] = NT4[ord("u")] = 3
 
 
-def kmer_codes(seq: bytes, rid: int, k: int) -> np.ndarray:
+def kmer_codes(seq: bytes, rid: int, k: int,
+               out: Optional[np.ndarray] = None) -> np.ndarray:
     """All valid k-mers as ``(kmer<<1|rid)<<32 | end_pos`` uint64 values
-    (reference mg_fc_kmer, miniwfa.c:718-730)."""
+    (reference mg_fc_kmer, miniwfa.c:718-730); written to the front of
+    ``out`` (contiguous uint64, len(seq) at least) when it is given."""
     if native.available():
-        return native.kmer_codes(seq, rid, k)
+        return native.kmer_codes(seq, rid, k, out)
     n = len(seq)
     if n < k:
-        return np.zeros(0, dtype=np.uint64)
-    codes = NT4[np.frombuffer(seq, dtype=np.uint8)].astype(np.uint64)
-    bad = codes >= 4
-    # window [i-k+1, i] is valid iff it contains no bad char
-    cbad = np.concatenate([[0], np.cumsum(bad)])
-    valid = (cbad[k:] - cbad[:-k]) == 0          # at end positions k-1..n-1
-    x = np.zeros(n - k + 1, dtype=np.uint64)
-    for j in range(k):
-        x = (x << np.uint64(2)) | codes[j: j + n - k + 1]
-    pos = np.arange(k - 1, n, dtype=np.uint64)
-    out = ((x << np.uint64(1)) | np.uint64(rid)) << np.uint64(32) | pos
-    return out[valid]
+        codes = np.zeros(0, dtype=np.uint64)
+    else:
+        nt = NT4[np.frombuffer(seq, dtype=np.uint8)].astype(np.uint64)
+        bad = nt >= 4
+        # window [i-k+1, i] is valid iff it contains no bad char
+        cbad = np.concatenate([[0], np.cumsum(bad)])
+        valid = (cbad[k:] - cbad[:-k]) == 0      # at end positions k-1..n-1
+        x = np.zeros(n - k + 1, dtype=np.uint64)
+        for j in range(k):
+            x = (x << np.uint64(2)) | nt[j: j + n - k + 1]
+        pos = np.arange(k - 1, n, dtype=np.uint64)
+        codes = (((x << np.uint64(1)) | np.uint64(rid)) << np.uint64(32)
+                 | pos)[valid]
+    if out is None:
+        return codes
+    out[:codes.size] = codes
+    return out[:codes.size]
 
 
 def _group_bounds(keys: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -165,17 +172,45 @@ def anchor_filter(anchors: np.ndarray, tl: int, ql: int, k: int,
 def ksim(ts: bytes, qs: bytes, k: int) -> float:
     """max(shared/n1, shared/n2) over the k-mer multiset intersection
     (reference mwf_ksim, miniwfa.c:786-812)."""
-    if len(ts) < k or len(qs) < k:
-        return 0.0
-    a = np.sort(np.concatenate([kmer_codes(ts, 0, k), kmer_codes(qs, 1, k)]))
-    starts, counts = _group_bounds(a >> np.uint64(33))
-    rid = ((a >> np.uint64(32)) & np.uint64(1)).astype(np.int64)
-    crid = np.concatenate([[0], np.cumsum(rid)])
-    m1 = counts - (crid[starts + counts] - crid[starts])
-    m2 = counts - m1
-    both = (m1 > 0) & (m2 > 0)
-    shared = int(np.minimum(m1, m2)[both].sum())
-    n1, n2 = int(m1.sum()), int(m2.sum())
-    p1 = shared / n1 if n1 > 0 else 0.0
-    p2 = shared / n2 if n2 > 0 else 0.0
-    return max(p1, p2)
+    return next(ksims([(ts, qs)], k))
+
+
+def ksims(pairs: Sequence[Tuple[bytes, bytes]], k: int) -> Iterator[float]:
+    """``ksim`` of each pair, in order.  The work arrays are allocated
+    once, for the longest pair, and reused: fresh arrays a pair cost more
+    in page faults than the sort does."""
+    cap = max((len(t) + len(q) for t, q in pairs), default=0)
+    codes = np.empty(cap, np.uint64)
+    key = np.empty(cap, np.uint32)       # kmer<<1|rid
+    group = np.empty(cap, np.uint32)     # a run's k-mer
+    flag = np.empty(cap, bool)
+    ends = np.empty(cap + 1, np.int64)
+    lens = np.empty(cap, np.int64)
+    mins = codes.view(np.int64)          # codes are spent by then
+    for ts, qs in pairs:
+        if len(ts) < k or len(qs) < k:
+            yield 0.0
+            continue
+        n1 = kmer_codes(ts, 0, k, codes).size
+        n2 = kmer_codes(qs, 1, k, codes[n1:]).size
+        if n1 == 0 or n2 == 0:
+            yield 0.0
+            continue
+        n = n1 + n2
+        K = np.right_shift(codes[:n], np.uint64(32), out=key[:n],
+                           casting="unsafe")
+        K.sort()
+        # runs of equal keys: -1, then each run's last index
+        brk = np.not_equal(K[1:], K[:-1], out=flag[:n - 1])
+        r = int(np.count_nonzero(brk)) + 1
+        E = ends[:r + 1]
+        E[0], E[1:r], E[r] = -1, np.flatnonzero(brk), n - 1
+        L = np.subtract(E[1:], E[:-1], out=lens[:r])
+        g = np.take(K, E[1:], out=group[:r], mode="clip")
+        g >>= np.uint32(1)
+        # a k-mer of both sequences: its rid-0 run, then its rid-1 run
+        both = np.equal(g[1:], g[:-1], out=flag[:r - 1])
+        m = np.minimum(L[1:], L[:-1], out=mins[:r - 1])
+        m *= both
+        shared = int(m.sum())
+        yield max(shared / n1, shared / n2)

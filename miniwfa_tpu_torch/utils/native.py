@@ -15,6 +15,7 @@ import ctypes
 import os
 import subprocess
 import threading
+from typing import Optional
 
 import numpy as np
 
@@ -75,10 +76,18 @@ def available() -> bool:
     return _load() is not None
 
 
-def kmer_codes(seq: bytes, rid: int, k: int) -> np.ndarray:
-    """(kmer<<1|rid)<<32|end_pos codes (reference mg_fc_kmer semantics)."""
+def kmer_codes(seq: bytes, rid: int, k: int,
+               out: Optional[np.ndarray] = None) -> np.ndarray:
+    """(kmer<<1|rid)<<32|end_pos codes (reference mg_fc_kmer semantics),
+    written to the front of ``out`` (contiguous uint64, len(seq) at
+    least) when it is given."""
     lib = _load()
-    out = np.empty(max(len(seq), 1), dtype=np.uint64)
+    if out is None:
+        out = np.empty(max(len(seq), 1), dtype=np.uint64)
+    elif (out.dtype != np.uint64 or not out.flags.c_contiguous
+          or out.size < len(seq)):
+        raise ValueError(f"kmer_codes needs a contiguous uint64 out of "
+                         f"{len(seq)} codes at least")
     n = lib.mwf_kmer_codes(
         seq, len(seq), rid, k,
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)))

@@ -24,7 +24,7 @@ from miniwfa_tpu.utils import io as jio
 from miniwfa_tpu_torch import Options, cigar as C, convert
 from miniwfa_tpu_torch.models import exact
 from miniwfa_tpu_torch.ops import kmer, pack
-from miniwfa_tpu_torch.utils import io
+from miniwfa_tpu_torch.utils import io, native
 
 OPTS = [Options(), Options().as_edit_distance(), Options().as_single_affine(),
         Options(x=6, o1=5, e1=3, o2=20, e2=1, max_s=100)]
@@ -92,27 +92,91 @@ def test_read_fastx_matches(tmp_path):
         assert got == want and got
 
 
-def _random_seqs(seed, n, alphabet=b"ACGT"):
+def _random_seqs(seed, n, alphabet=b"ACGT", lo=0, hi=300):
     rng = np.random.default_rng(seed)
     return [rng.choice(np.frombuffer(alphabet, np.uint8),
-                       int(rng.integers(0, 300))).tobytes()
+                       int(rng.integers(lo, hi))).tobytes()
             for _ in range(n)]
 
 
-@pytest.mark.parametrize("cpw,alphabet", [(16, b"ACGT"), (4, b"ACGTNacgt")])
-def test_pack_words_match(cpw, alphabet):
-    seqs = _random_seqs(3, 6, alphabet)
+_NT2 = np.zeros(256, dtype=np.uint32)
+_NT2[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4)
+
+
+def _scatter_pack_words(seqs, cpw, length=None):
+    """The port's first packer, frozen: uint32 codes by one masked
+    scatter, then ``cpw`` strided planes ORed into the words."""
+    bits = 2 if cpw == 16 else 8
+    lens = np.fromiter(map(len, seqs), np.int64, len(seqs))
+    if length is None:
+        length = int(lens.max(initial=0))
+    nw = pack.n_words(length, cpw)
+    codes = np.zeros((len(seqs), nw * cpw), dtype=np.uint32)
+    raw = np.frombuffer(b"".join(seqs), dtype=np.uint8)
+    codes[np.arange(nw * cpw) < lens[:, None]] = \
+        _NT2[raw] if cpw == 16 else raw
+    v = codes.reshape(len(seqs), nw, cpw)
+    w = np.zeros((len(seqs), nw), dtype=np.uint32)
+    for j in range(cpw):
+        w |= v[:, :, j] << np.uint32(bits * j)
+    return w.view(np.int32)
+
+
+# (cpw, rows, shortest, longest + 1, alphabet, length beyond the longest
+# row); more than pack._ROW_COPY_MAX rows take the masked scatter
+PACK_CASES = [
+    pytest.param(16, 6, 0, 300, b"ACGT", 0, id="16-ACGT"),
+    pytest.param(4, 6, 0, 300, b"ACGTNacgt", 0, id="4-ACGTNacgt"),
+    pytest.param(16, 1, 1, 300, b"ACGT", 0, id="16-one-row"),
+    pytest.param(4, 1, 1, 300, b"ACGTNacgt", 0, id="4-one-row"),
+    pytest.param(16, 16, 20000, 40001, b"ACGT", 0, id="16-16x40kb"),
+    pytest.param(4, 16, 20000, 40001, b"ACGTUacgtu", 0, id="4-16x40kb"),
+    pytest.param(16, 4096, 0, 128, b"ACGT", 0, id="16-4096x127"),
+    pytest.param(4, 4096, 0, 128, b"ACGTNacgt", 0, id="4-4096x127"),
+    pytest.param(16, 7, 0, 301, b"ACGT", 37, id="16-length-beyond"),
+    pytest.param(4, 300, 0, 64, b"ACGTN", 5, id="4-length-beyond"),
+]
+
+
+@pytest.mark.parametrize("cpw,rows,lo,hi,alphabet,extra", PACK_CASES)
+def test_pack_words_match(cpw, rows, lo, hi, alphabet, extra):
+    seqs = _random_seqs(3, rows, alphabet, lo, hi)
+    if rows > 1:   # an empty row, and one of cpw - 1 characters mod cpw
+        n = (hi - 1) // cpw * cpw - 1
+        seqs[1], seqs[-1] = b"", _random_seqs(4, 1, alphabet, n, n + 1)[0]
     assert pack.can_pack2(seqs) == jpack.can_pack2(seqs)
-    words = pack.pack_words(seqs, cpw)
+    longest = max(map(len, seqs))
+    length = longest + extra if extra else None
+    words = pack.pack_words(seqs, cpw, length)
+    assert words.dtype == np.int32 and words.flags.c_contiguous
+    assert words.shape == (rows, pack.n_words(longest + extra, cpw))
+    assert np.array_equal(words, _scatter_pack_words(seqs, cpw, length))
     for s, w in zip(seqs, words):
         jw = jtbd.pack_flat_words(s, cpw)   # same stream, other padding
         n = (len(s) + cpw - 1) // cpw
         assert np.array_equal(w[:n], jw[:n])
         assert not w[n:].any()
-    flat = convert.words_from_table(jwk.pack_table(seqs, cpw))
+    # the JAX kernel's word tables, on at most 16 rows (a table is 64 KiB)
+    head, words = seqs[:16], words[:16]
+    flat = convert.words_from_table(jwk.pack_table(head, cpw))
     assert np.array_equal(flat[:, :words.shape[1]], words)
     assert np.array_equal(convert.table_from_words(words),
-                          jwk.pack_table(seqs, cpw))
+                          jwk.pack_table(head, cpw))
+
+
+@pytest.mark.parametrize("seqs,want", [
+    ([b"ACGT", b"TTGCA"], True),
+    ([b"ACGTN"], False),
+    ([b"acgt"], False),            # case-sensitive like the reference
+    ([b"ACGU"], False),
+    ([b"ACGT" * 1000, b"ACGT", b"GATTACAn"], False),
+    ([b"", b"ACGT"], True),
+    ([b"", b""], True),
+    ([], True),
+])
+def test_can_pack2_match(seqs, want):
+    assert pack.can_pack2(seqs) is want
+    assert jpack.can_pack2(seqs) is want
 
 
 def test_convert_round_trips():
@@ -143,6 +207,36 @@ def test_ksim_matches(seed):
     assert kmer.ksim(t, q, 13) == jkmer.ksim(t, q, 13)
     assert np.array_equal(kmer.kmer_codes(t, 1, 13),
                           jkmer.kmer_codes(t, 1, 13))
+
+
+@pytest.mark.parametrize("backend", ["native", "numpy"])
+def test_ksims_match(backend, monkeypatch):
+    """``ksims`` reuses its work arrays from pair to pair: longest pair
+    first, then pairs with k-mer runs longer than one, with no valid
+    k-mer, shorter than k, and one sequence against itself."""
+    if backend == "native" and not native.available():
+        pytest.skip("g++ is not available to build the native runtime")
+    if backend == "numpy":
+        monkeypatch.setattr(native, "available", lambda: False)
+    rng = np.random.default_rng(11)
+    t = rng.choice(np.frombuffer(b"ACGTN", np.uint8), 5000).tobytes()
+    q = bytearray(t[:4000])
+    for i in rng.choice(len(q), 200, replace=False):
+        q[i] = int(rng.choice(np.frombuffer(b"ACGT", np.uint8)))
+    pairs = [(t, bytes(q)), (b"ACGT" * 60, b"ACGTTACG" * 20 + b"ACGT" * 9),
+             (b"N" * 40, b"ACGT" * 10), (b"ACG", b"ACGTACGT" * 5),
+             (t[:700], t[:700]), (b"GATTACA" * 3, b"")]
+    for k in (13, 5):
+        want = [jkmer.ksim(a, b, k) for a, b in pairs]
+        assert list(kmer.ksims(pairs, k)) == want
+        assert [kmer.ksim(a, b, k) for a, b in pairs] == want
+    out = np.full(len(t) + 7, 9, np.uint64)
+    codes = kmer.kmer_codes(t, 1, 13, out)
+    assert np.shares_memory(codes, out)
+    assert np.array_equal(codes, jkmer.kmer_codes(t, 1, 13))
+    if backend == "native":
+        with pytest.raises(ValueError):   # too short for the sequence
+            native.kmer_codes(t, 1, 13, out[:100])
 
 
 def _escalated(fn, bk, ovf_band, ovf_scap):
