@@ -17,8 +17,9 @@ Host work (cheap, O(n+s) per pair): sequence packing, capacity bucket
 selection with escalate-and-retry on overflow, checkpoint decoding.  A
 call's host stages are profiler ranges (utils/spans.py): ``mwf.size``
 (first_bucket, pass2_bucket), ``mwf.pack`` (kernel_inputs),
-``mwf.dispatch`` (the copies to the device and the launch) and
-``mwf.cigars`` (the walker and the CIGAR lists).
+``mwf.dispatch`` (the copies to the device and the launch),
+``mwf.checkpoints`` (low-mem pass 1: the checkpoint chain and its
+decoding) and ``mwf.cigars`` (the walker and the CIGAR lists).
 Device work: the whole wavefront loop of a batch (ops/wavefront_kernel.py, one
 cluster of blocks per lane, or with ``MWF_ENGINE=multi`` several lanes per
 block, ops/wavefront_multi.py; past its windows, score and pass-1 runs go to
@@ -489,20 +490,22 @@ def _run_pass1(opt: Options, ts_list: List[bytes], qs_list: List[bytes],
             opt, MODE_PASS1, bk, [ts_list[i] for i in idx],
             [qs_list[i] for i in idx], device)
         ovf = (o[:, wk.O_OVFB] | o[:, wk.O_OVFS]) != 0
-        # chase the chains on the device; only one pointer per snapshot
-        # row and lane comes back
-        fin, recs = tbd.chain_ptrs(snap, np.where(ovf, -1, o[:, wk.O_LP]),
-                                   np.where(ovf, 0, o[:, wk.O_SNC]))
-        snap = None   # free the snapshots before the next dispatch
-        retry = []
-        for j, i in enumerate(idx):
-            if ovf[j]:
-                retry.append(i)
-                continue
-            s_fin[i] = int(o[j, wk.O_S])
-            segs[i] = tbk.decode_checkpoints_ptrs(
-                recs[:, j], int(fin[j]), int(lanes[j, wk.L_ANC]),
-                int(o[j, wk.O_SNC]), spec)
+        with span(None, "checkpoints"):
+            # chase the chains on the device; only one pointer per
+            # snapshot row and lane comes back
+            fin, recs = tbd.chain_ptrs(snap,
+                                       np.where(ovf, -1, o[:, wk.O_LP]),
+                                       np.where(ovf, 0, o[:, wk.O_SNC]))
+            snap = None   # free the snapshots before the next dispatch
+            retry = []
+            for j, i in enumerate(idx):
+                if ovf[j]:
+                    retry.append(i)
+                    continue
+                s_fin[i] = int(o[j, wk.O_S])
+                segs[i] = tbk.decode_checkpoints_ptrs(
+                    recs[:, j], int(fin[j]), int(lanes[j, wk.L_ANC]),
+                    int(o[j, wk.O_SNC]), spec)
         if retry:
             need_band = bool(o[:, wk.O_OVFB].any())
             if need_band and bk.W >= min(bk.W_full, w_cap):

@@ -15,8 +15,10 @@ total holds its kernels' time.
 ``models/exact.py::align_batch`` opens one flat span a stage, in the
 order a call runs them: ``size`` (the bucket, with the k-mer score
 estimate), ``pack`` (the kernel's inputs), ``dispatch`` (the host-device
-copies and the launch wrapper) and ``cigars`` (the walker and the CIGAR
-lists).  The drivers' spans may enclose these.
+copies and the launch wrapper), ``checkpoints`` (low-mem pass 1's
+checkpoint chain and its decoding, after each pass-1 dispatch) and
+``cigars`` (the walker and the CIGAR lists).  The drivers' spans may
+enclose these.
 
 A range is recorded by ``_RecordFunctionFast``, a plain host operation,
 not by ``torch.profiler.record_function``: the latter records a user

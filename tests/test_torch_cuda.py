@@ -1865,8 +1865,10 @@ def test_multicard_wide_route_matches_single(goldens, monkeypatch, run):
 
 @pytest.mark.parametrize("opt,stages", [
     (Options(), {"size", "pack", "dispatch"}),
-    (Options(cigar=True), {"size", "pack", "dispatch", "cigars"})],
-    ids=["score", "cigar"])
+    (Options(cigar=True), {"size", "pack", "dispatch", "cigars"}),
+    (Options(cigar=True, step=500),
+     {"size", "pack", "dispatch", "checkpoints", "cigars"})],
+    ids=["score", "cigar", "lowmem"])
 def test_align_batch_stages_are_host_ranges_on_the_card(dev, opt, stages):
     """Under ``torch.profiler`` with CUDA activity, each of
     ``align_batch``'s stages is a host range ``mwf.<stage>``, and none is

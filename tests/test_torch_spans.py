@@ -1,8 +1,10 @@
 """The host spans of ``utils/spans.py`` on the CPU: each span is a host
 operation ``mwf.<name>`` on the profiler's timeline, with or without a
 ``Spans``; ``align_batch`` opens its stages (size, pack, dispatch,
-cigars) flat and in the order a call runs them, in every mode; and the
-chain driver's ``Spans.totals`` fill as they did before the ranges."""
+checkpoints, cigars) flat and in the order a call runs them, in every
+mode, and the benchmark's stage readers split a call's rest by them to
+the last digit; and the chain driver's ``Spans.totals`` fill as they did
+before the ranges."""
 
 import pytest
 import torch
@@ -90,9 +92,11 @@ def test_span_closes_on_an_exception():
 @pytest.mark.parametrize("opt,stages", [
     (Options(), ["size", "pack", "dispatch"]),
     (Options(cigar=True), ["size", "pack", "dispatch", "cigars"]),
-    # low-mem: pass 1's sizing, packing and dispatch, then pass 2's
+    # low-mem: pass 1's sizing, packing, dispatch and checkpoints, then
+    # pass 2's
     (Options(cigar=True, step=40),
-     ["size", "pack", "dispatch", "size", "pack", "dispatch", "cigars"]),
+     ["size", "pack", "dispatch", "checkpoints", "size", "pack", "dispatch",
+      "cigars"]),
 ], ids=["score", "cigar", "lowmem"])
 def test_align_batch_stages_in_order(opt, stages):
     res, prof = _traced(lambda: exact.align_batch(_pairs(), opt,
@@ -116,6 +120,50 @@ def test_align_batch_escalation_repeats_its_stages():
         == names.count("mwf.cigars") >= 2
     assert set(names) == {"mwf.size", "mwf.pack", "mwf.dispatch",
                           "mwf.cigars"}
+
+
+def _split(prof):
+    """The benchmark's stage readers on the profiled call, the card taken
+    as idle throughout (one empty device event): (the call's rest in ms,
+    {stage: ms})."""
+    from wfabench import stages
+    ev = [(e.time_range.start, e.time_range.end) for e in prof.events()]
+    a, b = min(x for x, _ in ev), max(y for _, y in ev)
+    rec = {"stretch": {
+        "calls": [(a, b)], "lo": a, "hi": b, "cards": [0],
+        "events": [{"name": "none", "dev": 0, "start": a, "end": a}],
+        "host": [{"name": e.name, "start": e.time_range.start,
+                  "end": e.time_range.end} for e in prof.events()]}}
+    names = {n[len(sp.PREFIX):] for n, _, _ in _ranges(prof)}
+    return (b - a) / 1e3, {n: stages.ms_per_call(rec, n)
+                           for n in [*names, None]}
+
+
+def test_lowmem_checkpoints_once_a_pass1_dispatch():
+    # a window and cycle budget too small for the pairs: pass 1 re-runs
+    # on the ladder, and each of its dispatches decodes its checkpoints
+    # (the overflowed lanes' none) under one flat span
+    pairs = _pairs(bp=400)
+    opt = Options(cigar=True, step=16)
+    res, prof = _traced(lambda: exact.align_batch(pairs, opt, w0=16, s0=16,
+                                                  device="cpu"))
+    ref = exact.align_batch(pairs, opt, device="cpu")
+    assert [(r.s, r.n_iter, r.cigar) for r in res] == \
+        [(r.s, r.n_iter, r.cigar) for r in ref]
+    got = _ranges(prof)
+    names = [n[len(sp.PREFIX):] for n, _, _ in got]
+    p2 = names.index("size", 1)          # pass 2's sizing
+    assert names[0] == "size" and p2 > 4
+    assert names[1:p2] == ["pack", "dispatch", "checkpoints"] * (
+        (p2 - 1) // 3)
+    assert "checkpoints" not in names[p2:]
+    for (_, _, end), (_, start, _) in zip(got, got[1:]):
+        assert start >= end
+    # the stages and the unnamed rest add up to the call's rest
+    rest, parts = _split(prof)
+    assert all(v >= 0 for v in parts.values())
+    assert parts["checkpoints"] > 0
+    assert sum(parts.values()) == pytest.approx(rest)
 
 
 def test_align_batch_wide_route_dispatches_under_its_span(monkeypatch):
