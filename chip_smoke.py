@@ -83,7 +83,9 @@
    variant, a warp a lane) on 2048 pairs of 1 kb (the chain's K1 gap
    fills come in chunks of 2048) in SCORE and TB, each against the plain
    version; K3 by width class (csrc/gaps.cu, every class the dispatch
-   holds);
+   holds); the ksim kernel at the main path's pairs
+   (``tools/ksim_bench.time_counts``: its launch by CUDA events, its plain
+   version on the card, the host's sorts), held equal to both;
 6. runs the port's benchmarks, each in its own process: ``bench_cuda.py``
    with one timed run and no 2 x 200 kb row (phase 4 has held the same
    rows; this checks the entry point and its JSON line, parity included)
@@ -114,6 +116,11 @@ entry's
 PASS1 those of div5m's pass 1, summed over its calls; ``launches``
 sums phase 4's runs, ``main_launches`` (W1, W2) the main path's alone;
 every entry's ``sharded_launches`` counts phase 4f's launches apart;
+the ksim entry's ``ms`` is its launch at the main path's pairs (the
+table's fill and both kernels), ``kernels_us`` each kernel's device time,
+``plain_ms`` its plain version on the card at the same pairs,
+``wrapper_ms`` the whole ``ksim_counts`` call and ``host_ms`` the host's
+``kmer.ksims``;
 the walk entry also carries the variant each shape picked and each
 variant's time, and the chain_ptrs entry's ``library_ms`` is the
 torch.gather chain at the main shape) and, last, a JSON line with
@@ -193,6 +200,7 @@ def gen_case(name):
 
 
 def _reset_counts():
+    from miniwfa_tpu_torch.ops import kmer
     from miniwfa_tpu_torch.ops import traceback_device as tbd
     from miniwfa_tpu_torch.ops import wavefront_gaps as wg
     from miniwfa_tpu_torch.ops import wavefront_kernel as wk
@@ -214,9 +222,12 @@ def _reset_counts():
     wg.gaps.launches = 0
     wg.gaps.launches_by_variant.clear()
     wg.gaps.dispatches = 0
+    kmer.ksim_counts.launches = 0
+    kmer.ksim_counts.launches_by_card.clear()
 
 
 def _read_counts() -> dict:
+    from miniwfa_tpu_torch.ops import kmer
     from miniwfa_tpu_torch.ops import traceback_device as tbd
     from miniwfa_tpu_torch.ops import wavefront_gaps as wg
     from miniwfa_tpu_torch.ops import wavefront_kernel as wk
@@ -235,7 +246,8 @@ def _read_counts() -> dict:
             "multi_variants": dict(wm.wavefront_multi.launches_by_variant),
             "wide": ww.wide.launches,
             "wide_modes": dict(ww.wide.launches_by_mode),
-            "wide_variants": dict(ww.wide.launches_by_variant)}
+            "wide_variants": dict(ww.wide.launches_by_variant),
+            "ksim": kmer.ksim_counts.launches}
 
 
 def _bound(nbytes: int, ops: int):
@@ -323,7 +335,8 @@ class Smoke:
         self.dev = dev
         self.failures = []
         self.err = {"wavefront": 0, "walk": 0, "gaps": 0, "chain_ptrs": 0,
-                    "wavefront_wide": 0, "wavefront_multi": 0, "probes": 0}
+                    "wavefront_wide": 0, "wavefront_multi": 0, "probes": 0,
+                    "ksim": 0}
 
     def check(self, cond: bool, what: str) -> None:
         print(f"  {'ok  ' if cond else 'FAIL'} {what}", flush=True)
@@ -1076,7 +1089,15 @@ def main_path(smoke: Smoke, card: str) -> dict:
           flush=True)
     launches = {"wavefront": 0, "walk": 0, "modes": {}, "wavefront_multi": 0,
                 "multi_modes": {}, "multi_variants": {}, "clusters": {},
-                "chain_ptrs": 0, "walk_variants": {}}
+                "chain_ptrs": 0, "walk_variants": {}, "ksim": 0}
+    # the sizing's k-mer counts (the ksim kernel) against its plain version
+    from miniwfa_tpu_torch.ops import kmer
+    got = kmer.ksim_counts(list(zip(ts, qs)), 13, "cuda")
+    want = kmer.ksim_counts(list(zip(ts, qs)), 13, "cpu")
+    err = int(abs(got - want).max())
+    smoke.err["ksim"] = max(smoke.err["ksim"], err)
+    smoke.check(err == 0, f"ksim_counts on the card against "
+                f"ksim_counts_plain, {B_MAIN} pairs: max_abs_err={err}")
     walls, results = {}, {}
     for mode, opt, kmodes in modes:
         res, counts, walls[mode], _ = _drive(smoke, mode, list(zip(ts, qs)),
@@ -1110,7 +1131,10 @@ def main_path(smoke: Smoke, card: str) -> dict:
         smoke.check(counts["multi"] == 0, f"main {mode} launched "
                     f"wavefront_multi {counts['multi']} times (the default "
                     f"route is K1)")
-        for k in ("wavefront", "walk", "chain_ptrs"):
+        # the k-mer estimate sizes CIGAR and low-mem batches, not score's
+        smoke.check(counts["ksim"] == int(opt.cigar), f"main {mode} "
+                    f"launched ksim {counts['ksim']} times")
+        for k in ("wavefront", "walk", "chain_ptrs", "ksim"):
             launches[k] += counts[k]
         for key, into in (("modes", "modes"),
                           ("walk_variants", "walk_variants")):
@@ -2002,6 +2026,23 @@ def bench_phase(smoke: Smoke, card: str) -> None:
                        f"{err[-2000:]}"))
 
 
+def ksim_times(smoke, card, ts, qs) -> dict:
+    """The ksim kernel (csrc/ksim.cu) at the main path's pairs:
+    ``tools/ksim_bench.time_counts`` (its launch by CUDA events, the plain
+    version on the card, the wrapper and the host's sorts), held equal to
+    the plain version and the host's similarities."""
+    from miniwfa_tpu_torch.tools import ksim_bench
+    r = ksim_bench.time_counts(list(zip(ts, qs)), smoke.dev)
+    smoke.check(r["equal"], f"ksim {B_MAIN} pairs: the kernel's counts "
+                f"equal the plain version's, its similarities the host's")
+    print(f"  ksim B={B_MAIN} slots={r['slots']}: kernel_ms (fill and both "
+          f"kernels)={r['launch_ms']:.3f} {r['kernels_us']} plain_ms (on "
+          f"the card)={r['plain_ms']:.3f} wrapper_ms={r['wrapper_ms']:.3f} "
+          f"host_ms={r['host_ms']:.3f} bound_ms={r['bound_ms']:.6f} (bytes) "
+          f"card={card}", flush=True)
+    return {"ms": r["launch_ms"], "bound_by": "bytes", **r}
+
+
 def main() -> int:
     try:
         import torch
@@ -2080,6 +2121,7 @@ def main() -> int:
     ftimes = gap_fill_times(smoke, card)
     wtime = wide_times(smoke, card, winfo["first"]["nbear1m"])
     wreal = wide_real_shapes(smoke, card, winfo["first"])
+    ktime = ksim_times(smoke, card, info["ts"], info["qs"])
     t3 = time.perf_counter()
     bench_phase(smoke, card)
     print(f"phase seconds: kernels {tp - t0:.1f}, probes {t1 - tp:.1f}, "
@@ -2205,7 +2247,13 @@ def main() -> int:
          "modes": {m: {"launches": launches["multi_modes"].get(m, 0),
                        **times[m]["multi"]} for m in ("SCORE", "TB")},
          "gap_fills": {**fills["SCORE"], "TB": fills["TB"]}},
-        {**probes, "sharded_launches": sharded["probes"]}]
+        {**probes, "sharded_launches": sharded["probes"]},
+        {"name": "ksim", "route": "cuda",
+         "source": "miniwfa_tpu_torch/csrc/ksim.cu",
+         "replaces": None, "launches": launches["ksim"],
+         "max_abs_err": smoke.err["ksim"], "library_ms": None,
+         **{k: ktime[k] for k in ("ms", "bound_ms", "bound_by", "plain_ms",
+                                  "kernels_us", "wrapper_ms", "host_ms")}}]
     print(json.dumps({"kernels": kernels}), flush=True)
     if smoke.failures:
         print(f"chip_smoke: {len(smoke.failures)} check(s) failed:",

@@ -16,7 +16,9 @@ each checkpoint score, so its traceback table needs a band of about
 Host work (cheap, O(n+s) per pair): sequence packing, capacity bucket
 selection with escalate-and-retry on overflow, checkpoint decoding.  A
 call's host stages are profiler ranges (utils/spans.py): ``mwf.size``
-(first_bucket, pass2_bucket), ``mwf.pack`` (kernel_inputs),
+(first_bucket, pass2_bucket; on the card the first bucket's k-mer
+estimate counts the batch's k-mers in the ksim kernel, ops/kmer.py
+``ksims_device``), ``mwf.pack`` (kernel_inputs),
 ``mwf.dispatch`` (the copies to the device and the launch),
 ``mwf.checkpoints`` (low-mem pass 1: the checkpoint chain and its
 decoding) and ``mwf.cigars`` (the walker and the CIGAR lists).
@@ -154,16 +156,19 @@ def _escalate(bk: _Buckets, ovf_band: bool, ovf_scap: bool) -> _Buckets:
     return _Buckets(bk.LT, bk.LQ, W, S, bk.W_full, bk.S_full)
 
 
-def _estimate_s(opt: Options, ts_list, qs_list) -> Tuple[int, int]:
-    """Host-side k-mer estimate of the batch's max optimal score, for
-    sizing the first CIGAR-mode dispatch instead of climbing the
-    escalation ladder.
+def _estimate_s(opt: Options, ts_list, qs_list,
+                device: torch.device = torch.device("cpu")
+                ) -> Tuple[int, int]:
+    """k-mer estimate of the batch's max optimal score, for sizing the
+    first CIGAR-mode or pass-1 dispatch instead of climbing the escalation
+    ladder.
 
-    Uses the k-mer similarity (ops.kmer.ksims, the reference mwf_ksim,
-    miniwfa.c:786-812): divergence ≈ 1 - sim^(1/k), each diverged base
-    costs ≤ x, plus the length-difference gap cost.  Clustered divergence
-    makes this an underestimate — the escalation ladder stays as the
-    backstop.
+    Uses the k-mer similarity (the reference mwf_ksim, miniwfa.c:786-812)
+    from ops.kmer.ksims_device on ``device``: the ksim kernel's counts on
+    a card, its plain version's on the CPU.  Divergence ≈ 1 - sim^(1/k),
+    each diverged base costs ≤ x, plus the length-difference gap cost.
+    Clustered divergence makes this an underestimate — the escalation
+    ladder stays as the backstop.
 
     Returns (s_for_scap, s_for_band) with 1.5x / 1.15x margins; (0, 0)
     when the estimate is unusable (tiny pairs, non-ACGT content, no
@@ -173,7 +178,7 @@ def _estimate_s(opt: Options, ts_list, qs_list) -> Tuple[int, int]:
     pairs = list(zip(ts_list, qs_list))
     if any(min(len(t), len(q)) < 2048 for t, q in pairs):
         return 0, 0              # ladder rungs are cheap at this size
-    for (t, q), sim in zip(pairs, km.ksims(pairs, 13)):
+    for (t, q), sim in zip(pairs, km.ksims_device(pairs, 13, device)):
         tl, ql = len(t), len(q)
         if sim <= 0.0:
             return 0, 0          # dissimilar or non-ACGT: keep the ladder
@@ -417,8 +422,10 @@ def first_bucket(opt: Options, mode: int, ts_list, qs_list, w0: int,
         # real band: size them from the k-mer divergence estimate,
         # replacing the caller's w0/s0 hints.  Pass 1 takes more window
         # slack, since an abandoned rung re-runs it whole and reallocates
-        # its snapshots.
-        s_cap_e, s_band_e = _estimate_s(opt, ts_list, qs_list)
+        # its snapshots.  The estimate's k-mer counts run on the card,
+        # idle until the first dispatch, and their table is freed before
+        # it.
+        s_cap_e, s_band_e = _estimate_s(opt, ts_list, qs_list, device)
         if not s_cap_e:
             return bk, w_cap
         ns = opt.max_pen + 1

@@ -5,18 +5,27 @@ Semantics replicate the reference (miniwfa.c:699-848): 2-bit rolling
 k-mers over ACGT (anything else resets the window), low-occurrence match
 pairing (per-side occurrence <= max_occ), LIS co-linear chaining,
 gapless-run anchor filtering, and the k-mer multiset similarity
-(``ksim``), which also sizes the exact driver's first CIGAR-mode
-dispatch (models/exact.py ``_estimate_s``).  Runs on the host, over the
-native runtime when it is built (utils/native.py), else over numpy.
+(``ksim``).  These run on the host, over the native runtime when it is
+built (utils/native.py), else over numpy.  The similarity that sizes the
+exact path's first CIGAR-mode and pass-1 dispatch (models/exact.py
+``_estimate_s``) runs on the batch's device instead: ``ksims_device``
+counts every lane's k-mers in one hash table on the card
+(``csrc/ksim.cu``), or in its plain PyTorch twin on the CPU
+(``ksim_counts_plain``), and the host takes the ratios of the counts.
 """
 
 from __future__ import annotations
 
+import collections
+import ctypes
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..utils import native
+from ..utils.launches import count_launch
+from . import build
 
 # A/a→0, C/c→1, G/g→2, T/t/U/u→3, else 4 (reference seq_nt4_table,
 # miniwfa.c:699-716)
@@ -214,3 +223,120 @@ def ksims(pairs: Sequence[Tuple[bytes, bytes]], k: int) -> Iterator[float]:
         m *= both
         shared = int(m.sum())
         yield max(shared / n1, shared / n2)
+
+
+# bytes a table slot: a uint64 key and a uint32 count a side
+KSIM_SLOT_BYTES = 16
+_NT4_T = torch.from_numpy(NT4)
+
+
+def ksim_slots(n_kmers: int) -> int:
+    """Slots of a launch's hash table: the power of two at or above twice
+    its k-mers, so that linear probes stay short."""
+    return 1 << max(1, (2 * n_kmers - 1).bit_length())
+
+
+def ksim_budget(device: torch.device) -> int:
+    """Table bytes one launch may hold: a quarter of the card's memory, as
+    one CIGAR-mode dispatch's traceback table (models/exact.py
+    ``_tb_budget``)."""
+    return torch.cuda.get_device_properties(device).total_memory // 4
+
+
+def ksim_counts_plain(buf: torch.Tensor, seg: torch.Tensor,
+                      k: int) -> torch.Tensor:
+    """Plain PyTorch version of the ksim kernel: ``buf`` uint8, the
+    sequences joined in order; ``seg`` int64 [2L, 2], (offset, length) of
+    lane l's target (row 2l) and query (2l + 1).  Returns int64 [L, 3]:
+    the k-mer multiset intersection, the target's and the query's valid
+    k-mers, as ``ksims`` counts them, by one sort of (lane, k-mer, side)
+    keys."""
+    L = seg.shape[0] // 2
+    dev = buf.device
+    out = torch.zeros((L, 3), dtype=torch.int64, device=dev)
+    m = buf.numel() - k + 1
+    if m <= 0:
+        return out
+    nt = _NT4_T.to(dev)[buf.long()].long()
+    x = torch.zeros(m, dtype=torch.int64, device=dev)
+    ok = torch.ones(m, dtype=torch.bool, device=dev)
+    for j in range(k):
+        c = nt[j:j + m]
+        x = (x << 2) | (c & 3)
+        ok &= c < 4
+    # the segment of each window's first byte: the window has to end in it
+    s = torch.repeat_interleave(torch.arange(2 * L, device=dev), seg[:, 1],
+                                output_size=buf.numel())[:m]
+    ok &= torch.arange(k, m + k, device=dev) <= seg[s, 0] + seg[s, 1]
+    keys = (((s >> 1) << (2 * k) | x) << 1 | (s & 1))[ok]
+    u, c = torch.unique(keys, return_counts=True)
+    lane = u >> (2 * k + 1)
+    out.view(-1).index_add_(0, lane * 3 + 1 + (u & 1), c)
+    # a k-mer of both sides: its side-0 key, then its side-1 key
+    both = (u[1:] >> 1) == (u[:-1] >> 1)
+    out[:, 0].index_add_(0, lane[1:][both],
+                         torch.minimum(c[1:], c[:-1])[both])
+    return out
+
+
+def ksim_counts(pairs: Sequence[Tuple[bytes, bytes]], k: int,
+                device) -> np.ndarray:
+    """(shared, n1, n2) of each pair, int64 [B, 3]: the k-mer multiset
+    intersection and each side's valid k-mers.  On a CUDA device the
+    batch's bytes go to the card in one copy and one launch of the ksim
+    kernel (csrc/ksim.cu) counts them, counted in
+    ``ksim_counts.launches``; a batch whose table would pass
+    ``ksim_budget`` takes a launch a pair.  A launch sums at most 2048
+    lanes.  The CPU runs ``ksim_counts_plain``.  The hash table is freed
+    before this returns."""
+    device = torch.device(device)
+    if not 1 <= k <= 15:
+        raise ValueError(f"ksim counts k-mers of 1 to 15 bases, not {k}")
+    seqs = [s for p in pairs for s in p]
+    lens = np.array([len(s) for s in seqs], np.int64)
+    if lens.size == 0 or lens.max() < k:
+        return np.zeros((len(pairs), 3), np.int64)
+    seg = torch.from_numpy(np.stack([np.cumsum(lens) - lens, lens], 1))
+    buf = torch.frombuffer(bytearray().join(seqs), dtype=torch.uint8)
+    if device.type == "cpu":
+        return ksim_counts_plain(buf, seg, k).numpy()
+    slots = ksim_slots(int(np.maximum(lens - k + 1, 0).sum()))
+    if len(pairs) > 1 and slots * KSIM_SLOT_BYTES > ksim_budget(device):
+        return np.concatenate([ksim_counts([p], k, device) for p in pairs])
+    return _launch(buf.to(device), seg.to(device), int(lens.max()), k,
+                   slots).cpu().numpy()
+
+
+def _launch(buf: torch.Tensor, seg: torch.Tensor, longest: int, k: int,
+            slots: int) -> torch.Tensor:
+    dev = buf.device
+    L = seg.shape[0] // 2
+    # slots uint64 keys, then 2 x slots uint32 counts
+    table = torch.zeros(2 * slots, dtype=torch.int64, device=dev)
+    out = torch.zeros((L, 3), dtype=torch.int64, device=dev)
+    fn = build.load("ksim", "mwf_ksim",
+                    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                     ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+                     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                     ctypes.c_void_p])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(buf.data_ptr(), seg.data_ptr(), L, longest, k,
+                table.data_ptr(), table[slots:].data_ptr(), slots,
+                out.data_ptr(), stream)
+    if rc:
+        raise RuntimeError(f"ksim kernel launch failed: CUDA error {rc}")
+    count_launch(ksim_counts, card=dev.index)
+    return out
+
+
+ksim_counts.launches = 0
+ksim_counts.launches_by_card = collections.Counter()
+
+
+def ksims_device(pairs: Sequence[Tuple[bytes, bytes]], k: int,
+                 device) -> List[float]:
+    """``ksim`` of each pair, from ``ksim_counts`` on ``device``: the
+    same floats as ``ksims``, whose integer counts these are."""
+    return [max(s / n1, s / n2) if n1 and n2 else 0.0
+            for s, n1, n2 in ksim_counts(pairs, k, device).tolist()]

@@ -20,6 +20,7 @@ from miniwfa_tpu_torch import Options, cigar
 from miniwfa_tpu_torch.models import exact
 from miniwfa_tpu_torch.models import traceback as tbk
 from miniwfa_tpu_torch.ops import build
+from miniwfa_tpu_torch.ops import kmer
 from miniwfa_tpu_torch.ops import probes as pb
 from miniwfa_tpu_torch.ops import probes_multi as pm
 from miniwfa_tpu_torch.ops import traceback_device as tbd
@@ -1893,3 +1894,104 @@ def test_align_batch_stages_are_host_ranges_on_the_card(dev, opt, stages):
     # the card ran the call's kernels inside the traced range
     assert any(e.device_type == DeviceType.CUDA
                and "wavefront_kernel" in e.name for e in events)
+
+
+def _ksim_pool(name):
+    """The ksim kernel's pools: the cells' shapes (16 x 100 kb, one 1 Mb
+    lane), 64 lanes of 5 kb (first_bucket's most), and the counts' corners
+    (a homopolymer, lowercase, U/u and N bytes, unequal lengths)."""
+    import json
+    from wfabench import gen
+    if name == "corners":
+        rng = np.random.default_rng(3)
+        t = rng.choice(np.frombuffer(b"ACGTacgtUuN", np.uint8), 9000)
+        q = t.copy()
+        q[rng.choice(q.size, 400, replace=False)] = rng.choice(
+            np.frombuffer(b"ACGT", np.uint8), 400)
+        t, q = bytes(t), bytes(q)
+        return [(b"A" * 10013, b"A" * 9000 + b"C" * 13 + b"A" * 1100),
+                (t, q), (t.lower(), t.upper().replace(b"T", b"U")),
+                (t, q[1000:4000]), (t[:12], q), (b"N" * 3000, q)]
+    cfg_name, n, bp = {"pairs100k": ("pairs100k", 16, None),
+                       "mhc1m": ("mhc1m", 1, None),
+                       "lanes64": ("pairs100k", 64, 5000),
+                       "pairs5k": ("pairs100k", 16, 5000)}[name]
+    with open(os.path.join(os.path.dirname(__file__), "..", "wfabench",
+                           "configs", f"{cfg_name}.json")) as f:
+        cfg = json.load(f)
+    if bp:
+        cfg["target_bp"] = bp
+    return gen.make_pool(cfg, n, 2 ** 31 + 777)
+
+
+@pytest.mark.parametrize("name,budget", [
+    ("pairs100k", None), ("mhc1m", None), ("lanes64", None),
+    ("corners", None), ("pairs100k", 6 << 20)])
+def test_ksim_kernel_matches_plain(dev, monkeypatch, name, budget):
+    """The ksim kernel's (shared, n1, n2) equal its plain version's, and
+    its similarities the host's ``ksims``: one launch a batch, 64 lanes
+    included, and one a pair where the batch's table would pass the
+    budget (6 MiB: 16 lanes of 100 kb)."""
+    pairs = _ksim_pool(name)
+    if budget is not None:
+        monkeypatch.setattr(kmer, "ksim_budget", lambda device: budget)
+    before = kmer.ksim_counts.launches
+    got = kmer.ksim_counts(pairs, 13, dev)
+    torch.cuda.synchronize(dev)
+    assert kmer.ksim_counts.launches == before + (len(pairs) if budget
+                                                  else 1)
+    assert np.array_equal(got, kmer.ksim_counts(pairs, 13, "cpu"))
+    assert kmer.ksims_device(pairs, 13, dev) == list(kmer.ksims(pairs, 13))
+
+
+def _host_ksims(pairs, k, device):
+    return list(kmer.ksims(pairs, k))
+
+
+@pytest.mark.parametrize("name", ["pairs100k", "mhc1m"])
+@pytest.mark.parametrize("mode", [wk.MODE_TB, wk.MODE_PASS1])
+def test_first_bucket_on_the_card_matches_the_host(dev, monkeypatch, name,
+                                                   mode):
+    """``first_bucket`` sizes a batch from the card's k-mer counts exactly
+    as from the host's, in TB and PASS1 mode, at the cells' shapes."""
+    pairs = _ksim_pool(name)
+    ts, qs = [t for t, _ in pairs], [q for _, q in pairs]
+    opt = Options(cigar=True, step=5000 if mode == wk.MODE_PASS1 else 0)
+    assert exact._estimate_s(opt, ts, qs, dev) != (0, 0)
+    got = exact.first_bucket(opt, mode, ts, qs, 512, 512, dev)
+    monkeypatch.setattr(kmer, "ksims_device", _host_ksims)
+    assert got == exact.first_bucket(opt, mode, ts, qs, 512, 512, dev)
+
+
+def test_ksim_launches_once_a_sized_call(dev):
+    """A CIGAR and a low-mem call whose pairs pass 2048 bp launch the ksim
+    kernel once each; a score call never."""
+    pairs = _ksim_pool("pairs5k")
+    for opt, n in ((Options(cigar=True), 1), (Options(), 0),
+                   (Options(cigar=True, step=5000), 1)):
+        before = kmer.ksim_counts.launches
+        exact.align_batch(pairs, opt, device=dev)
+        assert kmer.ksim_counts.launches == before + n, opt
+
+
+@pytest.mark.parametrize("name,step", [("pairs100k", 0), ("pairs100k", 5000),
+                                       ("mhc1m", 5000)])
+def test_ksim_table_leaves_the_peak_alone(dev, monkeypatch, name, step):
+    """A call's peak card memory and its answers are the same with the
+    card's k-mer counts as with the host's: the hash table is freed
+    before the first dispatch."""
+    pairs = _ksim_pool(name)
+    opt = Options(cigar=True, step=step)
+    exact.align_batch(pairs, opt, device=dev)           # builds the kernels
+
+    def call():
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        res = exact.align_batch(pairs, opt, device=dev)
+        torch.cuda.synchronize(dev)
+        return (torch.cuda.max_memory_allocated(dev),
+                [(r.s, r.n_iter, r.cigar_str) for r in res])
+
+    card = call()
+    monkeypatch.setattr(kmer, "ksims_device", _host_ksims)
+    assert card == call()

@@ -209,11 +209,13 @@ def test_ksim_matches(seed):
                           jkmer.kmer_codes(t, 1, 13))
 
 
-@pytest.mark.parametrize("backend", ["native", "numpy"])
+@pytest.mark.parametrize("backend", ["native", "numpy", "plain"])
 def test_ksims_match(backend, monkeypatch):
     """``ksims`` reuses its work arrays from pair to pair: longest pair
     first, then pairs with k-mer runs longer than one, with no valid
-    k-mer, shorter than k, and one sequence against itself."""
+    k-mer, shorter than k, and one sequence against itself.  "plain":
+    ``ksims_device`` on the CPU (the ksim kernel's plain version) gives
+    the same floats."""
     if backend == "native" and not native.available():
         pytest.skip("g++ is not available to build the native runtime")
     if backend == "numpy":
@@ -230,6 +232,8 @@ def test_ksims_match(backend, monkeypatch):
         want = [jkmer.ksim(a, b, k) for a, b in pairs]
         assert list(kmer.ksims(pairs, k)) == want
         assert [kmer.ksim(a, b, k) for a, b in pairs] == want
+        if backend == "plain":
+            assert kmer.ksims_device(pairs, k, "cpu") == want
     out = np.full(len(t) + 7, 9, np.uint64)
     codes = kmer.kmer_codes(t, 1, 13, out)
     assert np.shares_memory(codes, out)
@@ -237,6 +241,63 @@ def test_ksims_match(backend, monkeypatch):
     if backend == "native":
         with pytest.raises(ValueError):   # too short for the sequence
             native.kmer_codes(t, 1, 13, out[:100])
+
+
+def _ksim_pairs(case):
+    """Pairs of the ksim cases: ``test_ksims_match``'s shapes and the
+    k-mer counts' corners."""
+    rng = np.random.default_rng(7)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    if case == "homopolymer":     # one k-mer ~10k times a side
+        return [(b"A" * 10013, b"A" * 9000 + b"C" * 13 + b"A" * 1100),
+                (b"T" * 5000, b"T" * 7000)]
+    if case == "alphabet":        # lowercase, U/u and N bytes
+        t = rng.choice(np.frombuffer(b"ACGTacgtUuN", np.uint8), 6000)
+        q = t.copy()
+        q[rng.choice(q.size, 300, replace=False)] = rng.choice(acgt, 300)
+        low = bytes(t).lower()
+        return [(bytes(t), bytes(q)), (low, low.upper().replace(b"T", b"U")),
+                (b"acgtn" * 500, b"ACGTN" * 400)]
+    if case == "unequal":
+        t = rng.choice(acgt, 9000).tobytes()
+        return [(t, t[1000:4000]), (t[:40], t), (t[:12], t[:5000]),
+                (t[:13], t[:13])]
+    import json
+    from wfabench import gen
+    with open(os.path.join(os.path.dirname(__file__), "..", "wfabench",
+                           "configs", "pairs100k.json")) as f:
+        cfg = json.load(f)
+    cfg["target_bp"] = 3000
+    return gen.make_pool(cfg, 16, 2 ** 31 + 12345)
+
+
+@pytest.mark.parametrize("case,k", [
+    ("homopolymer", 13), ("alphabet", 13), ("unequal", 13), ("pool16", 13),
+    ("alphabet", 15), ("unequal", 5)])
+def test_ksim_counts_plain_match(case, k):
+    """The ksim kernel's plain version: each lane's (shared, n1, n2) are
+    the host's integer counts, and its similarity is ``kmer.ksims``' and
+    the JAX package's ``ksim`` to the bit."""
+    pairs = _ksim_pairs(case)
+    got = kmer.ksim_counts(pairs, k, "cpu")
+    assert got.shape == (len(pairs), 3) and got.dtype == np.int64
+    for (t, q), (shared, n1, n2) in zip(pairs, got.tolist()):
+        assert (n1, n2) == (kmer.kmer_codes(t, 0, k).size,
+                            kmer.kmer_codes(q, 1, k).size)
+        assert 0 <= shared <= min(n1, n2)
+    want = [jkmer.ksim(t, q, k) for t, q in pairs]
+    assert list(kmer.ksims(pairs, k)) == want
+    assert kmer.ksims_device(pairs, k, "cpu") == want
+
+
+@pytest.mark.parametrize("n,slots", [
+    (0, 2), (1, 2), (2, 4), (3, 8), (176, 512),
+    (16 * (2 * 100_000 - 24), 1 << 23), (2 * 1_000_000 - 24, 1 << 22)])
+def test_ksim_slots(n, slots):
+    """A launch's table: the power of two at or above twice its k-mers
+    (16 x 100 kb: 2^23 slots, 128 MiB; one 1 Mb pair: 2^22, 64 MiB)."""
+    assert kmer.ksim_slots(n) == slots
+    assert slots >= 2 * n and slots & (slots - 1) == 0
 
 
 def _escalated(fn, bk, ovf_band, ovf_scap):
@@ -286,6 +347,7 @@ def test_port_imports_no_jax():
             "'miniwfa_tpu_torch.ops.probes', "
             "'miniwfa_tpu_torch.ops.probes_multi', "
             "'miniwfa_tpu_torch.tools.k1_ab', "
+            "'miniwfa_tpu_torch.tools.ksim_bench', "
             "'miniwfa_tpu_torch.tools.microbench', "
             "'miniwfa_tpu_torch.tools.mp_worker', "
             "'miniwfa_tpu_torch.tools.multicard_smoke', "
